@@ -1,0 +1,17 @@
+"""qmg_tpu_torch: the PyTorch/CUDA port of qmg_tpu.
+
+Each module shares its name with its counterpart in ``qmg_tpu`` and keeps
+the same field layout ``(2, Y, X/2, nc)`` (complex tensors), so the two
+packages are compared array for array. The port covers the n13 flagship
+K-cycle solve: U(1) gauge field -> Wilson2D -> BiCGstab(l) null vectors,
+chiral doubling, block-orthonormal transfers, Galerkin coarse operators,
+dense coarsest inverse -> outer flexible GCR around the K-cycle.
+
+The fine Wilson Dslash inside the K-cycle runs through a hand-written
+CUDA kernel (``csrc/wilson_r1.cu``, wrapper ``wilson_kernel.py``); every
+other operation is plain PyTorch. The package imports no JAX.
+"""
+
+from .lattice import Lattice2D  # noqa: F401
+
+__all__ = ["Lattice2D"]

@@ -1,0 +1,58 @@
+"""Vector and per-site matrix primitives (port of qmg_tpu/linalg.py).
+
+Fields are complex tensors of any shape; "cv" fields are (2, Y, Xh, nc)
+and "cm" fields (2, Y, Xh, nc, nc) with [..., row, col]. Reductions
+return 0-dim tensors on the field's device, so solver loops sync with the
+host only where they test convergence.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["vdot", "norm2sq", "norm", "normalize", "orthogonal",
+           "site_matvec", "stacked_site_matvec", "identity_like"]
+
+
+def vdot(a, b):
+    """<a, b> = sum conj(a) * b over all elements."""
+    return torch.vdot(a.reshape(-1), b.reshape(-1))
+
+
+def norm2sq(a):
+    """||a||^2 as a real 0-dim tensor."""
+    return vdot(a, a).real
+
+
+def norm(a):
+    return torch.sqrt(norm2sq(a))
+
+
+def normalize(a):
+    return a / norm(a)
+
+
+def orthogonal(a, b):
+    """a - <b, a>/<b, b> * b."""
+    return a - (vdot(b, a) / norm2sq(b)) * b
+
+
+def site_matvec(mat, vec):
+    """Per-site y = A x: (..., nc, nc) x (..., nc) -> (..., nc); leading
+    axes broadcast (a batch of fields against one matrix field)."""
+    return (mat * vec.unsqueeze(-2)).sum(-1)
+
+
+def stacked_site_matvec(mats, nbrs):
+    """out[..., i] = sum_{s, j} mats[s, ..., i, j] nbrs[s, ..., j]; ``nbrs``
+    may carry extra leading batch axes after the stacking axis."""
+    n_batch = nbrs.ndim - mats.ndim + 1
+    mats = mats.reshape(mats.shape[:1] + (1,) * n_batch + mats.shape[1:])
+    return (mats * nbrs.unsqueeze(-2)).sum(dim=(0, -1))
+
+
+def identity_like(mat_field):
+    """Per-site identity matrices with the shape/dtype of a cm field."""
+    n = mat_field.shape[-1]
+    eye = torch.eye(n, dtype=mat_field.dtype, device=mat_field.device)
+    return eye.expand(mat_field.shape).clone()

@@ -1,0 +1,99 @@
+"""2D Wilson-Dirac operator, nc=2 (spin x U(1)); port of
+qmg_tpu/operators/wilson.py.
+
+Spin structure per direction::
+
+    clover        = 2w * I
+    hopping_{+x}  = 0.5 [[-w,  1], [ 1, -w]] U_x(s)
+    hopping_{+y}  = 0.5 [[-w, -i], [ i, -w]] U_y(s)
+    hopping_{-x}  = 0.5 [[-w, -1], [-1, -w]] conj(U_x(s-x))
+    hopping_{-y}  = 0.5 [[-w,  i], [-i, -w]] conj(U_y(s-y))
+
+mass in ``shift``; chirality = spin components.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..lattice import Lattice2D, DIR_XM1, DIR_YM1
+from ..cshift import cshift_pull
+from ..stencil import Stencil2D, StencilCoeffs, make_coeffs
+from .. import linalg
+
+# Relative tolerance of ``Wilson2D.from_coeffs``'s structure check: loose
+# enough for complex64 arrays (one float32 rounding of each entry).
+FROM_COEFFS_RTOL = 1e-6
+
+
+def wilson_spin_matrices(w: float, *, dtype, device="cpu"):
+    """The four 2x2 spin projectors of the 2D Wilson hopping term, in
+    direction order {+x, +y, -x, -y}."""
+    i = 1j
+    mats = ([[-w, 1], [1, -w]], [[-w, -i], [i, -w]],
+            [[-w, -1], [-1, -w]], [[-w, i], [-i, -w]])
+    return tuple(0.5 * torch.tensor(m, dtype=dtype, device=device)
+                 for m in mats)
+
+
+def wilson_coeff_arrays(lat: Lattice2D, gauge, w: float, *, dtype, device):
+    """(clover, hopping) of the Wilson operator for a (2, 2, Y, Xh) gauge."""
+    gauge = torch.as_tensor(gauge).to(device=device, dtype=dtype)
+    ux, uy = gauge[0], gauge[1]
+    sx_p, sy_p, sx_m, sy_m = wilson_spin_matrices(w, dtype=dtype,
+                                                  device=device)
+    clover = 2.0 * w * linalg.identity_like(
+        torch.zeros(lat.cm_shape(), dtype=dtype, device=device))
+    ux_m = torch.conj(cshift_pull(ux, DIR_XM1))
+    uy_m = torch.conj(cshift_pull(uy, DIR_YM1))
+    hopping = torch.stack([ux[..., None, None] * sx_p,
+                           uy[..., None, None] * sy_p,
+                           ux_m[..., None, None] * sx_m,
+                           uy_m[..., None, None] * sy_m])
+    return clover, hopping
+
+
+class Wilson2D(Stencil2D):
+    def __init__(self, lat: Lattice2D, mass, gauge, wilson_coeff: float = 1.0,
+                 *, dtype=torch.complex128, device="cpu"):
+        if lat.nc != 2:
+            raise ValueError("Wilson2D only supports nc = 2")
+        self.wilson_coeff = float(wilson_coeff)
+        clover, hopping = wilson_coeff_arrays(lat, gauge, self.wilson_coeff,
+                                              dtype=dtype, device=device)
+        super().__init__(make_coeffs(lat, clover=clover, hopping=hopping,
+                                     shift=mass, dtype=dtype))
+
+    @classmethod
+    def from_coeffs(cls, coeffs: StencilCoeffs) -> "Wilson2D":
+        """Adopt coefficient arrays built elsewhere (e.g. loaded from a
+        state dict) as Wilson at w = 1, after checking that they have its
+        structure to ``FROM_COEFFS_RTOL``: clover = 2w I and each hopping
+        matrix the direction's spin projector times one phase."""
+        lat = coeffs.lat
+        w, rtol = 1.0, FROM_COEFFS_RTOL
+        if lat.nc != 2 or coeffs.clover is None or coeffs.hopping is None:
+            raise ValueError("not a Wilson coefficient set (nc != 2 or a "
+                             "missing piece)")
+        expect_clover = 2.0 * w * linalg.identity_like(coeffs.clover)
+        phase = -coeffs.hopping[..., 0, 0] / w        # U_d / 2
+        spins = wilson_spin_matrices(w, dtype=coeffs.hopping.dtype,
+                                     device=coeffs.hopping.device)
+        expect_hop = torch.stack([phase[d][..., None, None] * (spins[d] / 0.5)
+                                  for d in range(4)])
+        scale = float(coeffs.hopping.abs().max())
+        if (float((coeffs.clover - expect_clover).abs().max()) > rtol * 2 * w
+                or float((coeffs.hopping - expect_hop).abs().max())
+                > rtol * scale):
+            raise ValueError(f"coefficients are not Wilson with w={w}")
+        op = cls.__new__(cls)
+        op.wilson_coeff = w
+        Stencil2D.__init__(op, coeffs)
+        return op
+
+    def chiral_projection(self, x, is_up: bool):
+        """Spin-component projection."""
+        keep = 0 if is_up else 1
+        out = torch.zeros_like(x)
+        out[..., keep] = x[..., keep]
+        return out

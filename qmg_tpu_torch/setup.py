@@ -1,0 +1,149 @@
+"""MG setup: null-vector generation and the n13 hierarchy build (port of
+qmg_tpu/setup.py, ORIGINAL path).
+
+  * ``generate_null_vectors``: gaussian -> orthogonalize -> residual
+    equation M e = -M g with BiCGstab(l) -> v = g + e -> re-orthogonalize.
+    The gaussians are drawn on the host from the shared ``QMGRandom``
+    stream and moved to the operator's device and dtype.
+  * ``chiral_double``: split each vector into +-chirality halves and
+    normalize (ups first, then downs).
+  * ``build_kcycle_hierarchy``: per refinement level, generate vectors on
+    the current coarsest stencil, double them, build a TransferMG, and
+    push the Galerkin coarse level with its solve config.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from .lattice import Lattice2D
+from .stencil import Stencil2D, StencilType
+from .transfer import TransferMG, DoublingType
+from .stateful import (StatefulMultigridMG, LevelSolveMG, CoarsestSolveMG,
+                       DSLASH_NULLVEC)
+from . import solvers
+from .linalg import normalize, orthogonal
+
+
+def pin_full_precision():
+    """Keep float32 products in full float32 (no TF32) on the card: a
+    reduced-precision pass costs digits the Krylov trajectories need."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _coeff_ref(stencil: Stencil2D):
+    c = stencil.coeffs
+    return c.clover if c.clover is not None else c.hopping
+
+
+def generate_null_vectors(stencil: Stencil2D, n_vec: int, rng,
+                          max_iter: int = 500, tol: float = 5e-5):
+    """Algebraic near-null vectors via the residual equation, solved with
+    BiCGstab(6). Returns (vectors (n_vec, *cv_shape), total operator
+    applications)."""
+    lat = stencil.lat
+    ref = _coeff_ref(stencil)
+    matvec = stencil.get_apply_function(StencilType.ORIGINAL)
+    vecs = []
+    total_ops = 0
+    for _ in range(n_vec):
+        g = torch.as_tensor(rng.gaussian_cv(lat)).to(device=ref.device,
+                                                      dtype=ref.dtype)
+        for v in vecs:
+            g = orthogonal(g, v)
+        rhs = -matvec(g)
+        total_ops += 1
+        res = solvers.bicgstab_l(matvec, rhs, max_iter=max_iter, tol=tol,
+                                 l=6)
+        total_ops += res.ops_count
+        v = g + res.x
+        for w in vecs:
+            v = orthogonal(v, w)
+        vecs.append(v)
+    return torch.stack(vecs), total_ops
+
+
+def chiral_double(stencil: Stencil2D, vectors):
+    """n vectors -> 2n: chiral ups first, then downs, each normalized."""
+    ups, downs = [], []
+    for i in range(vectors.shape[0]):
+        up, down = stencil.chiral_projection_both(vectors[i])
+        ups.append(normalize(up))
+        downs.append(normalize(down))
+    return torch.stack(ups + downs)
+
+
+@dataclasses.dataclass
+class KCycleConfig:
+    """The n13 parameter block (same fields and defaults as qmg_tpu's,
+    restricted to the ORIGINAL path)."""
+    x_block: int = 4
+    y_block: int = 4
+    coarse_dof: int = 8          # after doubling
+    n_refine: int = 2
+    # intermediate (K-cycle Krylov)
+    inner_tol: float = 0.2
+    inner_max_iter: int = 1000
+    inner_restart_freq: int = 32
+    # smoothers
+    n_pre_smooth: int = 2
+    pre_smooth_tol: float = 1e-15
+    n_post_smooth: int = 2
+    post_smooth_tol: float = 1e-15
+    # coarsest
+    coarsest_tol: float = 0.2
+    coarsest_max_iter: int = 1000
+    coarsest_restart_freq: int = 32
+    # null vector generation
+    nullvec_max_iter: int = 500
+    nullvec_tol: float = 5e-5
+    # solve the coarsest level with a dense inverse
+    coarsest_direct: bool = False
+
+    def level_solve(self) -> LevelSolveMG:
+        return LevelSolveMG(
+            intermediate_tol=self.inner_tol,
+            intermediate_iters=self.inner_max_iter,
+            intermediate_restart_freq=self.inner_restart_freq,
+            pre_tol=self.pre_smooth_tol, pre_iters=self.n_pre_smooth,
+            post_tol=self.post_smooth_tol, post_iters=self.n_post_smooth)
+
+    def coarsest_solve(self) -> CoarsestSolveMG:
+        return CoarsestSolveMG(coarsest_tol=self.coarsest_tol,
+                               coarsest_iters=self.coarsest_max_iter,
+                               coarsest_restart_freq=self.coarsest_restart_freq)
+
+    def coarse_lattices(self, lat0: Lattice2D):
+        """The coarse lattices of the hierarchy, finest first."""
+        lats, x, y = [], lat0.x_len, lat0.y_len
+        for _ in range(self.n_refine):
+            x //= self.x_block
+            y //= self.y_block
+            lats.append(Lattice2D(x, y, self.coarse_dof))
+        return lats
+
+
+def build_kcycle_hierarchy(lat0: Lattice2D, fine_op: Stencil2D,
+                           cfg: KCycleConfig, rng) -> StatefulMultigridMG:
+    """Construct the full n13 hierarchy on the fine operator's device."""
+    pin_full_precision()
+    mg = StatefulMultigridMG(lat0, fine_op, cfg.coarsest_solve())
+    lat_prev = lat0
+    for i, lat_i in enumerate(cfg.coarse_lattices(lat0), start=1):
+        stencil = mg.get_stencil(i - 1)
+        vecs, ops = generate_null_vectors(
+            stencil, cfg.coarse_dof // 2, rng,
+            max_iter=cfg.nullvec_max_iter, tol=cfg.nullvec_tol)
+        mg.add_tracker_count(DSLASH_NULLVEC, ops, i - 1)
+        raw = chiral_double(stencil, vecs)
+        transfer = TransferMG(lat_prev, lat_i, raw,
+                              doubling=DoublingType.PROJECTION)
+        mg.push_level(lat_i, transfer, cfg.level_solve(), build_stencil=True,
+                      is_chiral=True)
+        lat_prev = lat_i
+    if cfg.coarsest_direct:
+        mg.prepare_direct_coarsest()
+    return mg

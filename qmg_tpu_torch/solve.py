@@ -1,0 +1,164 @@
+"""The MG-preconditioned solve and the state exchange with qmg_tpu (port
+of the ORIGINAL path of qmg_tpu/tpu_compat.py's ``make_planes_solver`` and
+``mg_state_planes``, without their real-plane jit boundaries).
+
+``make_solver`` runs outer restarted flexible GCR around the K-cycle. The
+outer matvec is the exact plain apply; the fine-level CUDA kernel is
+installed only as level 0's ``apply_override`` inside the
+preconditioner, where flexible GCR absorbs its float32 rounding.
+
+``state_to_numpy`` / ``state_from_numpy`` carry a hierarchy across the two
+packages in the key format of ``qmg_tpu.tpu_compat.mg_state_planes``:
+``clover{l}``, ``hopping{l}``, ``shifts{l}`` (shift, eo_shift, dof_shift),
+``nvb{l}`` (blocked null vectors) and ``cdinv`` (dense coarsest inverse),
+each a real (..., 2) = (real, imag) NumPy array.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .lattice import Lattice2D
+from .stencil import Stencil2D, make_coeffs, apply_M
+from .operators.wilson import Wilson2D
+from .operators.coarse import CoarseOperator2D
+from .transfer import TransferMG, DoublingType
+from .stateful import StatefulMultigridMG, zero_carry, DSLASH_KRYLOV
+from .setup import KCycleConfig, pin_full_precision
+from .wilson_kernel import wilson_r1_apply, wilson_phases
+from . import solvers
+
+__all__ = ["make_solver", "state_to_numpy", "state_from_numpy"]
+
+
+def _fine_kernel_apply(fine: Stencil2D):
+    """Level 0's apply through the rank-1 Wilson kernel. The kernel
+    ignores the clover array and assumes 2w I with w = 1, so anything but
+    a Wilson operator at w = 1 is refused."""
+    if (not isinstance(fine, Wilson2D) or fine.wilson_coeff != 1.0
+            or fine.lat.nc != 2):
+        raise ValueError("fine_kernel='wilson-r1' needs the fine operator "
+                         "to be Wilson2D with wilson_coeff=1 (nc=2)")
+    phase = wilson_phases(fine.coeffs.hopping)
+    alpha = 2.0 + float(np.real(fine.coeffs.shift))
+
+    def apply(v):
+        out = wilson_r1_apply(phase, v.to(torch.complex64).contiguous(),
+                              alpha)
+        return out.to(v.dtype)
+
+    return apply
+
+
+def make_solver(mg: StatefulMultigridMG, tol: float = 1e-8,
+                max_iter: int = 400, restart_freq: int = 32,
+                fine_kernel: str | None = "wilson-r1"):
+    """Returns solve(b) -> (SolveResult, carry): outer FGCR on the fine
+    operator, preconditioned by one K-cycle per iteration. ``carry`` holds
+    this solve's per-level operator and iteration counts (outer ones
+    included); they are also added to ``mg.tracker``.
+
+    ``fine_kernel``: "wilson-r1" routes level 0's apply inside the
+    K-cycle through the rank-1 Wilson kernel; None keeps the plain
+    stencil apply everywhere.
+    """
+    pin_full_precision()
+    fine = mg.get_stencil(0)
+    if fine_kernel not in (None, "wilson-r1"):
+        raise ValueError(f"unknown fine_kernel {fine_kernel!r}")
+    kernel_apply = (_fine_kernel_apply(fine) if fine_kernel is not None
+                    else None)
+    n_levels = mg.get_num_levels()
+
+    def matvec(v):
+        return apply_M(fine.coeffs, v)
+
+    def solve(b):
+        carry = zero_carry(n_levels)
+        fine.apply_override = kernel_apply
+        try:
+            precond = mg.make_preconditioner(0)
+            res, carry = solvers.gcr_var_precond_restart(
+                matvec, b, precond, max_iter=max_iter, tol=tol,
+                restart_freq=restart_freq, precond_carry=carry)
+        finally:
+            fine.apply_override = None
+        carry["counts"][0, DSLASH_KRYLOV] += res.ops_count
+        carry["iters"][0] += res.iters
+        mg.absorb_carry(carry)
+        return res, carry
+
+    return solve
+
+
+def _planes(t: torch.Tensor, dtype) -> np.ndarray:
+    a = t.detach().cpu().numpy()
+    return np.stack([a.real, a.imag], axis=-1).astype(dtype)
+
+
+def _complex(p: np.ndarray, dtype, device) -> torch.Tensor:
+    p = np.asarray(p)
+    return torch.complex(torch.as_tensor(p[..., 0]),
+                         torch.as_tensor(p[..., 1])).to(device=device,
+                                                        dtype=dtype)
+
+
+def state_to_numpy(mg: StatefulMultigridMG, dtype=np.float32) -> dict:
+    """Every array of the hierarchy as real (..., 2) planes of ``dtype``."""
+    state = {}
+    for lvl in range(mg.get_num_levels()):
+        c = mg.get_stencil(lvl).coeffs
+        if c.clover is not None:
+            state[f"clover{lvl}"] = _planes(c.clover, dtype)
+        if c.hopping is not None:
+            state[f"hopping{lvl}"] = _planes(c.hopping, dtype)
+        shifts = np.array([c.shift, c.eo_shift, c.dof_shift])
+        state[f"shifts{lvl}"] = np.stack(
+            [shifts.real, shifts.imag], axis=-1).astype(dtype)
+    for lvl in range(mg.get_num_levels() - 1):
+        state[f"nvb{lvl}"] = _planes(mg.get_transfer(lvl)._nvb, dtype)
+    if mg.coarsest_dinv is not None:
+        state["cdinv"] = _planes(mg.coarsest_dinv, dtype)
+    return state
+
+
+def state_from_numpy(state: dict, cfg: KCycleConfig, *, device="cpu",
+                     dtype=None) -> StatefulMultigridMG:
+    """Rebuild a hierarchy from a state dict (``state_to_numpy`` or
+    ``qmg_tpu.tpu_compat.mg_state_planes``). ``cfg`` supplies the
+    blocking and the per-level solve parameters. ``dtype`` defaults to
+    complex64 for float32 planes and complex128 otherwise. Level 0 is
+    adopted as a Wilson operator at w = 1 (its structure is checked)."""
+    if dtype is None:
+        dtype = (torch.complex64 if state["clover0"].dtype == np.float32
+                 else torch.complex128)
+
+    def coeffs(lvl, lat):
+        sh = np.asarray(state[f"shifts{lvl}"], np.float64)
+        sh = sh[:, 0] + 1j * sh[:, 1]
+        return make_coeffs(
+            lat, clover=_complex(state[f"clover{lvl}"], dtype, device),
+            hopping=_complex(state[f"hopping{lvl}"], dtype, device),
+            shift=sh[0], eo_shift=sh[1], dof_shift=sh[2], dtype=dtype)
+
+    _, y_len, xh, nc = state["clover0"].shape[:4]
+    lat0 = Lattice2D(2 * xh, y_len, nc)
+    fine = Wilson2D.from_coeffs(coeffs(0, lat0))
+    mg = StatefulMultigridMG(lat0, fine, cfg.coarsest_solve())
+    lat_prev = lat0
+    for lvl, lat in enumerate(cfg.coarse_lattices(lat0), start=1):
+        if state[f"clover{lvl}"].shape[:-1] != lat.cm_shape():
+            raise ValueError(f"clover{lvl} does not match the lattice "
+                             f"{lat} that cfg implies")
+        transfer = TransferMG.from_blocked(
+            lat_prev, lat, _complex(state[f"nvb{lvl - 1}"], dtype, device),
+            doubling=DoublingType.PROJECTION)
+        coarse = CoarseOperator2D.from_coeffs(coeffs(lvl, lat), transfer,
+                                              is_chiral=True)
+        mg.push_level(lat, transfer, cfg.level_solve(), stencil=coarse)
+        lat_prev = lat
+    if "cdinv" in state:
+        mg.coarsest_dinv = _complex(state["cdinv"], dtype, device)
+        mg.coarsest_solve.direct = True
+    return mg

@@ -1,0 +1,224 @@
+"""Krylov solvers as Python loops on device tensors (port of the solvers
+of qmg_tpu/solvers.py that the n13 path uses).
+
+Conventions, as in qmg_tpu:
+
+  * matvec is a callable x -> A x on tensors of a fixed shape;
+  * convergence is ||r|| < tol ||b||; ``tol`` may be a float or a 0-dim
+    tensor (the K-cycle's rescaled inner tolerance);
+  * results carry the iteration count, the final ||r||^2, a convergence
+    flag and ops_count, the number of operator applications;
+  * flexible solvers take precond(r, carry) -> (z, carry).
+
+Scalars (inner products, step lengths) stay 0-dim device tensors; a loop
+reads one back to the host only for its stopping test. The breakdown
+guards are those of qmg_tpu, so both packages follow the same
+trajectories.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .linalg import vdot, norm2sq
+
+__all__ = ["SolveResult", "gcr_restart", "gcr_var_precond_restart",
+           "bicgstab_l", "minres"]
+
+
+class SolveResult(NamedTuple):
+    x: torch.Tensor
+    iters: int
+    res_sq: torch.Tensor      # real 0-dim
+    converged: torch.Tensor   # bool 0-dim
+    ops_count: int            # operator applications
+
+
+def _target(tol, bsq):
+    return tol ** 2 * bsq
+
+
+def _keep_going(rsq, target) -> bool:
+    """isfinite(rsq) and rsq > target, read back to the host."""
+    return bool(torch.isfinite(rsq) & (rsq > target))
+
+
+# ---------------------------------------------------------------------------
+# Restarted GCR, plain and flexible (variable preconditioner): one
+# implementation.
+# ---------------------------------------------------------------------------
+
+def _gcr_impl(matvec, b, x0, max_iter: int, tol, restart_len: int,
+              precond=None, precond_carry=None):
+    shape = b.shape
+    n = b.numel()
+    x = torch.zeros_like(b) if x0 is None else x0
+    bsq = norm2sq(b)
+    target = _target(tol, bsq)
+    rdt = bsq.dtype
+    R = int(restart_len)
+    tiny = torch.finfo(rdt).tiny
+    if precond is None:
+        def precond(r, carry):
+            return r, carry
+
+    r = b - matvec(x)
+    ops = 1
+    ps = torch.zeros((R, n), dtype=b.dtype, device=b.device)
+    aps = torch.zeros_like(ps)
+    apsq = torch.ones((R,), dtype=rdt, device=b.device)
+    rsq = norm2sq(r)
+    j = k = 0
+    carry = precond_carry
+    while k < max_iter and _keep_going(rsq, target):
+        if j >= R:
+            # Restart: recompute the true residual, clear the store.
+            r = b - matvec(x)
+            ops += 1
+            ps.zero_()
+            aps.zero_()
+            apsq.fill_(1.0)
+            j = 0
+        z, carry = precond(r, carry)
+        ap = matvec(z).reshape(n)
+        z = z.reshape(n)
+        ops += 1
+        if j > 0:
+            # Orthogonalize (z, Az) against the stored directions.
+            betas = (aps[:j].conj() @ ap) / apsq[:j]
+            ap = ap - betas @ aps[:j]
+            z = z - betas @ ps[:j]
+        apsq_new = norm2sq(ap)
+        # Breakdown guard: a stalled solve's orthogonalized direction can
+        # underflow to 0; the iteration then becomes a no-op.
+        broke = ~(apsq_new > tiny)
+        alpha = torch.where(broke, 0.0,
+                            vdot(ap, r) / torch.where(broke, 1.0, apsq_new))
+        x = x + alpha * z.reshape(shape)
+        r = r - alpha * ap.reshape(shape)
+        rsq = norm2sq(r)
+        ps[j] = z
+        aps[j] = ap
+        apsq[j] = torch.where(broke, 1.0, apsq_new)
+        j += 1
+        k += 1
+    return SolveResult(x, k, rsq, rsq <= target, ops), carry
+
+
+def gcr_restart(matvec, b, x0=None, max_iter: int = 1000, tol=1e-8,
+                restart_freq: int = 32) -> SolveResult:
+    res, _ = _gcr_impl(matvec, b, x0, max_iter, tol,
+                       restart_len=int(restart_freq))
+    return res
+
+
+def gcr_var_precond_restart(matvec, b, precond, x0=None,
+                            max_iter: int = 1000, tol=1e-8,
+                            restart_freq: int = 32, precond_carry=None):
+    """Restarted flexible GCR: the outer solver of the K-cycle stack."""
+    return _gcr_impl(matvec, b, x0, max_iter, tol,
+                     restart_len=int(restart_freq), precond=precond,
+                     precond_carry=precond_carry)
+
+
+# ---------------------------------------------------------------------------
+# BiCGstab(l) after Sleijpen-Fokkema (null-vector generation).
+# ---------------------------------------------------------------------------
+
+def bicgstab_l(matvec, b, x0=None, max_iter: int = 1000, tol=1e-8,
+               l: int = 6) -> SolveResult:
+    """``max_iter`` counts l-cycles x l; each l-cycle costs 2l matvecs."""
+    x = torch.zeros_like(b) if x0 is None else x0
+    bsq = norm2sq(b)
+    target = _target(tol, bsq)
+    r0 = b - matvec(x)
+    rtilde = r0
+    max_cycles = max(int(max_iter) // max(l, 1), 1)
+    rs = torch.zeros((l + 1,) + b.shape, dtype=b.dtype, device=b.device)
+    rs[0] = r0
+    us = torch.zeros_like(rs)
+    one = torch.ones((), dtype=b.dtype, device=b.device)
+    rho0, alpha, omega = one, torch.zeros_like(one), one
+    rsq = norm2sq(r0)
+    k, ops = 0, 1
+    while k < max_cycles and _keep_going(rsq, target):
+        rho0 = -omega * rho0
+        # --- BiCG part ---
+        for j in range(l):
+            rho1 = vdot(rtilde, rs[j])
+            beta = alpha * rho1 / rho0
+            rho0 = rho1
+            us[:j + 1] = rs[:j + 1] - beta * us[:j + 1]
+            us[j + 1] = matvec(us[j])
+            alpha = rho0 / vdot(rtilde, us[j + 1])
+            rs[:j + 1] = rs[:j + 1] - alpha * us[1:j + 2]
+            rs[j + 1] = matvec(rs[j])
+            x = x + alpha * us[0]
+        ops += 2 * l
+        # --- MR part: modified Gram-Schmidt on r_1..r_l ---
+        tau = [[None] * (l + 1) for _ in range(l + 1)]
+        sigma = [None] * (l + 1)
+        gamma_p = [None] * (l + 1)
+        for j in range(1, l + 1):
+            for i in range(1, j):
+                t_ij = vdot(rs[i], rs[j]) / sigma[i]
+                tau[i][j] = t_ij
+                rs[j] = rs[j] - t_ij * rs[i]
+            sigma[j] = norm2sq(rs[j])
+            gamma_p[j] = vdot(rs[j], rs[0]) / sigma[j]
+        gamma = [None] * (l + 1)
+        gamma[l] = gamma_p[l]
+        for j in range(l - 1, 0, -1):
+            acc = gamma_p[j]
+            for i in range(j + 1, l + 1):
+                acc = acc - tau[j][i] * gamma[i]
+            gamma[j] = acc
+        gamma_pp = [None] * (l + 1)
+        for j in range(1, l):
+            acc = gamma[j + 1]
+            for i in range(j + 1, l):
+                acc = acc + tau[j][i] * gamma[i + 1]
+            gamma_pp[j] = acc
+        x = x + gamma[1] * rs[0]
+        rs[0] = rs[0] - gamma_p[l] * rs[l]
+        us[0] = us[0] - gamma[l] * us[l]
+        for j in range(1, l):
+            us[0] = us[0] - gamma[j] * us[j]
+            x = x + gamma_pp[j] * rs[j]
+            rs[0] = rs[0] - gamma_p[j] * rs[j]
+        omega = gamma[l]
+        rsq = norm2sq(rs[0])
+        k += 1
+    return SolveResult(x, k * l, rsq, rsq <= target, ops)
+
+
+# ---------------------------------------------------------------------------
+# MinRes with relaxation (the K-cycle smoother).
+# ---------------------------------------------------------------------------
+
+def minres(matvec, b, x0=None, max_iter: int = 2, tol=1e-15,
+           omega: float = 1.0) -> SolveResult:
+    x = torch.zeros_like(b) if x0 is None else x0
+    bsq = norm2sq(b)
+    target = _target(tol, bsq)
+    r = b - matvec(x)
+    rsq = norm2sq(r)
+    k, ops = 0, 1
+    # The K-cycle's MinRes(2) with a never-met tolerance runs a fixed
+    # number of steps without reading the residual back.
+    fixed = (max_iter <= 4 and not isinstance(tol, torch.Tensor)
+             and tol <= 1e-14)
+    while k < max_iter and (fixed or bool(rsq > target)):
+        ar = matvec(r)
+        arsq = norm2sq(ar)
+        pos = arsq > 0
+        alpha = torch.where(pos, vdot(ar, r) / torch.where(pos, arsq, 1.0),
+                            0.0)
+        x = x + omega * alpha * r
+        r = r - omega * alpha * ar
+        rsq = norm2sq(r)
+        k += 1
+        ops += 1
+    return SolveResult(x, k, rsq, rsq <= target, ops)

@@ -1,0 +1,216 @@
+"""Stateful multigrid: per-level solve configs, operator counters, the
+direct coarsest solve and the recursive K-cycle preconditioner (port of
+qmg_tpu/stateful.py, ORIGINAL stencil path).
+
+``make_preconditioner(level)`` returns precond(rhs, carry) -> (lhs, carry).
+The carry holds the per-level operator counters as host integers:
+``counts`` (n_levels, 4) by {NULLVEC, KRYLOV, PRESMOOTH, POSTSMOOTH} and
+Krylov iteration counts ``iters`` (n_levels,).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .lattice import Lattice2D
+from .stencil import Stencil2D
+from .multigrid import MultigridMG
+from . import solvers
+from .linalg import norm2sq
+from . import eig
+
+DSLASH_NULLVEC = 0
+DSLASH_KRYLOV = 1
+DSLASH_PRESMOOTH = 2
+DSLASH_POSTSMOOTH = 3
+
+
+@dataclasses.dataclass
+class LevelSolveMG:
+    """Solve config for a non-coarsest level (ORIGINAL stencil)."""
+    intermediate_tol: float = 1e-20
+    intermediate_iters: int = 1000
+    intermediate_restart_freq: int = 32
+    pre_tol: float = 1e-20
+    pre_iters: int = 2
+    post_tol: float = 1e-20
+    post_iters: int = 2
+
+
+@dataclasses.dataclass
+class CoarsestSolveMG:
+    """Coarsest-level solve config (restarted GCR on the ORIGINAL
+    stencil); ``direct`` switches to the dense inverse prepared by
+    ``prepare_direct_coarsest``."""
+    coarsest_tol: float = 1e-20
+    coarsest_iters: int = 1000
+    coarsest_restart_freq: int = 32
+    direct: bool = False
+
+
+def zero_carry(n_levels: int):
+    return {"counts": np.zeros((n_levels, 4), dtype=np.int64),
+            "iters": np.zeros((n_levels,), dtype=np.int64)}
+
+
+class StatefulMultigridMG(MultigridMG):
+    """MultigridMG + solve state and counters."""
+
+    def __init__(self, lat: Lattice2D, stencil: Stencil2D,
+                 coarsest_solve: CoarsestSolveMG):
+        super().__init__(lat, stencil)
+        self.coarsest_solve = coarsest_solve
+        self.level_solve_list = []
+        self.tracker = zero_carry(1)
+        self.coarsest_dinv = None
+
+    def push_level(self, new_lat, new_transfer, level_solve=None, **kw):
+        super().push_level(new_lat, new_transfer, **kw)
+        self.level_solve_list.append(level_solve)
+        grown = zero_carry(self.get_num_levels())
+        grown["counts"][:-1] = self.tracker["counts"]
+        grown["iters"][:-1] = self.tracker["iters"]
+        self.tracker = grown
+        self.coarsest_dinv = None  # the coarsest level changed
+
+    def get_level_solve(self, i: int) -> LevelSolveMG:
+        ls = self.level_solve_list[i]
+        if ls is None:
+            raise ValueError(f"level solve for level {i} does not exist")
+        return ls
+
+    # --- counters ---
+    def add_tracker_count(self, dtype: int, accum: int, level: int):
+        self.tracker["counts"][level, dtype] += int(accum)
+
+    def absorb_carry(self, carry):
+        self.tracker["counts"] += carry["counts"]
+        self.tracker["iters"] += carry["iters"]
+
+    # --- direct coarsest solve ---
+    def prepare_direct_coarsest(self):
+        """Materialize and invert the coarsest operator (host complex128),
+        enabling a one-matvec coarsest solve."""
+        st = self.get_stencil(self.get_num_levels() - 1)
+        ref = st.coeffs.clover if st.coeffs.clover is not None \
+            else st.coeffs.hopping
+        mat = eig.densify(st.get_apply_function(), st.solve_size_shape(),
+                          dtype=ref.dtype, device=ref.device)
+        if not np.isfinite(mat).all():
+            raise ValueError(
+                "coarsest operator contains non-finite entries - the "
+                "hierarchy setup produced a degenerate coarse level")
+        # Volume-1 coarse lattices carry an identically zero parity-1
+        # padding slot; give it an identity block so the inverse exists.
+        dead = (np.abs(mat).sum(axis=1) == 0) & (np.abs(mat).sum(axis=0)
+                                                 == 0)
+        if dead.any():
+            mat[dead, dead] = 1.0
+        try:
+            dinv = np.linalg.inv(mat)
+        except np.linalg.LinAlgError:
+            dinv = np.linalg.pinv(mat)
+        self.coarsest_dinv = torch.as_tensor(dinv).to(device=ref.device,
+                                                      dtype=ref.dtype)
+        self.coarsest_solve.direct = True
+
+    # ------------------------------------------------------------------
+    # The K-cycle preconditioner.
+    # ------------------------------------------------------------------
+
+    def make_preconditioner(self, level: int = 0):
+        """precond(rhs, carry) -> (lhs, carry): one K-cycle at ``level``:
+        MinRes(relax 0.85) presmoothing, restrict, the coarse solve
+        (direct inverse, restarted GCR at the coarsest, or restarted
+        flexible GCR around the next K-cycle), prolong, MinRes
+        postsmoothing."""
+        n_levels = self.get_num_levels()
+        if n_levels == 1:
+            return lambda rhs, carry: (rhs, carry)
+
+        fine_stencil = self.get_stencil(level)
+        coarse_stencil = self.get_stencil(level + 1)
+        transfer = self.get_transfer(level)
+        level_solve = self.get_level_solve(level)
+        apply_fine = fine_stencil.apply_M
+        apply_coarse = coarse_stencil.apply_M
+
+        coarsest = level == n_levels - 2
+        if not coarsest:
+            nxt = self.get_level_solve(level + 1)
+            coarse_max_iter = nxt.intermediate_iters
+            coarse_tol = nxt.intermediate_tol
+            coarse_restart = nxt.intermediate_restart_freq
+            inner_precond = self.make_preconditioner(level + 1)
+        else:
+            cs = self.coarsest_solve
+            coarse_max_iter = cs.coarsest_iters
+            coarse_tol = cs.coarsest_tol
+            coarse_restart = cs.coarsest_restart_freq
+
+        def smoother(rhs, n_iters, s_tol, dslash_type, carry):
+            res = solvers.minres(apply_fine, rhs, max_iter=n_iters,
+                                 tol=s_tol, omega=0.85)
+            carry["counts"][level, dslash_type] += res.ops_count
+            return res.x, carry
+
+        def precond(rhs, carry):
+            # --- presmooth ---
+            if level_solve.pre_iters > 0:
+                z1, carry = smoother(rhs, level_solve.pre_iters,
+                                     level_solve.pre_tol, DSLASH_PRESMOOTH,
+                                     carry)
+                r1 = rhs - apply_fine(z1)
+                carry["counts"][level, DSLASH_PRESMOOTH] += 1
+            else:
+                z1 = rhs
+                r1 = rhs
+
+            # --- restrict + prepare ---
+            r_coarse = transfer.restrict_f2c(r1)
+            rnorm = torch.sqrt(norm2sq(r_coarse))
+            r_coarse_prep = coarse_stencil.prepare_M(r_coarse)
+            rnorm_prep = torch.sqrt(norm2sq(r_coarse_prep))
+            inner_tol = coarse_tol * rnorm / rnorm_prep
+
+            # --- coarse solve ---
+            if (coarsest and self.coarsest_solve.direct
+                    and self.coarsest_dinv is not None):
+                dinv = self.coarsest_dinv.to(r_coarse_prep.dtype)
+                e_coarse = (dinv @ r_coarse_prep.reshape(-1)).reshape(
+                    r_coarse_prep.shape)
+                sub_iters, sub_ops = 1, 1
+            elif coarsest:
+                res = solvers.gcr_restart(
+                    apply_coarse, r_coarse_prep, max_iter=coarse_max_iter,
+                    tol=inner_tol, restart_freq=coarse_restart)
+                e_coarse = res.x
+                sub_iters, sub_ops = res.iters, res.ops_count
+            else:
+                res, carry = solvers.gcr_var_precond_restart(
+                    apply_coarse, r_coarse_prep, inner_precond,
+                    max_iter=coarse_max_iter, tol=inner_tol,
+                    restart_freq=coarse_restart, precond_carry=carry)
+                e_coarse = res.x
+                sub_iters, sub_ops = res.iters, res.ops_count
+            carry["counts"][level + 1, DSLASH_KRYLOV] += sub_ops
+            carry["iters"][level + 1] += sub_iters
+
+            # --- reconstruct + prolong ---
+            e_rec = coarse_stencil.reconstruct_M(e_coarse, r_coarse)
+            lhs = z1 + transfer.prolong_c2f(e_rec)
+
+            # --- postsmooth ---
+            if level_solve.post_iters > 0:
+                r2 = rhs - apply_fine(lhs)
+                z3, carry = smoother(r2, level_solve.post_iters,
+                                     level_solve.post_tol,
+                                     DSLASH_POSTSMOOTH, carry)
+                lhs = lhs + z3
+                carry["counts"][level, DSLASH_POSTSMOOTH] += 1
+            return lhs, carry
+
+        return precond
