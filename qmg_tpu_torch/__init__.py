@@ -7,9 +7,11 @@ K-cycle solve: U(1) gauge field -> Wilson2D -> BiCGstab(l) null vectors,
 chiral doubling, block-orthonormal transfers, Galerkin coarse operators,
 dense coarsest inverse -> outer flexible GCR around the K-cycle.
 
-The fine Wilson Dslash inside the K-cycle runs through a hand-written
-CUDA kernel (``csrc/wilson_r1.cu``, wrapper ``wilson_kernel.py``); every
-other operation is plain PyTorch. The package imports no JAX.
+Inside the K-cycle the stencil applies run through hand-written CUDA
+kernels: the rank-1 Wilson Dslash (``csrc/wilson_r1.cu``, wrapper
+``wilson_kernel.py``) and the generic stencil kernels (``csrc/dslash.cu``,
+wrappers ``dslash_kernel.py``); every other operation is plain PyTorch.
+The package imports no JAX.
 """
 
 from .lattice import Lattice2D  # noqa: F401

@@ -1,0 +1,186 @@
+"""Stencil-apply benchmark (the port's counterpart of ``bench.py --mode
+dslash``).
+
+    python -m qmg_tpu_torch.dslash --size 2048 --kernel matrix --iters 400
+
+Builds bench.py's operator - the Wilson coefficients of
+``gauss_gauge_u1`` at beta = 6 from ``QMGRandom(1337)`` with m = -0.075 and
+the gaussian start vector of the same stream - or, with ``--nc 8``,
+random coarse-like coefficients (gaussian clover and hopping, shift
+-0.075, the way tests/test_pallas_dslash.py makes them). It then times
+``--iters`` steps of the renormalised chain x <- M x / |M x| with CUDA
+events, through one apply:
+
+  wilson-r1  the rank-1 Wilson kernel (nc = 2 only);
+  matrix     the generic stencil kernel, interleaved layout (K4);
+  split      the same in the row-parity-split layout (K5);
+  small      the small-lattice kernel (K6; refuses lattices it cannot take);
+  plain      the plain PyTorch apply (``stencil.apply_M``).
+
+It prints us per apply (one chain step: the apply and the
+renormalisation, as bench.py times it), the effective GB/s on bench.py's
+byte count per step - (nc^2 + 4 nc^2 + 2 nc) * 8 B per site for the
+apply (the coefficients at 4 B per complex entry with ``--coeff-dtype
+bfloat16``, the rank-1 kernel's 4 phases at 32 B per site) plus
+2 nc * 8 B per site for the renormalisation - its share of the H100's
+3.35 TB/s, and the card's name and power limit. A kernel that does not
+build or launch raises; there is no fallback to another apply.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+from .lattice import Lattice2D
+from .operators.wilson import Wilson2D
+from .rng import QMGRandom
+from .stencil import apply_M, make_coeffs
+from .wilson_kernel import wilson_r1_apply, wilson_phases
+from .dslash_kernel import (HBM_BYTES_S, stencil_channels,
+                            stencil_channels_split, x_to_split, apply_bytes,
+                            dslash_apply, dslash_split_apply,
+                            dslash_small_apply)
+from . import u1
+
+MASS = -0.075
+KINDS = ("wilson-r1", "matrix", "split", "small", "plain")
+
+
+def make_operator(size: int, nc: int, device):
+    """(coefficients, x) of the benchmark: Wilson (nc = 2) as bench.py
+    builds it, or random coarse-like coefficients for any other nc."""
+    rng = QMGRandom(1337)
+    if nc == 2:
+        lat = Lattice2D(size, size, 2)
+        gauge = u1.gauss_gauge_u1(lat, rng, 6.0)
+        coeffs = Wilson2D(lat, MASS, gauge, dtype=torch.complex64,
+                          device=device).coeffs
+    else:
+        lat = Lattice2D(size, size, nc)
+        cm = Lattice2D(size, size, nc * nc)
+
+        def field():
+            return torch.as_tensor(
+                rng.gaussian_cv(cm).reshape(lat.cm_shape())).to(
+                    device=device, dtype=torch.complex64)
+
+        coeffs = make_coeffs(lat, clover=field(),
+                             hopping=torch.stack([field() for _ in range(4)]),
+                             shift=MASS, dtype=torch.complex64)
+    x = torch.as_tensor(rng.gaussian_cv(lat)).to(device=device,
+                                                  dtype=torch.complex64)
+    return coeffs, x / torch.linalg.vector_norm(x)
+
+
+def make_step(kind: str, coeffs, coeff_dtype=None):
+    """(apply, layout of its x): the apply of one chain step."""
+    if coeff_dtype is not None and kind not in ("matrix", "split", "small"):
+        raise ValueError(f"--coeff-dtype applies to the matrix kernels, "
+                         f"not {kind}")
+    if kind == "wilson-r1":
+        if coeffs.lat.nc != 2:
+            raise ValueError("the rank-1 Wilson kernel needs nc = 2")
+        phase = wilson_phases(coeffs.hopping)
+        alpha = 2.0 + float(np.real(coeffs.shift))
+        return (lambda v: wilson_r1_apply(phase, v, alpha)), "interleaved"
+    if kind == "matrix":
+        ch = stencil_channels(coeffs, coeff_dtype)
+        return (lambda v: dslash_apply(ch, v)), "interleaved"
+    if kind in ("split", "small"):
+        ch = stencil_channels_split(coeffs, coeff_dtype)
+        fn = dslash_split_apply if kind == "split" else dslash_small_apply
+        return (lambda v: fn(ch, v)), "split"
+    if kind == "plain":
+        return (lambda v: apply_M(coeffs, v)), "interleaved"
+    raise ValueError(f"unknown kernel {kind!r}")
+
+
+def step_bytes(kind: str, nc: int, volume: int, coeff_dtype=None) -> int:
+    """bench.py's byte count of one chain step (apply + renormalisation);
+    the rank-1 kernel's own: 4 phases instead of 5 nc^2 coefficients."""
+    apply = ((4 * 8 + 2 * nc * 8) * volume if kind == "wilson-r1"
+             else apply_bytes(nc, volume, coeff_dtype))
+    return apply + 2 * nc * 8 * volume
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+
+
+def run(size: int, kind: str, nc: int = 2, coeff_dtype=None,
+        iters: int = 400, device="cuda") -> dict:
+    """Time ``iters`` chain steps with CUDA events after a warm-up of the
+    same length; returns the measurements. On the CPU (the tests) it only
+    runs the chain and returns its checksum: a CPU time is no device
+    metric."""
+    coeffs, x = make_operator(size, nc, device)
+    apply, layout = make_step(kind, coeffs, coeff_dtype)
+    v = x_to_split(x) if layout == "split" else x
+
+    def chain(v, n):
+        for _ in range(n):
+            y = apply(v)
+            v = y / torch.linalg.vector_norm(y)
+        return v
+
+    if torch.device(device).type != "cuda":
+        out = chain(v, iters)
+        return {"size": size, "kernel": kind, "nc": nc, "iters": iters,
+                "checksum": float(out.abs().sum()), "device": "cpu"}
+    chain(v, iters)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = chain(v, iters)
+    stop.record()
+    torch.cuda.synchronize()
+    us = start.elapsed_time(stop) * 1e3 / iters  # per chain step
+    gbs = (step_bytes(kind, nc, coeffs.lat.volume, coeff_dtype)
+           / (us * 1e-6) / 1e9)
+    return {"size": size, "kernel": kind, "nc": nc,
+            "coeff_dtype": str(coeff_dtype or torch.float32).split(".")[-1],
+            "iters": iters, "us_per_apply": us, "gbs": gbs,
+            "pct_of_hbm": 100.0 * gbs * 1e9 / HBM_BYTES_S,
+            "checksum": float(out.abs().sum()),
+            "device": torch.cuda.get_device_name(torch.device(device))}
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--size", type=int, default=2048)
+    p.add_argument("--kernel", default="matrix", choices=KINDS)
+    p.add_argument("--nc", type=int, default=2)
+    p.add_argument("--coeff-dtype", default="float32",
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--iters", type=int, default=400)
+    p.add_argument("--device", default="cuda")
+    args = p.parse_args(argv)
+    is_cuda = torch.device(args.device).type == "cuda"
+    if is_cuda and not torch.cuda.is_available():
+        raise SystemExit("--device cuda requested but no CUDA device")
+    coeff_dtype = (torch.bfloat16 if args.coeff_dtype == "bfloat16"
+                   else None)
+    r = run(args.size, args.kernel, args.nc, coeff_dtype, args.iters,
+            args.device)
+    if is_cuda:
+        print(card_line())
+        print(f"dslash {r['size']}^2 nc{r['nc']} {r['kernel']} "
+              f"({r['coeff_dtype']} coefficients) on {r['device']}: "
+              f"{r['us_per_apply']:.2f} us/apply, {r['gbs']:.1f} GB/s = "
+              f"{r['pct_of_hbm']:.1f}% of {HBM_BYTES_S / 1e12} TB/s",
+              file=sys.stderr)
+    print(json.dumps(r))
+
+
+if __name__ == "__main__":
+    main()

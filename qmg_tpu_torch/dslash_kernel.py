@@ -1,0 +1,367 @@
+"""Generic distance-1 stencil kernels: the CUDA kernels of
+``csrc/dslash.cu``, their coefficient channels and their plain PyTorch
+twins (port of qmg_tpu/pallas_dslash.py: K4 ``_dslash_kernel``, K5
+``_dslash_split_kernel``, K6 ``_dslash_small_kernel``).
+
+The kernels compute ``stencil.apply_M`` from one channel tensor
+``ch = [clover + mass pattern, H_+x, H_+y, H_-x, H_-y]`` (the shifts are
+folded into the clover diagonal), as
+
+    out = sum_t ch[t] . v_t,   v = [x, x(s+x), x(s+y), x(s-x), x(s-y)].
+
+Layouts (complex, the ri-plane axis of the TPU kernels is not carried):
+
+  * interleaved (K4): x (2p, Y, Xh, nc), ch (5, 2p, Y, Xh, nc, nc);
+  * split (K5, K6): rows stored by y % 2, x (2p, 2r, Yh, Xh, nc) with
+    y = 2m + r, ch (5, 2p, 2r, Yh, Xh, nc, nc).
+
+Channels are complex64, or bf16 as a real (..., nc, nc, 2) tensor of the
+rounded real and imaginary parts of the complex64 channels; the kernels
+and the twins widen bf16 to float32 and accumulate in float32.
+
+Each wrapper (``dslash_apply``, ``dslash_split_apply``,
+``dslash_small_apply``) launches its kernel for CUDA tensors, or raises,
+and runs its twin for CPU tensors; ``<wrapper>.launches`` counts kernel
+launches. The kernels take nc in ``SUPPORTED_NC``; the wrappers refuse any
+other nc on every device. ``bind_apply`` makes a wrapper's checks once for
+fixed channels and x shape, for callers that apply one operator many
+times (the solve).
+
+``apply_bytes`` is the kernels' compulsory byte count and ``HBM_BYTES_S``
+the card's memory rate; their bound is the one over the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .cshift import cshift_pull, ALL_DIRS
+from .cuda_build import build_library
+from .linalg import stacked_site_matvec
+from .stencil import StencilCoeffs, mass_pattern
+
+__all__ = ["SUPPORTED_NC", "HBM_BYTES_S", "stencil_channels",
+           "stencil_channels_split", "channels_to_split", "x_to_split",
+           "x_from_split", "small_fits", "apply_bytes", "dslash_apply",
+           "dslash_split_apply", "dslash_small_apply", "bind_apply",
+           "dslash_apply_plain", "dslash_split_apply_plain",
+           "dslash_small_apply_plain", "build_dslash"]
+
+SOURCE = "dslash.cu"
+SUPPORTED_NC = (1, 2, 4, 8, 16)
+# Operand budget of the small-lattice kernel, qmg_tpu's rule
+# (pallas_dslash.py:624-634): x + out + clover + hopping <= 14 MiB.
+SMALL_MAX_BYTES = 14 * 1024 * 1024
+# H100 SXM HBM3 peak, bytes/s (data sheet, at its 700 W power limit).
+HBM_BYTES_S = 3.35e12
+_LIB = {}
+
+
+def apply_bytes(nc: int, sites: int, coeff_dtype=None) -> int:
+    """Compulsory bytes of one stencil apply over ``sites`` sites: the
+    5 nc^2 channel entries (8 B complex64, 4 B as bf16 pairs) and x read
+    once, out written once (bench.py's byte count)."""
+    coeff = 4 if coeff_dtype == torch.bfloat16 else 8
+    return (5 * nc * nc * coeff + 2 * nc * 8) * sites
+
+
+def build_dslash() -> float:
+    """Build (at first use) and load the kernels; returns build seconds."""
+    if "lib" in _LIB:
+        return 0.0
+    lib, seconds = build_library(SOURCE)
+    for name in ("dslash_launch", "dslash_split_launch",
+                 "dslash_small_launch"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _LIB[name] = fn
+    _LIB["lib"] = lib
+    return seconds
+
+
+# ---------------------------------------------------------------------------
+# Channels and layouts.
+# ---------------------------------------------------------------------------
+
+def _to_coeff_dtype(ch, coeff_dtype):
+    """complex64 channels as themselves, or as bf16 (..., 2) pairs rounded
+    (to nearest even) from their float32 real and imaginary parts."""
+    if coeff_dtype in (None, torch.float32, torch.complex64):
+        return ch.contiguous()
+    if coeff_dtype != torch.bfloat16:
+        raise ValueError(f"coefficient dtype {coeff_dtype} is not supported "
+                         "(float32 or bfloat16)")
+    return torch.view_as_real(ch.contiguous()).to(torch.bfloat16)
+
+
+def stencil_channels(coeffs: StencilCoeffs, coeff_dtype=torch.float32):
+    """[clover + mass pattern, H_+x, H_+y, H_-x, H_-y] as one contiguous
+    (5, 2, Y, Xh, nc, nc) complex64 tensor, or its bf16 (..., 2) pairs
+    (port of pallas_dslash.py::_channels_from_coeffs). A missing clover
+    leaves the mass pattern alone."""
+    if coeffs.hopping is None:
+        raise ValueError("stencil channels need a hopping term")
+    clover = mass_pattern(coeffs).to(torch.complex64)
+    if coeffs.clover is not None:
+        clover = clover + coeffs.clover.to(torch.complex64)
+    ch = torch.cat([clover[None], coeffs.hopping.to(torch.complex64)])
+    return _to_coeff_dtype(ch, coeff_dtype)
+
+
+def _rows_to_split(t, y_axis: int):
+    """Split the Y axis at ``y_axis`` into (2r, Yh), y = 2m + r."""
+    y_len = t.shape[y_axis]
+    if y_len % 2:
+        raise ValueError(f"the split layout needs even Y, got {y_len}")
+    t = t.reshape(t.shape[:y_axis] + (y_len // 2, 2) + t.shape[y_axis + 1:])
+    return t.transpose(y_axis, y_axis + 1).contiguous()
+
+
+def _rows_from_split(t, r_axis: int):
+    """Inverse of ``_rows_to_split``: (2r, Yh) at ``r_axis`` -> Y."""
+    t = t.transpose(r_axis, r_axis + 1)
+    return t.reshape(t.shape[:r_axis] + (-1,) + t.shape[r_axis + 2:])
+
+
+def x_to_split(x):
+    """(2, Y, Xh, nc) -> (2p, 2r, Yh, Xh, nc), contiguous."""
+    return _rows_to_split(x, 1)
+
+
+def x_from_split(xs):
+    """(2p, 2r, Yh, Xh, nc) -> (2, Y, Xh, nc)."""
+    return _rows_from_split(xs, 1)
+
+
+def channels_to_split(ch):
+    """Interleaved channels (5, 2, Y, Xh, ...) -> split (5, 2p, 2r, Yh,
+    Xh, ...), contiguous."""
+    return _rows_to_split(ch, 2)
+
+
+def stencil_channels_split(coeffs: StencilCoeffs, coeff_dtype=torch.float32):
+    """``stencil_channels`` in the split layout: (5, 2p, 2r, Yh, Xh, nc,
+    nc) complex64, or its bf16 (..., 2) pairs."""
+    return channels_to_split(stencil_channels(coeffs, coeff_dtype))
+
+
+def small_fits(nc: int, y_len: int, xh: int, coeff_dtype=torch.float32):
+    """qmg_tpu's eligibility rule for the small-lattice kernel
+    (pallas_dslash.py:614-634) without its TPU lane rule: even Y, and
+    x + out + clover + hopping at most 14 MiB."""
+    if y_len % 2:
+        return False
+    csize = 2 if coeff_dtype == torch.bfloat16 else 4
+    plane = (y_len // 2) * xh
+    total = (4 * nc * 2 * plane * 4 * 2
+             + (4 + 16) * nc * nc * 2 * plane * csize)
+    return total <= SMALL_MAX_BYTES
+
+
+# ---------------------------------------------------------------------------
+# Plain twins.
+# ---------------------------------------------------------------------------
+
+def _widen(ch):
+    """Channels as complex64: bf16 pairs widened to float32."""
+    if ch.dtype == torch.bfloat16:
+        return torch.complex(ch[..., 0].float(), ch[..., 1].float())
+    return ch
+
+
+def dslash_apply_plain(ch, x):
+    """The K4 kernel's arithmetic in PyTorch: the four neighbours through
+    ``cshift_pull`` and one stacked matvec."""
+    nbrs = torch.stack([x] + [cshift_pull(x, d) for d in ALL_DIRS])
+    return stacked_site_matvec(_widen(ch), nbrs)
+
+
+def _split_pulls(xs):
+    """The neighbour pulls [+x, +y, -x, -y] of a split-layout field, as
+    torus rolls of the source parity's halves."""
+    src = torch.flip(xs, dims=(0,))              # dest q reads parity 1-q
+    q = torch.arange(2, device=xs.device)
+    direct = (q[:, None] == q[None, :]).reshape(2, 2, 1, 1, 1)  # r == q
+    xp = torch.where(direct, src, torch.roll(src, -1, dims=3))
+    xm = torch.where(direct, torch.roll(src, 1, dims=3), src)
+    s0, s1 = src[:, 0], src[:, 1]
+    yp = torch.stack([s1, torch.roll(s0, -1, dims=1)], dim=1)
+    ym = torch.stack([torch.roll(s1, 1, dims=1), s0], dim=1)
+    return [xp, yp, xm, ym]
+
+
+def dslash_split_apply_plain(ch, xs):
+    """The K5 kernel's arithmetic in PyTorch, in the split layout: half
+    r = 0 pulls +-y from half 1 at rows m and m-1, half r = 1 from half 0
+    at rows m+1 and m; the +x source is the same column where r == q."""
+    nbrs = torch.stack([xs] + _split_pulls(xs))
+    return stacked_site_matvec(_widen(ch), nbrs)
+
+
+# K6 computes K5's function in K5's layout; its twin is K5's.
+dslash_small_apply_plain = dslash_split_apply_plain
+
+
+# ---------------------------------------------------------------------------
+# Wrappers.
+# ---------------------------------------------------------------------------
+
+def _check(name, ch, x, x_ndim):
+    if x.dtype != torch.complex64:
+        raise TypeError(f"{name} needs complex64 x, got {x.dtype}")
+    if ch.dtype not in (torch.complex64, torch.bfloat16):
+        raise TypeError(f"{name} needs complex64 or bf16 channels, got "
+                        f"{ch.dtype}")
+    if x.ndim != x_ndim or x.shape[0] != 2 or (x_ndim == 5
+                                               and x.shape[1] != 2):
+        raise ValueError(f"{name}: x of shape {tuple(x.shape)} is not in "
+                         f"the {'split' if x_ndim == 5 else 'interleaved'} "
+                         "layout")
+    nc = x.shape[-1]
+    if nc not in SUPPORTED_NC:
+        raise ValueError(f"{name}: nc={nc} is not supported (the kernels "
+                         f"are built for nc in {SUPPORTED_NC})")
+    expect = (5,) + tuple(x.shape) + (nc,)
+    if ch.dtype == torch.bfloat16:
+        expect += (2,)
+    if tuple(ch.shape) != expect:
+        raise ValueError(f"{name}: channels must be {expect}, got "
+                         f"{tuple(ch.shape)}")
+    if ch.device != x.device:
+        raise ValueError(f"{name}: channels on {ch.device}, x on {x.device}")
+    if not (x.is_contiguous() and ch.is_contiguous()):
+        raise ValueError(f"{name} needs contiguous channels and x")
+    if x.is_conj() or ch.is_conj():
+        raise ValueError(f"{name} needs resolved (non-lazy-conj) tensors")
+    # The kernels' largest index is the channels', < 5 * 2 * sites * nc^2
+    # = 5 nc x.numel(), in 32-bit ints.
+    if 5 * nc * x.numel() >= 2 ** 31:
+        raise ValueError(f"{name}: lattice {tuple(x.shape)} too large for "
+                         f"the kernels' 32-bit indices")
+
+
+def _launcher(wrapper, launcher, ch, x):
+    """The C launcher, built at first use, after the device and alignment
+    checks of x and the channels."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{wrapper.__name__}: unsupported device "
+                         f"{x.device}")
+    if x.data_ptr() % 8 or ch.data_ptr() % (4 if ch.dtype == torch.bfloat16
+                                            else 8):
+        raise ValueError(f"{wrapper.__name__} needs 8-byte aligned x and "
+                         "element-aligned channels")
+    build_dslash()
+    return _LIB[launcher]
+
+
+def _run(wrapper, fn, ch, x, rows: int, xh_len: int):
+    """Launch ``fn`` on x's device and its current stream, unchecked."""
+    if x.device.index != torch.cuda.current_device():
+        with torch.cuda.device(x.device):
+            return _run(wrapper, fn, ch, x, rows, xh_len)
+    out = torch.empty_like(x)
+    err = fn(ch.data_ptr(), int(ch.dtype == torch.bfloat16), x.data_ptr(),
+             out.data_ptr(), x.shape[-1], rows, xh_len,
+             torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{wrapper.__name__}'s launch failed: CUDA "
+                           f"error {err}")
+    wrapper.launches += 1
+    return out
+
+
+def _launch(wrapper, launcher, ch, x, rows: int, xh_len: int):
+    return _run(wrapper, _launcher(wrapper, launcher, ch, x), ch, x, rows,
+                xh_len)
+
+
+def dslash_apply(ch, x):
+    """K4: the stencil apply in the interleaved layout; the CUDA kernel
+    for CUDA tensors, the plain twin for CPU tensors."""
+    _check("dslash_apply", ch, x, 4)
+    if x.device.type == "cpu":
+        return dslash_apply_plain(ch, x)
+    return _launch(dslash_apply, "dslash_launch", ch, x, x.shape[1],
+                   x.shape[2])
+
+
+def dslash_split_apply(ch, xs):
+    """K5: the stencil apply in the split layout."""
+    _check("dslash_split_apply", ch, xs, 5)
+    if xs.device.type == "cpu":
+        return dslash_split_apply_plain(ch, xs)
+    return _launch(dslash_split_apply, "dslash_split_launch", ch, xs,
+                   xs.shape[2], xs.shape[3])
+
+
+def _check_small(ch, xs):
+    nc, yh_len, xh_len = xs.shape[-1], xs.shape[2], xs.shape[3]
+    if not small_fits(nc, 2 * yh_len, xh_len, ch.dtype):
+        raise ValueError(f"dslash_small_apply: operands of Y={2 * yh_len}, "
+                         f"Xh={xh_len}, nc={nc} exceed the small kernel's "
+                         f"{SMALL_MAX_BYTES // 2 ** 20} MiB")
+
+
+def dslash_small_apply(ch, xs):
+    """K6: the stencil apply in the split layout for lattices that
+    ``small_fits`` accepts, x staged in shared memory."""
+    _check("dslash_small_apply", ch, xs, 5)
+    _check_small(ch, xs)
+    yh_len, xh_len = xs.shape[2], xs.shape[3]
+    if xs.device.type == "cpu":
+        return dslash_small_apply_plain(ch, xs)
+    return _launch(dslash_small_apply, "dslash_small_launch", ch, xs,
+                   yh_len, xh_len)
+
+
+dslash_apply.launches = 0
+dslash_split_apply.launches = 0
+dslash_small_apply.launches = 0
+
+# wrapper: (x ndim, C launcher, twin, storage rows of x, Xh of x)
+_BINDINGS = {
+    dslash_apply: (4, "dslash_launch", dslash_apply_plain,
+                   lambda shape: (shape[1], shape[2])),
+    dslash_split_apply: (5, "dslash_split_launch", dslash_split_apply_plain,
+                         lambda shape: (shape[2], shape[3])),
+    dslash_small_apply: (5, "dslash_small_launch", dslash_small_apply_plain,
+                         lambda shape: (shape[2], shape[3]))}
+
+
+def bind_apply(wrapper, ch, x_shape):
+    """``wrapper``'s apply for the fixed channels ``ch`` and x of shape
+    ``x_shape``, with the wrapper's checks made here, once. The returned
+    function takes a contiguous complex64 x of that shape on ``ch``'s
+    device: the kernel (counted in ``wrapper.launches``) for a CUDA ``ch``,
+    the twin for a CPU one."""
+    x_ndim, launcher, twin, dims = _BINDINGS[wrapper]
+    x_shape = torch.Size(x_shape)
+    probe = torch.empty(x_shape, dtype=torch.complex64, device=ch.device)
+    _check(wrapper.__name__, ch, probe, x_ndim)
+    if wrapper is dslash_small_apply:
+        _check_small(ch, probe)
+    device = ch.device
+
+    def check(x):
+        if x.shape != x_shape or x.device != device:
+            raise ValueError(f"{wrapper.__name__} was bound to x of shape "
+                             f"{tuple(x_shape)} on {device}, got "
+                             f"{tuple(x.shape)} on {x.device}")
+
+    if device.type == "cpu":
+        def apply(x):
+            check(x)
+            return twin(ch, x)
+        return apply
+    rows, xh_len = dims(x_shape)
+    fn = _launcher(wrapper, launcher, ch, probe)
+
+    def apply(x):
+        check(x)
+        return _run(wrapper, fn, ch, x, rows, xh_len)
+    return apply

@@ -6,14 +6,18 @@
 Gauge field ``gauss_gauge_u1`` at beta = 6 from ``QMGRandom(1337)``;
 Wilson2D at m = -0.06 in complex64; the host-driven setup
 (``build_kcycle_hierarchy``) on the device; then a warm-up solve and a
-timed solve to tol 1e-5 (max 200 outer iterations) with the rank-1
-Wilson kernel as the fine apply inside the K-cycle. Prints one line each:
-outer iterations, recursive and true relative residual (complex128, exact
-operator), setup s, solve ms, ms/iter, per-level operator counts and the
-kernel's launch count. ``--repeats N`` times N solves and reports the
-median; ``--profile`` adds one solve under torch.profiler (device busy
-share and the kernels with the most device time); ``--fine-kernel none``
-keeps the plain apply on level 0.
+timed solve to tol 1e-5 (max 200 outer iterations). Inside the K-cycle
+level 0 takes ``--fine-kernel`` (default the rank-1 Wilson kernel;
+``matrix``, ``matrix-split`` and ``small`` are the generic stencil
+kernels, ``none`` the plain apply) with ``--coeff-dtype`` coefficients,
+and the coarse levels ``--coarse-apply`` (plain, gather, or the
+small-lattice kernel where it fits). Prints one line each: the apply of
+every level, outer iterations, recursive and true relative residual
+(complex128, exact operator), setup s, solve ms, ms/iter, per-level
+operator counts and the launches of each kernel. ``--repeats N`` times N
+solves and reports the median; ``--profile`` adds one solve under
+torch.profiler (device busy share and the kernels with the most device
+time).
 """
 
 from __future__ import annotations
@@ -32,6 +36,8 @@ from .stencil import apply_M, make_coeffs
 from .linalg import norm2sq
 from .rng import QMGRandom
 from .wilson_kernel import wilson_r1_apply
+from .dslash_kernel import (dslash_apply, dslash_split_apply,
+                            dslash_small_apply)
 from . import u1
 
 MASS = -0.06
@@ -39,6 +45,19 @@ BETA = 6.0
 SEED = 1337
 TOL = 1e-5
 MAX_ITER = 200
+# The CUDA kernels' wrappers by the names the reports use.
+KERNELS = {"wilson_r1": wilson_r1_apply, "dslash": dslash_apply,
+           "dslash_split": dslash_split_apply,
+           "dslash_small": dslash_small_apply}
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts():
+    for fn in KERNELS.values():
+        fn.launches = 0
 
 
 def kcycle_config(size: int):
@@ -99,12 +118,9 @@ def profile_solve(solve, b, solve_ms: float, top: int = 12):
               f"{e.key[:90]}")
 
 
-def run_kcycle(size: int = 512, device="cuda",
-               fine_kernel: str | None = "wilson-r1",
-               profile: bool = False, repeats: int = 1) -> dict:
-    """Setup + warm-up solve + ``repeats`` timed solves (the median is
-    reported); returns the measurements. ``profile`` adds one profiled
-    solve after the timed ones (CUDA only)."""
+def build_problem(size: int = 512, device="cuda") -> dict:
+    """The gauge field, the fine operator, the hierarchy (setup timed)
+    and the right-hand side (drawn after the setup, as bench.py does)."""
     lat = Lattice2D(size, size, 2)
     rng = QMGRandom(SEED)
     gauge = u1.gauss_gauge_u1(lat, rng, BETA)
@@ -116,47 +132,81 @@ def run_kcycle(size: int = 512, device="cuda",
     mg = build_kcycle_hierarchy(lat, op, cfg, rng)
     _sync(device)
     setup_s = time.perf_counter() - t0
-
-    solve = make_solver(mg, tol=TOL, max_iter=MAX_ITER, restart_freq=restart,
-                        fine_kernel=fine_kernel)
     b = torch.as_tensor(rng.gaussian_cv(lat)).to(device=device,
                                                   dtype=torch.complex64)
+    return {"size": size, "device": device, "op": op, "mg": mg, "b": b,
+            "restart": restart, "setup_s": setup_s}
+
+
+def run_solver(problem: dict, fine_kernel: str | None = "wilson-r1",
+               coarse_apply: str = "plain", coeff_dtype=None,
+               profile: bool = False, repeats: int = 1) -> dict:
+    """One solver on ``problem``'s hierarchy: a warm-up solve and
+    ``repeats`` timed solves (the median is reported); ``profile`` adds
+    one profiled solve after the timed ones (CUDA only). ``launches`` are
+    the kernel launches per timed solve."""
+    device, mg, b = problem["device"], problem["mg"], problem["b"]
+    solve = make_solver(mg, tol=TOL, max_iter=MAX_ITER,
+                        restart_freq=problem["restart"],
+                        fine_kernel=fine_kernel, coarse_apply=coarse_apply,
+                        coeff_dtype=coeff_dtype)
     solve(b)  # warm-up
     _sync(device)
-    launches0 = wilson_r1_apply.launches
+    launches0 = launch_counts()
     times_s = []
     for _ in range(repeats):
         t0 = time.perf_counter()
         res, carry = solve(b)
         _sync(device)
         times_s.append(time.perf_counter() - t0)
-    launches = (wilson_r1_apply.launches - launches0) // repeats
+    launches = {k: (n - launches0[k]) // repeats
+                for k, n in launch_counts().items()}
     solve_s = float(np.median(times_s))
     if profile:
         profile_solve(solve, b, solve_s * 1e3)
     rel_rec = float(torch.sqrt(res.res_sq / norm2sq(b)))
     return {
-        "size": size,
+        "size": problem["size"],
         "device": str(device),
-        "levels": [str(mg.get_lattice(i)) for i in range(mg.get_num_levels())],
+        "levels": [f"{lat.x_len}x{lat.y_len} nc{lat.nc}"
+                   for lat in mg.lattice_list],
+        "fine_kernel": fine_kernel,
+        "coarse_apply": coarse_apply,
+        "coeff_dtype": str(coeff_dtype or torch.float32).split(".")[-1],
+        "level_applies": solve.level_applies,
         "iters": res.iters,
         "converged": bool(res.converged),
         "rel_res_recursive": rel_rec,
-        "rel_res_true": true_residual(op, b, res.x),
+        "rel_res_true": true_residual(problem["op"], b, res.x),
         "x_finite": bool(torch.isfinite(torch.view_as_real(res.x)).all()),
         "x_shape": tuple(res.x.shape),
-        "setup_s": setup_s,
+        "setup_s": problem["setup_s"],
         "solve_ms": solve_s * 1e3,
         "solve_ms_all": [t * 1e3 for t in times_s],
         "ms_per_iter": solve_s * 1e3 / max(res.iters, 1),
         "counts": carry["counts"].tolist(),
         "level_iters": carry["iters"].tolist(),
-        "kernel_launches_timed_solve": launches,
+        "launches": launches,
     }
 
 
+def run_kcycle(size: int = 512, device="cuda",
+               fine_kernel: str | None = "wilson-r1",
+               coarse_apply: str = "plain", coeff_dtype=None,
+               profile: bool = False, repeats: int = 1) -> dict:
+    """Setup + one solver (``build_problem`` then ``run_solver``)."""
+    return run_solver(build_problem(size, device), fine_kernel,
+                      coarse_apply, coeff_dtype, profile=profile,
+                      repeats=repeats)
+
+
 def print_report(r: dict):
-    print(f"kcycle {r['size']}^2 on {r['device']}: levels {r['levels']}")
+    print(f"kcycle {r['size']}^2 on {r['device']}: fine_kernel "
+          f"{r['fine_kernel']}, coarse_apply {r['coarse_apply']}, "
+          f"coefficients {r['coeff_dtype']}")
+    print("level applies: " + ", ".join(
+        f"{lvl} {name}" for lvl, name in zip(r["levels"],
+                                             r["level_applies"])))
     print(f"outer iterations: {r['iters']} (converged {r['converged']})")
     print(f"relative residual: recursive {r['rel_res_recursive']:.3e}, "
           f"true (c128) {r['rel_res_true']:.3e}")
@@ -167,8 +217,8 @@ def print_report(r: dict):
              if len(r["solve_ms_all"]) > 1 else ""))
     print("per-level op counts [nullvec, krylov, presmooth, postsmooth]: "
           f"{r['counts']}; krylov iterations per level {r['level_iters']}")
-    print(f"wilson_r1 launches in the timed solve: "
-          f"{r['kernel_launches_timed_solve']}")
+    print("kernel launches per timed solve: " + ", ".join(
+        f"{k} {n}" for k, n in r["launches"].items()))
 
 
 def main(argv=None):
@@ -176,7 +226,13 @@ def main(argv=None):
     p.add_argument("--size", type=int, default=512)
     p.add_argument("--device", default="cuda")
     p.add_argument("--fine-kernel", default="wilson-r1",
-                   choices=["wilson-r1", "none"])
+                   choices=["wilson-r1", "matrix", "matrix-split", "small",
+                            "none"])
+    p.add_argument("--coarse-apply", default="plain",
+                   choices=["plain", "gather", "small"])
+    p.add_argument("--coeff-dtype", default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="coefficient stream of the matrix kernels")
     p.add_argument("--repeats", type=int, default=1,
                    help="timed solves; the median is reported")
     p.add_argument("--profile", action="store_true",
@@ -189,6 +245,9 @@ def main(argv=None):
         raise SystemExit("--profile measures the card; use --device cuda")
     r = run_kcycle(args.size, args.device,
                    None if args.fine_kernel == "none" else args.fine_kernel,
+                   args.coarse_apply,
+                   torch.bfloat16 if args.coeff_dtype == "bfloat16"
+                   else None,
                    profile=args.profile, repeats=args.repeats)
     print_report(r)
     if not (r["converged"] and np.isfinite(r["rel_res_true"])):

@@ -3,9 +3,10 @@ of the ORIGINAL path of qmg_tpu/tpu_compat.py's ``make_planes_solver`` and
 ``mg_state_planes``, without their real-plane jit boundaries).
 
 ``make_solver`` runs outer restarted flexible GCR around the K-cycle. The
-outer matvec is the exact plain apply; the fine-level CUDA kernel is
-installed only as level 0's ``apply_override`` inside the
-preconditioner, where flexible GCR absorbs its float32 rounding.
+outer matvec is the exact plain apply; the CUDA kernels (and the gather
+apply) are installed only as the levels' ``apply_override`` inside the
+preconditioner, where flexible GCR absorbs their float32 (or bf16
+coefficient) rounding.
 
 ``state_to_numpy`` / ``state_from_numpy`` carry a hierarchy across the two
 packages in the key format of ``qmg_tpu.tpu_compat.mg_state_planes``:
@@ -20,19 +21,28 @@ import numpy as np
 import torch
 
 from .lattice import Lattice2D
-from .stencil import Stencil2D, make_coeffs, apply_M
+from .stencil import Stencil2D, make_coeffs, apply_M, build_gather_apply
 from .operators.wilson import Wilson2D
 from .operators.coarse import CoarseOperator2D
 from .transfer import TransferMG, DoublingType
 from .stateful import StatefulMultigridMG, zero_carry, DSLASH_KRYLOV
 from .setup import KCycleConfig, pin_full_precision
 from .wilson_kernel import wilson_r1_apply, wilson_phases
+from .dslash_kernel import (SUPPORTED_NC, stencil_channels,
+                            stencil_channels_split, x_to_split, x_from_split,
+                            small_fits, bind_apply, dslash_apply,
+                            dslash_split_apply, dslash_small_apply)
 from . import solvers
 
 __all__ = ["make_solver", "state_to_numpy", "state_from_numpy"]
 
 
-def _fine_kernel_apply(fine: Stencil2D):
+FINE_KERNELS = ("wilson-r1", "matrix", "matrix-split", "small")
+MATRIX_KERNELS = ("matrix", "matrix-split", "small")
+COARSE_APPLIES = ("plain", "gather", "small")
+
+
+def _wilson_r1_apply(fine: Stencil2D):
     """Level 0's apply through the rank-1 Wilson kernel. The kernel
     ignores the clover array and assumes 2w I with w = 1, so anything but
     a Wilson operator at w = 1 is refused."""
@@ -51,44 +61,113 @@ def _fine_kernel_apply(fine: Stencil2D):
     return apply
 
 
+def _matrix_apply(coeffs, kind: str, coeff_dtype=None):
+    """An apply through one generic stencil kernel (K4 "matrix", K5
+    "matrix-split", K6 "small"), its channels built and its checks made
+    here, once."""
+    lat = coeffs.lat
+    if lat.nc not in SUPPORTED_NC:
+        raise ValueError(f"the stencil kernels take nc in {SUPPORTED_NC}, "
+                         f"not {lat.nc}")
+    if kind == "matrix":
+        fn = bind_apply(dslash_apply, stencil_channels(coeffs, coeff_dtype),
+                        lat.cv_shape())
+        return lambda v: fn(v.to(torch.complex64).contiguous()).to(v.dtype)
+    if kind == "small" and not small_fits(lat.nc, lat.y_len, lat.xh,
+                                          coeff_dtype):
+        raise ValueError(f"the small-lattice kernel does not take {lat}")
+    wrapper = (dslash_split_apply if kind == "matrix-split"
+               else dslash_small_apply)
+    fn = bind_apply(wrapper, stencil_channels_split(coeffs, coeff_dtype),
+                    (2, 2, lat.y_len // 2, lat.xh, lat.nc))
+    return lambda v: x_from_split(fn(
+        x_to_split(v.to(torch.complex64)))).to(v.dtype)
+
+
+def _coarse_apply(st: Stencil2D, coarse_apply: str):
+    """(apply override or None, its name) for one coarse level. Levels
+    without hopping, of volume 1, or that the small kernel does not take
+    keep the plain apply (tpu_compat.py:504-530)."""
+    c = st.coeffs
+    if coarse_apply == "gather":
+        fn = build_gather_apply(c)
+        return fn, ("gather" if fn is not None else "plain")
+    if (coarse_apply == "small" and c.hopping is not None
+            and st.lat.volume > 1
+            and small_fits(st.lat.nc, st.lat.y_len, st.lat.xh)):
+        return _matrix_apply(c, "small"), "small"
+    return None, "plain"
+
+
 def make_solver(mg: StatefulMultigridMG, tol: float = 1e-8,
                 max_iter: int = 400, restart_freq: int = 32,
-                fine_kernel: str | None = "wilson-r1"):
+                fine_kernel: str | None = "wilson-r1",
+                coarse_apply: str = "plain", coeff_dtype=None):
     """Returns solve(b) -> (SolveResult, carry): outer FGCR on the fine
     operator, preconditioned by one K-cycle per iteration. ``carry`` holds
     this solve's per-level operator and iteration counts (outer ones
     included); they are also added to ``mg.tracker``.
 
-    ``fine_kernel``: "wilson-r1" routes level 0's apply inside the
-    K-cycle through the rank-1 Wilson kernel; None keeps the plain
-    stencil apply everywhere.
+    ``fine_kernel`` routes level 0's apply inside the K-cycle through a
+    CUDA kernel: "wilson-r1" (the rank-1 Wilson kernel), "matrix" (K4),
+    "matrix-split" (K5) or "small" (K6); None keeps the plain apply.
+    ``coeff_dtype=torch.bfloat16`` streams the matrix kernels'
+    coefficients in bf16 (refused for the other kinds). ``coarse_apply``
+    is the coarse levels' apply: "plain" (alias "jnp"), "gather"
+    (``stencil.build_gather_apply``) or "small" (K6 where it fits).
+    ``solve.level_applies`` names the apply each level takes. The
+    overrides exist only inside a solve: setup, the Galerkin build and
+    the outer matvec keep the exact plain apply.
     """
+    if fine_kernel not in FINE_KERNELS + (None,):
+        raise ValueError(f"unknown fine_kernel {fine_kernel!r}")
+    coarse_apply = "plain" if coarse_apply == "jnp" else coarse_apply
+    if coarse_apply not in COARSE_APPLIES:
+        raise ValueError(f"unknown coarse_apply {coarse_apply!r}")
+    if coeff_dtype not in (None, torch.bfloat16):
+        raise ValueError(f"coeff_dtype must be None or torch.bfloat16, "
+                         f"got {coeff_dtype}")
+    if coeff_dtype is not None and fine_kernel not in MATRIX_KERNELS:
+        raise ValueError("coeff_dtype applies to the matrix kernels "
+                         f"{MATRIX_KERNELS}, not fine_kernel="
+                         f"{fine_kernel!r}")
     pin_full_precision()
     fine = mg.get_stencil(0)
-    if fine_kernel not in (None, "wilson-r1"):
-        raise ValueError(f"unknown fine_kernel {fine_kernel!r}")
-    kernel_apply = (_fine_kernel_apply(fine) if fine_kernel is not None
-                    else None)
     n_levels = mg.get_num_levels()
+    stencils = [mg.get_stencil(lvl) for lvl in range(n_levels)]
+    overrides, applies = [None], ["plain"]
+    if fine_kernel == "wilson-r1":
+        overrides[0] = _wilson_r1_apply(fine)
+    elif fine_kernel is not None:
+        overrides[0] = _matrix_apply(fine.coeffs, fine_kernel, coeff_dtype)
+    if fine_kernel is not None:
+        applies[0] = fine_kernel
+    for st in stencils[1:]:
+        fn, name = _coarse_apply(st, coarse_apply)
+        overrides.append(fn)
+        applies.append(name)
 
     def matvec(v):
         return apply_M(fine.coeffs, v)
 
     def solve(b):
         carry = zero_carry(n_levels)
-        fine.apply_override = kernel_apply
         try:
+            for st, fn in zip(stencils, overrides):
+                st.apply_override = fn
             precond = mg.make_preconditioner(0)
             res, carry = solvers.gcr_var_precond_restart(
                 matvec, b, precond, max_iter=max_iter, tol=tol,
                 restart_freq=restart_freq, precond_carry=carry)
         finally:
-            fine.apply_override = None
+            for st in stencils:
+                st.apply_override = None
         carry["counts"][0, DSLASH_KRYLOV] += res.ops_count
         carry["iters"][0] += res.iters
         mg.absorb_carry(carry)
         return res, carry
 
+    solve.level_applies = applies
     return solve
 
 

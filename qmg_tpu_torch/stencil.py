@@ -8,9 +8,10 @@ is ``M x = clover x + sum_d hopping_d x(s + d) + shifts``. Every apply
 accepts leading batch axes on ``x`` (``(*batch, 2, Y, Xh, nc)``), which is
 how the Galerkin probe build runs all coarse colours at once.
 
-The derived stencils (dagger, right block Jacobi, Schur) and the
-distance-2 pieces are not ported yet; ``Stencil2D`` refuses those stencil
-types.
+``build_gather_apply`` is the same apply as an index gather plus one
+stacked matvec (the solver's ``coarse_apply="gather"``). The derived
+stencils (dagger, right block Jacobi, Schur) and the distance-2 pieces
+are not ported yet; ``Stencil2D`` refuses those stencil types.
 """
 
 from __future__ import annotations
@@ -153,6 +154,29 @@ def apply_M(coeffs: StencilCoeffs, x):
         + apply_shift(coeffs, x)
 
 
+def build_gather_apply(coeffs: StencilCoeffs):
+    """The apply as one index gather plus one stacked matvec (port of
+    qmg_tpu.stencil.build_gather_apply, the ``coarse_apply="gather"``
+    formulation): the neighbour table is ``cshift_pull`` of the site ids,
+    built once. Returns apply(x) for an unbatched field, or None where
+    qmg_tpu's has none (no clover or hopping, or volume 1)."""
+    lat = coeffs.lat
+    if coeffs.hopping is None or coeffs.clover is None or lat.volume <= 1:
+        return None
+    site_ids = torch.arange(lat.volume).reshape(2, lat.y_len, lat.xh)
+    nbr_idx = torch.stack([site_ids.reshape(-1)] + [
+        cshift_pull(site_ids, d).reshape(-1) for d in ALL_DIRS]).to(
+            coeffs.hopping.device)                      # (5, volume)
+    mats = coeffs.stacked().reshape(5, lat.volume, lat.nc, lat.nc)
+
+    def apply_fn(x):
+        xg = x.reshape(lat.volume, lat.nc)[nbr_idx]     # (5, volume, nc)
+        out = linalg.stacked_site_matvec(mats, xg).reshape(x.shape)
+        return out + apply_shift(coeffs, x)
+
+    return apply_fn
+
+
 def mass_pattern(coeffs: StencilCoeffs):
     """Per-site diagonal mass matrix with the eo/dof sign structure."""
     lat = coeffs.lat
@@ -177,8 +201,8 @@ def mass_pattern(coeffs: StencilCoeffs):
 class Stencil2D:
     """An original coefficient set with the uniform apply/prepare/
     reconstruct dispatch. ``apply_override``, when set, replaces the
-    ORIGINAL apply (the solver installs the fine-level CUDA kernel here);
-    it must compute the full ``apply_M``."""
+    ORIGINAL apply (the solver installs the CUDA kernels and the gather
+    apply here); it must compute the full ``apply_M``."""
 
     def __init__(self, coeffs: StencilCoeffs):
         self.coeffs = coeffs

@@ -11,7 +11,8 @@ MODULES = ["qmg_tpu_torch", "qmg_tpu_torch.lattice", "qmg_tpu_torch.rng",
            "qmg_tpu_torch.linalg", "qmg_tpu_torch.stencil",
            "qmg_tpu_torch.operators", "qmg_tpu_torch.operators.wilson",
            "qmg_tpu_torch.operators.coarse", "qmg_tpu_torch.cuda_build",
-           "qmg_tpu_torch.wilson_kernel", "qmg_tpu_torch.solvers",
+           "qmg_tpu_torch.wilson_kernel", "qmg_tpu_torch.dslash_kernel",
+           "qmg_tpu_torch.dslash", "qmg_tpu_torch.solvers",
            "qmg_tpu_torch.transfer", "qmg_tpu_torch.multigrid",
            "qmg_tpu_torch.eig", "qmg_tpu_torch.stateful",
            "qmg_tpu_torch.setup", "qmg_tpu_torch.solve",

@@ -108,6 +108,35 @@ def test_generic_stencil_apply_with_shifts_matches_jax():
             jstencil.mass_pattern(jc)), rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("shape, nc", [((8, 8), 8), ((16, 4), 2),
+                                       ((2, 2), 8), ((1, 1), 8)])
+def test_gather_apply_matches_jax(shape, nc):
+    """build_gather_apply against qmg_tpu's at complex128 (and against
+    apply_M); None where qmg_tpu's is None (volume 1, no clover)."""
+    rng = np.random.default_rng(nc + shape[0])
+    lat, tlat = Lattice2D(*shape, nc), TLattice2D(*shape, nc)
+    clover = _cfield(rng, lat.cm_shape())
+    hopping = _cfield(rng, lat.hopping_shape())
+    shifts = dict(shift=0.3 + 0.1j, eo_shift=-0.2, dof_shift=0.05j)
+    jc = jstencil.make_coeffs(lat, clover=jnp.asarray(clover),
+                              hopping=jnp.asarray(hopping), **shifts)
+    tc = tstencil.make_coeffs(tlat, clover=torch.as_tensor(clover),
+                              hopping=torch.as_tensor(hopping), **shifts)
+    jfn, tfn = jstencil.build_gather_apply(jc), tstencil.build_gather_apply(tc)
+    assert (jfn is None) == (tfn is None) == (lat.volume == 1)
+    assert tstencil.build_gather_apply(
+        tstencil.make_coeffs(tlat, hopping=torch.as_tensor(hopping))) is None
+    if tfn is None:
+        return
+    x = _cfield(rng, lat.cv_shape())
+    got = tfn(torch.as_tensor(x)).numpy()
+    expect = np.asarray(jfn(jnp.asarray(x)))
+    assert np.max(np.abs(got - expect)) / np.max(np.abs(expect)) <= 1e-13
+    np.testing.assert_allclose(
+        got, tstencil.apply_M(tc, torch.as_tensor(x)).numpy(), rtol=1e-13,
+        atol=1e-13 * np.max(np.abs(expect)))
+
+
 def test_lattice_eo_pack_matches_jax():
     from qmg_tpu.lattice import eo_pack as jpack, eo_unpack as junpack
     from qmg_tpu_torch.lattice import eo_pack, eo_unpack
