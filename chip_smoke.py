@@ -8,11 +8,14 @@ fallback). Phases, any failure exits non-zero:
 
   1. environment: torch, CUDA, card, nvcc, and the card's name and power
      limit as nvidia-smi reports them;
-  2. build: compile both CUDA sources (csrc/wilson_r1.cu and
+  2. build: compile both CUDA sources (csrc/wilson.cu and
      csrc/dslash.cu), one nvcc each, started together;
-  3. the rank-1 Wilson kernel vs its plain PyTorch twin on the card at
-     16x8, 64x48, 512^2 and 2048^2 (max relative error <= 1e-5), with
-     CUDA-event timings of both at 512^2 and 2048^2;
+  3. the Wilson kernels vs their plain PyTorch twins on the card at 16x8,
+     64x48, 512^2 and 2048^2 (max relative error <= 1e-5): the rank-1
+     kernel (K1); the any-w kernel (K2) at w = 1 and w = 1.3, and at w = 1
+     against K1's kernel; the split rank-1 kernel (K3) in its own layout
+     and, converted back, against K1's kernel; with CUDA-event timings of
+     each kernel and twin at 512^2 and 2048^2 beside the bound;
   4. the original path: qmg_tpu_torch.kcycle at 512^2 with the rank-1
      kernel (setup, warm-up solve, timed solve). It must converge, reach
      a true relative residual <= 1e-4 (complex128, exact operator), take
@@ -28,11 +31,19 @@ fallback). Phases, any failure exits non-zero:
      bound apply) and its twin at its path's shape, beside its bound;
   7. the kernel paths at 2048^2 on one hierarchy: the rank-1 kernel
      (plain coarse levels), fine K4 with K6 on the coarse levels that it
-     takes, and fine K5 with the gather coarse apply. Each must converge
-     to a true residual <= 1e-4 and launch its kernels in the timed
-     solve; the outer counts agree within +-1;
+     takes, fine K5 with the gather coarse apply, and the any-w Wilson
+     kernel K2 (fine_kernel="wilson-phase", plain coarse levels). Each
+     must converge to a true residual <= 1e-4 and launch its kernels in
+     the timed solve; the outer counts agree within +-1;
   8. 512^2 with fine K4 and coarse K6, against qmg_tpu's outer count for
-     the same options (+-2), and again with bf16 coefficient streams.
+     the same options (+-2), and again with bf16 coefficient streams;
+  9. a Wilson operator at w = 1.3 (512^2, its own setup): solved with K2
+     and with the plain fine apply, both to a true residual <= 1e-4
+     against the operator at that w, outer counts within +-1 of each
+     other and +-2 of qmg_tpu's; the rank-1 kernel must refuse it;
+ 10. the stencil-apply chains of qmg_tpu_torch.dslash at 2048^2 through
+     K3 ("wilson-split") and K2 ("wilson-phase"): us per chain step, and
+     after 20 steps the same checksum as the rank-1 chain (1e-3).
 
 The last two lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}.
@@ -58,7 +69,18 @@ JAX_ITERS_512 = 9
 # x64 off: the K4 Pallas kernel in interpret mode on level 0 and the K6
 # one on the 32^2 nc8 level (recursive res_sq 2.92e-5).
 JAX_ITERS_512_MATRIX_SMALL = 9
+# The same at a Wilson coefficient w = 1.3 (Wilson2D(wilson_coeff=1.3),
+# m = -0.06), with the jnp fine apply, from
+# ``python tests/test_torch_wilson_phase_solve.py --size 512
+# --wilson-coeff 1.3``. This (w, m) pair was taken because w = 1.3 is the
+# other Wilson coefficient that qmg_tpu's own kernel tests use, and the
+# Wilson term's additive mass shift grows with w, so at w = 1.3 the entry
+# point's m = -0.06 lies further from critical than at w = 1 (w = 0.9
+# would move it towards critical): qmg_tpu converges there in 8 iterations.
+W_OTHER = 1.3
+JAX_ITERS_512_W_OTHER = 8
 KERNEL_TOL = 1e-5
+CHAIN_TOL = 1e-3
 TRUE_RES_BOUND = 1e-4
 TIMING_REPS = 100
 # H100 SXM data sheet peak at 700 W of float32 (non-tensor core) flop/s;
@@ -94,13 +116,21 @@ def time_ms(fn, torch, reps=TIMING_REPS, warmup=10):
     return start.elapsed_time(stop) / reps
 
 
-def kernel_phase(torch, wk, dev):
-    """Phase 3: returns (max abs error, {size: (ms, plain_ms)})."""
+def rel_err(got, ref):
+    """(max abs error, the same over max |ref|)."""
+    abs_err = float((got - ref).abs().max())
+    return abs_err, abs_err / float(ref.abs().max())
+
+
+def kernel_phase(torch, wk, dk, dev):
+    """Phase 3: the three Wilson kernels against their twins and each
+    other. Returns ({kernel: max abs error vs its twin},
+    {kernel: {size: (ms, plain_ms)}})."""
     shapes = {"16x8": (8, 8), "64x48": (48, 32), "512x512": (512, 256),
               "2048x2048": (2048, 1024)}
-    alpha = 2.0 - 0.06
-    worst_abs = 0.0
-    times = {}
+    mass = -0.06
+    worst = {"K1": 0.0, "K2": 0.0, "K3": 0.0}
+    times = {k: {} for k in worst}
     for name, (y_len, xh) in shapes.items():
         rng = np.random.default_rng(y_len)
         phase = torch.as_tensor(
@@ -110,25 +140,57 @@ def kernel_phase(torch, wk, dev):
         x = torch.as_tensor(rng.normal(size=(2, y_len, xh, 2))
                             + 1j * rng.normal(size=(2, y_len, xh, 2)),
                             dtype=torch.complex64, device=dev)
-        got = wk.wilson_r1_apply(phase, x, alpha)
+        phase_s, x_s = wk.wilson_phases_split(phase), dk.x_to_split(x)
+        a1, aw = 2.0 + mass, 2.0 * W_OTHER + mass
+        # kernel -> (wrapper call, its twin's call)
+        calls = {
+            "K1": (lambda: wk.wilson_r1_apply(phase, x, a1),
+                   lambda: wk.wilson_r1_apply_plain(phase, x, a1)),
+            "K2": (lambda: wk.wilson_phase_apply(phase, x, W_OTHER, aw),
+                   lambda: wk.wilson_phase_apply_plain(phase, x, W_OTHER,
+                                                       aw)),
+            "K3": (lambda: wk.wilson_split_apply(phase_s, x_s, a1),
+                   lambda: wk.wilson_split_apply_plain(phase_s, x_s, a1))}
+        got = {}
+        for kid, (kernel, plain) in calls.items():
+            got[kid] = kernel()
+            torch.cuda.synchronize()
+            abs_err, rel = rel_err(got[kid], plain())
+            worst[kid] = max(worst[kid], abs_err)
+            line = f"{kid} vs plain {name}: max rel err {rel:.3e}"
+            if y_len >= 512:
+                ms = time_ms(kernel, torch)
+                plain_ms = time_ms(plain, torch)
+                sites = 2 * y_len * xh
+                gbs = 64.0 * sites / (ms * 1e-3) / 1e9
+                times[kid][name] = (ms, plain_ms)
+                line += (f"; kernel {ms * 1e3:.2f} us/apply ({gbs:.1f} GB/s "
+                         f"at 64 B/site, bound "
+                         f"{wilson_bound(kid, sites)[0] * 1e3:.2f} us), "
+                         f"plain {plain_ms * 1e3:.2f} us/apply")
+            print(line, flush=True)
+            check(rel <= KERNEL_TOL, f"{kid} disagrees with plain at {name}")
+        # K2 at w = 1: against its twin and against K1's kernel; K3 in
+        # K1's layout against K1's kernel.
+        k2 = wk.wilson_phase_apply(phase, x, 1.0, a1)
         torch.cuda.synchronize()
-        ref = wk.wilson_r1_apply_plain(phase, x, alpha)
-        abs_err = float((got - ref).abs().max())
-        rel = abs_err / float(ref.abs().max())
-        worst_abs = max(worst_abs, abs_err)
-        line = f"kernel vs plain {name}: max rel err {rel:.3e}"
-        if y_len >= 512:
-            ms = time_ms(lambda: wk.wilson_r1_apply(phase, x, alpha), torch)
-            plain_ms = time_ms(
-                lambda: wk.wilson_r1_apply_plain(phase, x, alpha), torch)
-            sites = 2 * y_len * xh
-            gbs = 64.0 * sites / (ms * 1e-3) / 1e9
-            times[name] = (ms, plain_ms)
-            line += (f"; kernel {ms * 1e3:.2f} us/apply ({gbs:.1f} GB/s "
-                     f"at 64 B/site), plain {plain_ms * 1e3:.2f} us/apply")
-        print(line, flush=True)
-        check(rel <= KERNEL_TOL, f"kernel disagrees with plain at {name}")
-    return worst_abs, times
+        abs_err, rel = rel_err(k2, wk.wilson_phase_apply_plain(phase, x, 1.0,
+                                                               a1))
+        worst["K2"] = max(worst["K2"], abs_err)
+        rel_k1 = rel_err(k2, got["K1"])[1]
+        rel_k3 = rel_err(dk.x_from_split(got["K3"]), got["K1"])[1]
+        print(f"K2 at w=1 {name}: vs plain {rel:.3e}, vs the K1 kernel "
+              f"{rel_k1:.3e}; K3 vs the K1 kernel {rel_k3:.3e}", flush=True)
+        check(max(rel, rel_k1, rel_k3) <= KERNEL_TOL,
+              f"K2 at w=1 or K3 disagrees with the K1 kernel at {name}")
+    return worst, times
+
+
+def wilson_bound(kid, sites):
+    """Bound of one Wilson apply: 64 B/site (4 phases, x read, out
+    written); 52 flops/site for the rank-1 kernels, 100 for the any-w
+    one (8 complex multiplies, 4 x (4 multiplies + 8 adds), alpha x)."""
+    return bound(64 * sites, (100 if kid == "K2" else 52) * sites)
 
 
 def bound(bytes_moved, flops):
@@ -279,13 +341,18 @@ def kernel_paths(torch, dev):
     check(r_sg["launches"]["dslash_split"] > 0,
           "2048^2 matrix-split: K5 not launched in the timed solve")
     launches["dslash_split"] = c["dslash_split"]
-    for r in (r_ms, r_sg):
+    r_ph, c = path(big, "2048^2 wilson-phase + plain coarse",
+                   fine_kernel="wilson-phase")
+    check(r_ph["launches"]["wilson_phase"] > 0,
+          "2048^2 wilson-phase: K2 not launched in the timed solve")
+    launches["wilson_phase"] = c["wilson_phase"]
+    for r in (r_ms, r_sg, r_ph):
         check(abs(r["iters"] - r_r1["iters"]) <= 1,
               f"2048^2 outer iterations {r['iters']} ({r['fine_kernel']}) "
               f"vs {r_r1['iters']} (wilson-r1)")
     print(f"2048^2 outer iterations wilson-r1 {r_r1['iters']}, matrix+small "
-          f"{r_ms['iters']}, matrix-split+gather {r_sg['iters']}: ok",
-          flush=True)
+          f"{r_ms['iters']}, matrix-split+gather {r_sg['iters']}, "
+          f"wilson-phase {r_ph['iters']}: ok", flush=True)
     del big
 
     mid = build_problem(512, dev)
@@ -300,7 +367,58 @@ def kernel_paths(torch, dev):
     print(f"512^2 outer iterations matrix+small {r['iters']} (qmg_tpu "
           f"{JAX_ITERS_512_MATRIX_SMALL}), bf16 coefficients "
           f"{r_bf['iters']}: ok", flush=True)
+    del mid
+
+    # --- 9. a Wilson operator at w != 1 ---
+    other = build_problem(512, dev, wilson_coeff=W_OTHER)
+    r_k2, c = path(other, f"512^2 w={W_OTHER} wilson-phase",
+                   fine_kernel="wilson-phase")
+    check(r_k2["launches"]["wilson_phase"] > 0,
+          f"512^2 w={W_OTHER}: K2 not launched in the timed solve")
+    r_pl, _ = path(other, f"512^2 w={W_OTHER} plain fine apply",
+                   fine_kernel=None)
+    check(abs(r_k2["iters"] - r_pl["iters"]) <= 1
+          and abs(r_k2["iters"] - JAX_ITERS_512_W_OTHER) <= 2,
+          f"512^2 w={W_OTHER} outer iterations: wilson-phase "
+          f"{r_k2['iters']}, plain {r_pl['iters']}, qmg_tpu "
+          f"{JAX_ITERS_512_W_OTHER}")
+    try:
+        run_solver(other, fine_kernel="wilson-r1")
+    except ValueError as e:
+        print(f"wilson-r1 at w={W_OTHER} refused: {e}", flush=True)
+    else:
+        check(False, f"wilson-r1 accepted a Wilson operator at w={W_OTHER}")
+    print(f"512^2 w={W_OTHER} outer iterations wilson-phase "
+          f"{r_k2['iters']}, plain {r_pl['iters']} (qmg_tpu "
+          f"{JAX_ITERS_512_W_OTHER}): ok", flush=True)
     return launches
+
+
+def dslash_chains(torch, dev):
+    """Phase 10: the 2048^2 chains through K3 and K2, beside K1's.
+    Returns K3's launches over its timed run."""
+    from qmg_tpu_torch import dslash
+    from qmg_tpu_torch.kcycle import reset_launch_counts, launch_counts
+    operator = dslash.make_operator(2048, 2, dev)
+    short = {kind: dslash.run(2048, kind, iters=20, device=dev,
+                              operator=operator)["checksum"]
+             for kind in dslash.WILSON_KINDS}
+    launches = {}
+    for kind in dslash.WILSON_KINDS:
+        name = kind.replace("-", "_")
+        reset_launch_counts()
+        r = dslash.run(2048, kind, iters=200, device=dev, operator=operator)
+        launches[name] = launch_counts()[name]
+        err = abs(short[kind] - short["wilson-r1"]) / abs(short["wilson-r1"])
+        print(f"dslash chain 2048^2 {kind}: {r['us_per_apply']:.2f} us/step "
+              f"(apply + renormalisation), {r['gbs']:.1f} GB/s = "
+              f"{r['pct_of_hbm']:.1f}% of peak; {launches[name]} launches; "
+              f"checksum after 20 steps {short[kind]:.6f} vs wilson-r1's "
+              f"{short['wilson-r1']:.6f} (rel {err:.2e})", flush=True)
+        check(launches[name] > 0, f"the {kind} chain launched no {name}")
+        check(err <= CHAIN_TOL and np.isfinite(short[kind]),
+              f"the {kind} chain's checksum differs from wilson-r1's")
+    return launches["wilson_split"]
 
 
 def main():
@@ -325,14 +443,14 @@ def main():
 
     # --- 2. build: one nvcc per source, started together ---
     with ThreadPoolExecutor(2) as pool:
-        builds = {"wilson_r1": pool.submit(wk.build_wilson_r1),
+        builds = {"wilson": pool.submit(wk.build_wilson),
                   "dslash": pool.submit(dk.build_dslash)}
         for name, fut in builds.items():
             print(f"build {name} (nvcc sm_90a): {fut.result():.2f} s",
                   flush=True)
 
     # --- 3. kernel vs plain ---
-    worst_abs, times = kernel_phase(torch, wk, dev)
+    wilson_worst, wilson_times = kernel_phase(torch, wk, dk, dev)
 
     # --- 4. the original path ---
     wk.wilson_r1_apply.launches = 0
@@ -357,17 +475,26 @@ def main():
     # --- 7. and 8. the kernel paths ---
     path_launches = kernel_paths(torch, dev)
 
-    ms, plain_ms = times["512x512"]
-    kernels = [{
-        "name": "wilson_r1", "route": "cuda",
-        "source": "qmg_tpu_torch/csrc/wilson_r1.cu",
-        "replaces": "qmg_tpu/pallas_wilson.py:475",
-        "launches": launches, "max_abs_err": worst_abs,
-        "ms": ms, "plain_ms": plain_ms,
-        # 64 B/site (4 phases, x read, out written), 52 flops/site
-        **dict(zip(("bound_ms", "bound_by"),
-                   bound(64 * 512 * 512, 52 * 512 * 512))),
-        "library_ms": None}]
+    # --- 10. the dslash chains through K3 and K2 ---
+    path_launches["wilson_split"] = dslash_chains(torch, dev)
+    path_launches["wilson_r1"] = launches
+
+    # Each Wilson kernel at its path's shape: K1 the 512^2 solve, K2 the
+    # 2048^2 solve, K3 the 2048^2 chain.
+    kernels = []
+    for name, kid, line, size in (("wilson_r1", "K1", 475, 512),
+                                  ("wilson_phase", "K2", 50, 2048),
+                                  ("wilson_split", "K3", 267, 2048)):
+        ms, plain_ms = wilson_times[kid][f"{size}x{size}"]
+        k_bound, k_by = wilson_bound(kid, size * size)
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "qmg_tpu_torch/csrc/wilson.cu",
+            "replaces": f"qmg_tpu/pallas_wilson.py:{line}",
+            "launches": path_launches[name],
+            "max_abs_err": wilson_worst[kid], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": k_bound, "bound_by": k_by,
+            "library_ms": None})
     for name, kid, line in (("dslash", "K4", 76), ("dslash_split", "K5", 351),
                             ("dslash_small", "K6", 548)):
         k_ms, k_plain, k_bound, k_by = stimes[kid]

@@ -8,7 +8,7 @@ chiral doubling, block-orthonormal transfers, Galerkin coarse operators,
 dense coarsest inverse -> outer flexible GCR around the K-cycle.
 
 Inside the K-cycle the stencil applies run through hand-written CUDA
-kernels: the rank-1 Wilson Dslash (``csrc/wilson_r1.cu``, wrapper
+kernels: the Wilson Dslash kernels (``csrc/wilson.cu``, wrappers
 ``wilson_kernel.py``) and the generic stencil kernels (``csrc/dslash.cu``,
 wrappers ``dslash_kernel.py``); every other operation is plain PyTorch.
 The package imports no JAX.

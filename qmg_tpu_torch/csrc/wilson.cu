@@ -1,0 +1,241 @@
+// The Wilson Dslash kernels on U(1) x spin-2, one thread per site.
+//
+//   wilson_r1_kernel<false>  rank-1 apply at w = 1, interleaved layout;
+//                            replaces qmg_tpu/pallas_wilson.py::
+//                            _wilson_rank1_kernel
+//   wilson_r1_kernel<true>   the same arithmetic in the row-parity-split
+//                            layout; replaces ::_wilson_split_kernel
+//   wilson_phase_kernel      apply at any Wilson coefficient w, interleaved
+//                            layout; replaces ::_wilson_kernel
+//
+// All three compute, from per-direction phases p_d = U_d/2 (the conj of the
+// backward links included),
+//
+//   out(s) = alpha x(s) + sum_d p_d(s) P_d x(s + d),   alpha = 2w + m,
+//   P_+x = [[-w, 1], [1, -w]]    P_+y = [[-w, -i], [ i, -w]]
+//   P_-x = [[-w,-1], [-1,-w]]    P_-y = [[-w,  i], [-i, -w]].
+//
+// At w = 1 every P_d is rank 1, so the rank-1 kernels spend one complex
+// multiply per direction on a pre-combined neighbour spinor:
+//
+//   a_xp = v1 - v0        a_xm = -(v0 + v1)
+//   a_yp = -(v0 + i v1)   a_ym = -(v0 - i v1)        t_d = p_d * a_d
+//   out0 = alpha x0 + t_xp + t_xm + t_yp + t_ym
+//   out1 = alpha x1 - t_xp + t_xm - i t_yp + i t_ym
+//
+// The any-w kernel multiplies both spins, t_s = p_d v_s, then adds the
+// diagonal -w t_s and the off-diagonal couplings of P_d. w and alpha are
+// run-time arguments: one build serves every operator.
+//
+// Layouts (complex64):
+//   interleaved  x, out (2 parity, Y, Xh, 2 spin)  -> one float4 per site
+//                phase  (4 dir, 2 parity, Y, Xh)   -> one float2 per site
+//                                                      and direction
+//   split        the same arrays with row y = 2m + r stored at row
+//                r * Yh + m: x (2p, 2r, Yh, Xh, 2), phase (4, 2p, 2r, Yh, Xh)
+// Neighbours follow the pull semantics of cshift_pull: the destination
+// (q, y, xh) reads parity 1-q; +-y move the row with wrap; +x reads column
+// xh on rows with y%2 == q and xh+1 otherwise, -x reads xh-1 on rows with
+// y%2 == q and xh otherwise (all mod Xh).
+//
+// What bounds them on an H100: bytes. Per site each reads 32 B of phases
+// and 16 B of its own spinor, writes 16 B, and reads four neighbour
+// spinors that neighbouring threads also read (cache hits) - 64 B/site of
+// compulsory traffic for 52 flops (rank-1) or about 100 (any w). At 512^2
+// one apply's 16.8 MB sits in the 50 MB L2, so launch latency dominates; at
+// 2048^2 it streams from HBM. These are simple coalesced thread-per-site
+// kernels: consecutive threads take consecutive xh, so every load and the
+// store are 8- or 16-byte vector accesses that coalesce. The split layout
+// was a TPU device (it turns row-parity selects into lane rolls); here it
+// changes only the row map. Walked in storage order it would read every
+// spinor a third time from HBM (the +-y neighbours of one row-parity half
+// are the other half, a quarter of the lattice away), so its threads walk
+// the rows in y order instead. Shared-memory row tiling, TMA and CUDA graphs
+// are left for later work.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+
+// One thread's site: its index, and the indices of its four neighbours
+// within the other parity's half of x.
+struct Site {
+  int q, rem, idx;
+  int xp, yp, xm, ym;
+};
+
+// Storage row of lattice row y: y itself, or (y % 2) * Yh + y / 2 in the
+// split layout.
+template <bool SPLIT>
+__device__ __forceinline__ int storage_row(int y, int y_len) {
+  return SPLIT ? (y & 1) * (y_len >> 1) + (y >> 1) : y;
+}
+
+// Threads walk the lattice rows in y order in both layouts, so that a row
+// read as a +-y neighbour is still in cache when the next rows need it.
+template <bool SPLIT>
+__device__ __forceinline__ bool locate(int y_len, int xh_len, Site& s) {
+  const int half = y_len * xh_len;
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  if (tid >= 2 * half) return false;
+  s.q = tid / half;
+  const int y = (tid - s.q * half) / xh_len;
+  const int xh = tid - s.q * half - y * xh_len;
+  const int row = storage_row<SPLIT>(y, y_len);
+  const int row_yp = storage_row<SPLIT>(y + 1 == y_len ? 0 : y + 1, y_len);
+  const int row_ym = storage_row<SPLIT>(y == 0 ? y_len - 1 : y - 1, y_len);
+  s.rem = row * xh_len + xh;
+  s.idx = s.q * half + s.rem;
+  const bool direct = (y & 1) == s.q;
+  const int col_xp = direct ? xh : (xh + 1 == xh_len ? 0 : xh + 1);
+  const int col_xm = direct ? (xh == 0 ? xh_len - 1 : xh - 1) : xh;
+  s.xp = row * xh_len + col_xp;
+  s.xm = row * xh_len + col_xm;
+  s.yp = row_yp * xh_len + xh;
+  s.ym = row_ym * xh_len + xh;
+  return true;
+}
+
+template <bool SPLIT>
+__global__ void __launch_bounds__(kThreads)
+wilson_r1_kernel(const float2* __restrict__ phase,
+                 const float4* __restrict__ x,
+                 float4* __restrict__ out, int y_len, int xh_len,
+                 float alpha) {
+  Site st;
+  if (!locate<SPLIT>(y_len, xh_len, st)) return;
+  const int half = y_len * xh_len;
+  const float4* src = x + (1 - st.q) * half;     // neighbours: other parity
+
+  const float4 vxp = src[st.xp];
+  const float4 vxm = src[st.xm];
+  const float4 vyp = src[st.yp];
+  const float4 vym = src[st.ym];
+  const float4 s = x[st.idx];
+
+  // phase[(d * 2 + q) * half + rem], d in {+x, +y, -x, -y}
+  const float2 p_xp = phase[(0 * 2 + st.q) * half + st.rem];
+  const float2 p_yp = phase[(1 * 2 + st.q) * half + st.rem];
+  const float2 p_xm = phase[(2 * 2 + st.q) * half + st.rem];
+  const float2 p_ym = phase[(3 * 2 + st.q) * half + st.rem];
+
+  // float4 = (v0.re, v0.im, v1.re, v1.im)
+  const float2 a_xp = make_float2(vxp.z - vxp.x, vxp.w - vxp.y);
+  const float2 a_xm = make_float2(-(vxm.x + vxm.z), -(vxm.y + vxm.w));
+  const float2 a_yp = make_float2(-(vyp.x - vyp.w), -(vyp.y + vyp.z));
+  const float2 a_ym = make_float2(-(vym.x + vym.w), -(vym.y - vym.z));
+
+  const float2 t_xp = cmul(p_xp, a_xp);
+  const float2 t_xm = cmul(p_xm, a_xm);
+  const float2 t_yp = cmul(p_yp, a_yp);
+  const float2 t_ym = cmul(p_ym, a_ym);
+
+  float4 o;
+  o.x = alpha * s.x + (t_xp.x + t_xm.x) + (t_yp.x + t_ym.x);
+  o.y = alpha * s.y + (t_xp.y + t_xm.y) + (t_yp.y + t_ym.y);
+  o.z = alpha * s.z + (t_xm.x - t_xp.x) + (t_yp.y - t_ym.y);
+  o.w = alpha * s.w + (t_xm.y - t_xp.y) + (t_ym.x - t_yp.x);
+  out[st.idx] = o;
+}
+
+__global__ void __launch_bounds__(kThreads)
+wilson_phase_kernel(const float2* __restrict__ phase,
+                    const float4* __restrict__ x,
+                    float4* __restrict__ out, int y_len, int xh_len,
+                    float w, float alpha) {
+  Site st;
+  if (!locate<false>(y_len, xh_len, st)) return;
+  const int half = y_len * xh_len;
+  const float4* src = x + (1 - st.q) * half;
+
+  const float4 vxp = src[st.xp];
+  const float4 vyp = src[st.yp];
+  const float4 vxm = src[st.xm];
+  const float4 vym = src[st.ym];
+  const float4 s = x[st.idx];
+  const float2 p_xp = phase[(0 * 2 + st.q) * half + st.rem];
+  const float2 p_yp = phase[(1 * 2 + st.q) * half + st.rem];
+  const float2 p_xm = phase[(2 * 2 + st.q) * half + st.rem];
+  const float2 p_ym = phase[(3 * 2 + st.q) * half + st.rem];
+
+  // acc = (out0.re, out0.im, out1.re, out1.im); per direction t_s = p v_s,
+  // the diagonal -w t_s, then the off-diagonal couplings.
+  float4 acc = make_float4(alpha * s.x, alpha * s.y, alpha * s.z,
+                           alpha * s.w);
+  float2 t0, t1;
+
+  t0 = cmul(p_xp, make_float2(vxp.x, vxp.y));   // +x: [[., +1], [+1, .]]
+  t1 = cmul(p_xp, make_float2(vxp.z, vxp.w));
+  acc.x += t1.x - w * t0.x;
+  acc.y += t1.y - w * t0.y;
+  acc.z += t0.x - w * t1.x;
+  acc.w += t0.y - w * t1.y;
+
+  t0 = cmul(p_yp, make_float2(vyp.x, vyp.y));   // +y: [[., -i], [+i, .]]
+  t1 = cmul(p_yp, make_float2(vyp.z, vyp.w));
+  acc.x += t1.y - w * t0.x;
+  acc.y -= t1.x + w * t0.y;
+  acc.z -= t0.y + w * t1.x;
+  acc.w += t0.x - w * t1.y;
+
+  t0 = cmul(p_xm, make_float2(vxm.x, vxm.y));   // -x: [[., -1], [-1, .]]
+  t1 = cmul(p_xm, make_float2(vxm.z, vxm.w));
+  acc.x -= t1.x + w * t0.x;
+  acc.y -= t1.y + w * t0.y;
+  acc.z -= t0.x + w * t1.x;
+  acc.w -= t0.y + w * t1.y;
+
+  t0 = cmul(p_ym, make_float2(vym.x, vym.y));   // -y: [[., +i], [-i, .]]
+  t1 = cmul(p_ym, make_float2(vym.z, vym.w));
+  acc.x -= t1.y + w * t0.x;
+  acc.y += t1.x - w * t0.y;
+  acc.z += t0.y - w * t1.x;
+  acc.w -= t0.x + w * t1.y;
+
+  out[st.idx] = acc;
+}
+
+inline int blocks_for(int rows, int xh_len) {
+  return (2 * rows * xh_len + kThreads - 1) / kThreads;
+}
+
+}  // namespace
+
+// Each launches on ``stream`` and returns cudaGetLastError() (0 on success).
+
+extern "C" int wilson_r1_launch(const void* phase, const void* x, void* out,
+                                int y_len, int xh_len, float alpha,
+                                void* stream) {
+  wilson_r1_kernel<false><<<blocks_for(y_len, xh_len), kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float2*>(phase), static_cast<const float4*>(x),
+      static_cast<float4*>(out), y_len, xh_len, alpha);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x, out (2, 2, Yh, Xh, 2) and phase (4, 2, 2, Yh, Xh) in the split layout.
+extern "C" int wilson_r1_split_launch(const void* phase, const void* x,
+                                      void* out, int yh_len, int xh_len,
+                                      float alpha, void* stream) {
+  wilson_r1_kernel<true><<<blocks_for(2 * yh_len, xh_len), kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float2*>(phase), static_cast<const float4*>(x),
+      static_cast<float4*>(out), 2 * yh_len, xh_len, alpha);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int wilson_phase_launch(const void* phase, const void* x,
+                                   void* out, int y_len, int xh_len, float w,
+                                   float alpha, void* stream) {
+  wilson_phase_kernel<<<blocks_for(y_len, xh_len), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float2*>(phase), static_cast<const float4*>(x),
+      static_cast<float4*>(out), y_len, xh_len, w, alpha);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -4,14 +4,18 @@ dslash``).
     python -m qmg_tpu_torch.dslash --size 2048 --kernel matrix --iters 400
 
 Builds bench.py's operator - the Wilson coefficients of
-``gauss_gauge_u1`` at beta = 6 from ``QMGRandom(1337)`` with m = -0.075 and
-the gaussian start vector of the same stream - or, with ``--nc 8``,
+``gauss_gauge_u1`` at beta = 6 from ``QMGRandom(1337)`` with m = -0.075
+(``--wilson-coeff`` w, default 1) and the gaussian start vector of the same
+stream - or, with ``--nc 8``,
 random coarse-like coefficients (gaussian clover and hopping, shift
 -0.075, the way tests/test_pallas_dslash.py makes them). It then times
 ``--iters`` steps of the renormalised chain x <- M x / |M x| with CUDA
 events, through one apply:
 
-  wilson-r1  the rank-1 Wilson kernel (nc = 2 only);
+  wilson-r1     the rank-1 Wilson kernel (nc = 2, w = 1 only);
+  wilson-phase  the Wilson kernel for any w (nc = 2; bench.py's ``phase``);
+  wilson-split  the rank-1 kernel in the row-parity-split layout (nc = 2,
+                w = 1; bench.py's ``phase-split``);
   matrix     the generic stencil kernel, interleaved layout (K4);
   split      the same in the row-parity-split layout (K5);
   small      the small-lattice kernel (K6; refuses lattices it cannot take);
@@ -21,7 +25,7 @@ It prints us per apply (one chain step: the apply and the
 renormalisation, as bench.py times it), the effective GB/s on bench.py's
 byte count per step - (nc^2 + 4 nc^2 + 2 nc) * 8 B per site for the
 apply (the coefficients at 4 B per complex entry with ``--coeff-dtype
-bfloat16``, the rank-1 kernel's 4 phases at 32 B per site) plus
+bfloat16``, the Wilson kernels' 4 phases at 32 B per site) plus
 2 nc * 8 B per site for the renormalisation - its share of the H100's
 3.35 TB/s, and the card's name and power limit. A kernel that does not
 build or launch raises; there is no fallback to another apply.
@@ -41,7 +45,9 @@ from .lattice import Lattice2D
 from .operators.wilson import Wilson2D
 from .rng import QMGRandom
 from .stencil import apply_M, make_coeffs
-from .wilson_kernel import wilson_r1_apply, wilson_phases
+from .wilson_kernel import (wilson_r1_apply, wilson_phase_apply,
+                            wilson_split_apply, wilson_phases,
+                            wilson_phases_split)
 from .dslash_kernel import (HBM_BYTES_S, stencil_channels,
                             stencil_channels_split, x_to_split, apply_bytes,
                             dslash_apply, dslash_split_apply,
@@ -49,18 +55,20 @@ from .dslash_kernel import (HBM_BYTES_S, stencil_channels,
 from . import u1
 
 MASS = -0.075
-KINDS = ("wilson-r1", "matrix", "split", "small", "plain")
+WILSON_KINDS = ("wilson-r1", "wilson-phase", "wilson-split")
+KINDS = WILSON_KINDS + ("matrix", "split", "small", "plain")
 
 
-def make_operator(size: int, nc: int, device):
+def make_operator(size: int, nc: int, device, wilson_coeff: float = 1.0):
     """(coefficients, x) of the benchmark: Wilson (nc = 2) as bench.py
-    builds it, or random coarse-like coefficients for any other nc."""
+    builds it (at Wilson coefficient ``wilson_coeff``), or random
+    coarse-like coefficients for any other nc."""
     rng = QMGRandom(1337)
     if nc == 2:
         lat = Lattice2D(size, size, 2)
         gauge = u1.gauss_gauge_u1(lat, rng, 6.0)
-        coeffs = Wilson2D(lat, MASS, gauge, dtype=torch.complex64,
-                          device=device).coeffs
+        coeffs = Wilson2D(lat, MASS, gauge, wilson_coeff,
+                          dtype=torch.complex64, device=device).coeffs
     else:
         lat = Lattice2D(size, size, nc)
         cm = Lattice2D(size, size, nc * nc)
@@ -78,17 +86,31 @@ def make_operator(size: int, nc: int, device):
     return coeffs, x / torch.linalg.vector_norm(x)
 
 
-def make_step(kind: str, coeffs, coeff_dtype=None):
-    """(apply, layout of its x): the apply of one chain step."""
+def make_step(kind: str, coeffs, coeff_dtype=None,
+              wilson_coeff: float = 1.0):
+    """(apply, layout of its x): the apply of one chain step.
+    ``wilson_coeff`` is the w that Wilson coefficients were built with
+    (the Wilson kernels need it; the others read the coefficients)."""
     if coeff_dtype is not None and kind not in ("matrix", "split", "small"):
         raise ValueError(f"--coeff-dtype applies to the matrix kernels, "
                          f"not {kind}")
-    if kind == "wilson-r1":
+    if kind in WILSON_KINDS:
+        w = wilson_coeff
         if coeffs.lat.nc != 2:
-            raise ValueError("the rank-1 Wilson kernel needs nc = 2")
-        phase = wilson_phases(coeffs.hopping)
-        alpha = 2.0 + float(np.real(coeffs.shift))
-        return (lambda v: wilson_r1_apply(phase, v, alpha)), "interleaved"
+            raise ValueError(f"the Wilson kernels need nc = 2 ({kind})")
+        if kind != "wilson-phase" and w != 1.0:
+            raise ValueError(f"{kind} is a rank-1 kernel and needs w = 1, "
+                             f"got {w}: use wilson-phase")
+        phase = wilson_phases(coeffs.hopping, w)
+        alpha = 2.0 * w + float(np.real(coeffs.shift))
+        if kind == "wilson-split":
+            phase = wilson_phases_split(phase)
+            return (lambda v: wilson_split_apply(phase, v, alpha)), "split"
+        if kind == "wilson-r1":
+            return (lambda v: wilson_r1_apply(phase, v, alpha),
+                    "interleaved")
+        return (lambda v: wilson_phase_apply(phase, v, w, alpha),
+                "interleaved")
     if kind == "matrix":
         ch = stencil_channels(coeffs, coeff_dtype)
         return (lambda v: dslash_apply(ch, v)), "interleaved"
@@ -103,8 +125,8 @@ def make_step(kind: str, coeffs, coeff_dtype=None):
 
 def step_bytes(kind: str, nc: int, volume: int, coeff_dtype=None) -> int:
     """bench.py's byte count of one chain step (apply + renormalisation);
-    the rank-1 kernel's own: 4 phases instead of 5 nc^2 coefficients."""
-    apply = ((4 * 8 + 2 * nc * 8) * volume if kind == "wilson-r1"
+    the Wilson kernels' own: 4 phases instead of 5 nc^2 coefficients."""
+    apply = ((4 * 8 + 2 * nc * 8) * volume if kind in WILSON_KINDS
              else apply_bytes(nc, volume, coeff_dtype))
     return apply + 2 * nc * 8 * volume
 
@@ -117,13 +139,18 @@ def card_line() -> str:
 
 
 def run(size: int, kind: str, nc: int = 2, coeff_dtype=None,
-        iters: int = 400, device="cuda") -> dict:
+        iters: int = 400, device="cuda", wilson_coeff: float = 1.0,
+        operator=None) -> dict:
     """Time ``iters`` chain steps with CUDA events after a warm-up of the
     same length; returns the measurements. On the CPU (the tests) it only
     runs the chain and returns its checksum: a CPU time is no device
-    metric."""
-    coeffs, x = make_operator(size, nc, device)
-    apply, layout = make_step(kind, coeffs, coeff_dtype)
+    metric. ``operator`` is ``make_operator``'s result for the same
+    arguments, for callers that run several kinds on one operator."""
+    if wilson_coeff != 1.0 and nc != 2:
+        raise ValueError("--wilson-coeff applies to the Wilson operator "
+                         "(nc = 2)")
+    coeffs, x = operator or make_operator(size, nc, device, wilson_coeff)
+    apply, layout = make_step(kind, coeffs, coeff_dtype, wilson_coeff)
     v = x_to_split(x) if layout == "split" else x
 
     def chain(v, n):
@@ -134,7 +161,8 @@ def run(size: int, kind: str, nc: int = 2, coeff_dtype=None,
 
     if torch.device(device).type != "cuda":
         out = chain(v, iters)
-        return {"size": size, "kernel": kind, "nc": nc, "iters": iters,
+        return {"size": size, "kernel": kind, "nc": nc,
+                "wilson_coeff": wilson_coeff, "iters": iters,
                 "checksum": float(out.abs().sum()), "device": "cpu"}
     chain(v, iters)
     torch.cuda.synchronize()
@@ -148,6 +176,7 @@ def run(size: int, kind: str, nc: int = 2, coeff_dtype=None,
     gbs = (step_bytes(kind, nc, coeffs.lat.volume, coeff_dtype)
            / (us * 1e-6) / 1e9)
     return {"size": size, "kernel": kind, "nc": nc,
+            "wilson_coeff": wilson_coeff,
             "coeff_dtype": str(coeff_dtype or torch.float32).split(".")[-1],
             "iters": iters, "us_per_apply": us, "gbs": gbs,
             "pct_of_hbm": 100.0 * gbs * 1e9 / HBM_BYTES_S,
@@ -162,6 +191,9 @@ def main(argv=None):
     p.add_argument("--nc", type=int, default=2)
     p.add_argument("--coeff-dtype", default="float32",
                    choices=["float32", "bfloat16"])
+    p.add_argument("--wilson-coeff", type=float, default=1.0,
+                   help="Wilson coefficient w of the nc = 2 operator (the "
+                        "rank-1 kernels need 1)")
     p.add_argument("--iters", type=int, default=400)
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
@@ -171,7 +203,7 @@ def main(argv=None):
     coeff_dtype = (torch.bfloat16 if args.coeff_dtype == "bfloat16"
                    else None)
     r = run(args.size, args.kernel, args.nc, coeff_dtype, args.iters,
-            args.device)
+            args.device, args.wilson_coeff)
     if is_cuda:
         print(card_line())
         print(f"dslash {r['size']}^2 nc{r['nc']} {r['kernel']} "

@@ -4,12 +4,14 @@
     python -m qmg_tpu_torch.kcycle --size 512 --device cuda
 
 Gauge field ``gauss_gauge_u1`` at beta = 6 from ``QMGRandom(1337)``;
-Wilson2D at m = -0.06 in complex64; the host-driven setup
+Wilson2D at m = -0.06 (``--wilson-coeff`` w, default 1) in complex64; the
+host-driven setup
 (``build_kcycle_hierarchy``) on the device; then a warm-up solve and a
 timed solve to tol 1e-5 (max 200 outer iterations). Inside the K-cycle
-level 0 takes ``--fine-kernel`` (default the rank-1 Wilson kernel;
-``matrix``, ``matrix-split`` and ``small`` are the generic stencil
-kernels, ``none`` the plain apply) with ``--coeff-dtype`` coefficients,
+level 0 takes ``--fine-kernel`` (default the rank-1 Wilson kernel, which
+needs w = 1; ``wilson-phase`` is the Wilson kernel for any w; ``matrix``,
+``matrix-split`` and ``small`` are the generic stencil kernels, ``none``
+the plain apply) with ``--coeff-dtype`` coefficients,
 and the coarse levels ``--coarse-apply`` (plain, gather, or the
 small-lattice kernel where it fits). Prints one line each: the apply of
 every level, outer iterations, recursive and true relative residual
@@ -31,11 +33,12 @@ import torch
 from .lattice import Lattice2D
 from .operators.wilson import Wilson2D
 from .setup import KCycleConfig, build_kcycle_hierarchy
-from .solve import make_solver
+from .solve import make_solver, FINE_KERNELS
 from .stencil import apply_M, make_coeffs
 from .linalg import norm2sq
 from .rng import QMGRandom
-from .wilson_kernel import wilson_r1_apply
+from .wilson_kernel import (wilson_r1_apply, wilson_phase_apply,
+                            wilson_split_apply)
 from .dslash_kernel import (dslash_apply, dslash_split_apply,
                             dslash_small_apply)
 from . import u1
@@ -46,7 +49,8 @@ SEED = 1337
 TOL = 1e-5
 MAX_ITER = 200
 # The CUDA kernels' wrappers by the names the reports use.
-KERNELS = {"wilson_r1": wilson_r1_apply, "dslash": dslash_apply,
+KERNELS = {"wilson_r1": wilson_r1_apply, "wilson_phase": wilson_phase_apply,
+           "wilson_split": wilson_split_apply, "dslash": dslash_apply,
            "dslash_split": dslash_split_apply,
            "dslash_small": dslash_small_apply}
 
@@ -118,9 +122,11 @@ def profile_solve(solve, b, solve_ms: float, top: int = 12):
               f"{e.key[:90]}")
 
 
-def build_problem(size: int = 512, device="cuda") -> dict:
-    """The gauge field, the fine operator, the hierarchy (setup timed)
-    and the right-hand side (drawn after the setup, as bench.py does)."""
+def build_problem(size: int = 512, device="cuda",
+                  wilson_coeff: float = 1.0) -> dict:
+    """The gauge field, the fine operator (Wilson coefficient
+    ``wilson_coeff``), the hierarchy (setup timed) and the right-hand side
+    (drawn after the setup, as bench.py does)."""
     lat = Lattice2D(size, size, 2)
     rng = QMGRandom(SEED)
     gauge = u1.gauss_gauge_u1(lat, rng, BETA)
@@ -128,7 +134,8 @@ def build_problem(size: int = 512, device="cuda") -> dict:
 
     _sync(device)
     t0 = time.perf_counter()
-    op = Wilson2D(lat, MASS, gauge, dtype=torch.complex64, device=device)
+    op = Wilson2D(lat, MASS, gauge, wilson_coeff, dtype=torch.complex64,
+                  device=device)
     mg = build_kcycle_hierarchy(lat, op, cfg, rng)
     _sync(device)
     setup_s = time.perf_counter() - t0
@@ -167,6 +174,7 @@ def run_solver(problem: dict, fine_kernel: str | None = "wilson-r1",
     rel_rec = float(torch.sqrt(res.res_sq / norm2sq(b)))
     return {
         "size": problem["size"],
+        "wilson_coeff": problem["op"].wilson_coeff,
         "device": str(device),
         "levels": [f"{lat.x_len}x{lat.y_len} nc{lat.nc}"
                    for lat in mg.lattice_list],
@@ -193,15 +201,17 @@ def run_solver(problem: dict, fine_kernel: str | None = "wilson-r1",
 def run_kcycle(size: int = 512, device="cuda",
                fine_kernel: str | None = "wilson-r1",
                coarse_apply: str = "plain", coeff_dtype=None,
-               profile: bool = False, repeats: int = 1) -> dict:
+               profile: bool = False, repeats: int = 1,
+               wilson_coeff: float = 1.0) -> dict:
     """Setup + one solver (``build_problem`` then ``run_solver``)."""
-    return run_solver(build_problem(size, device), fine_kernel,
+    return run_solver(build_problem(size, device, wilson_coeff), fine_kernel,
                       coarse_apply, coeff_dtype, profile=profile,
                       repeats=repeats)
 
 
 def print_report(r: dict):
-    print(f"kcycle {r['size']}^2 on {r['device']}: fine_kernel "
+    print(f"kcycle {r['size']}^2 w={r['wilson_coeff']:g} on {r['device']}: "
+          f"fine_kernel "
           f"{r['fine_kernel']}, coarse_apply {r['coarse_apply']}, "
           f"coefficients {r['coeff_dtype']}")
     print("level applies: " + ", ".join(
@@ -226,8 +236,10 @@ def main(argv=None):
     p.add_argument("--size", type=int, default=512)
     p.add_argument("--device", default="cuda")
     p.add_argument("--fine-kernel", default="wilson-r1",
-                   choices=["wilson-r1", "matrix", "matrix-split", "small",
-                            "none"])
+                   choices=[*FINE_KERNELS, "none"])
+    p.add_argument("--wilson-coeff", type=float, default=1.0,
+                   help="Wilson2D's Wilson coefficient w (wilson-r1 needs "
+                        "1)")
     p.add_argument("--coarse-apply", default="plain",
                    choices=["plain", "gather", "small"])
     p.add_argument("--coeff-dtype", default="float32",
@@ -248,7 +260,8 @@ def main(argv=None):
                    args.coarse_apply,
                    torch.bfloat16 if args.coeff_dtype == "bfloat16"
                    else None,
-                   profile=args.profile, repeats=args.repeats)
+                   profile=args.profile, repeats=args.repeats,
+                   wilson_coeff=args.wilson_coeff)
     print_report(r)
     if not (r["converged"] and np.isfinite(r["rel_res_true"])):
         raise SystemExit(1)

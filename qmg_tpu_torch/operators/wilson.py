@@ -9,16 +9,19 @@ Spin structure per direction::
     hopping_{-x}  = 0.5 [[-w, -1], [-1, -w]] conj(U_x(s-x))
     hopping_{-y}  = 0.5 [[-w,  i], [-i, -w]] conj(U_y(s-y))
 
-mass in ``shift``; chirality = spin components.
+mass in ``shift``; gamma5 = diag(1, -1); chirality = spin components.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from ..lattice import Lattice2D, DIR_XM1, DIR_YM1
 from ..cshift import cshift_pull
-from ..stencil import Stencil2D, StencilCoeffs, make_coeffs
+from ..stencil import (Stencil2D, StencilCoeffs, make_coeffs, ChiralityState,
+                       DefaultChirality)
 from .. import linalg
 
 # Relative tolerance of ``Wilson2D.from_coeffs``'s structure check: loose
@@ -67,14 +70,18 @@ class Wilson2D(Stencil2D):
     @classmethod
     def from_coeffs(cls, coeffs: StencilCoeffs) -> "Wilson2D":
         """Adopt coefficient arrays built elsewhere (e.g. loaded from a
-        state dict) as Wilson at w = 1, after checking that they have its
-        structure to ``FROM_COEFFS_RTOL``: clover = 2w I and each hopping
+        state dict) as a Wilson operator. The Wilson coefficient is
+        recovered from the clover (2w I); then the structure at that w is
+        checked to ``FROM_COEFFS_RTOL``: clover = 2w I and each hopping
         matrix the direction's spin projector times one phase."""
-        lat = coeffs.lat
-        w, rtol = 1.0, FROM_COEFFS_RTOL
+        lat, rtol = coeffs.lat, FROM_COEFFS_RTOL
         if lat.nc != 2 or coeffs.clover is None or coeffs.hopping is None:
             raise ValueError("not a Wilson coefficient set (nc != 2 or a "
                              "missing piece)")
+        w = 0.5 * float(coeffs.clover[0, 0, 0, 0, 0].real)
+        if w == 0:
+            raise ValueError("not a Wilson coefficient set (zero clover: "
+                             "w = 0 leaves the phases undetermined)")
         expect_clover = 2.0 * w * linalg.identity_like(coeffs.clover)
         phase = -coeffs.hopping[..., 0, 0] / w        # U_d / 2
         spins = wilson_spin_matrices(w, dtype=coeffs.hopping.dtype,
@@ -82,14 +89,46 @@ class Wilson2D(Stencil2D):
         expect_hop = torch.stack([phase[d][..., None, None] * (spins[d] / 0.5)
                                   for d in range(4)])
         scale = float(coeffs.hopping.abs().max())
-        if (float((coeffs.clover - expect_clover).abs().max()) > rtol * 2 * w
+        if (float((coeffs.clover - expect_clover).abs().max())
+                > rtol * 2 * abs(w)
                 or float((coeffs.hopping - expect_hop).abs().max())
                 > rtol * scale):
-            raise ValueError(f"coefficients are not Wilson with w={w}")
+            raise ValueError(f"coefficients are not Wilson (w={w} from the "
+                             "clover)")
         op = cls.__new__(cls)
         op.wilson_coeff = w
         Stencil2D.__init__(op, coeffs)
         return op
+
+    def update_links(self, gauge):
+        """Rebuild clover and hopping from a new gauge field at the same
+        w, mass, dtype and device. The coefficient record is replaced, so
+        its cached stacked form is rebuilt at the next apply."""
+        c = self.coeffs
+        clover, hopping = wilson_coeff_arrays(
+            self.lat, gauge, self.wilson_coeff, dtype=c.hopping.dtype,
+            device=c.hopping.device)
+        self.coeffs = dataclasses.replace(c, clover=clover, hopping=hopping,
+                                          _stacked=None)
+
+    @staticmethod
+    def get_dof(i: int = 0) -> int:
+        return 2
+
+    @staticmethod
+    def has_chirality() -> ChiralityState:
+        return ChiralityState.YES
+
+    def get_default_chirality(self) -> DefaultChirality:
+        return DefaultChirality.GAMMA_5
+
+    def gamma5(self, x):
+        """diag(1, -1) on spin."""
+        return torch.stack([x[..., 0], -x[..., 1]], dim=-1)
+
+    def sigma1(self, x):
+        """Spin swap."""
+        return torch.flip(x, dims=(-1,))
 
     def chiral_projection(self, x, is_up: bool):
         """Spin-component projection."""

@@ -27,7 +27,8 @@ from .operators.coarse import CoarseOperator2D
 from .transfer import TransferMG, DoublingType
 from .stateful import StatefulMultigridMG, zero_carry, DSLASH_KRYLOV
 from .setup import KCycleConfig, pin_full_precision
-from .wilson_kernel import wilson_r1_apply, wilson_phases
+from .wilson_kernel import (wilson_r1_apply, wilson_phase_apply,
+                            wilson_phases)
 from .dslash_kernel import (SUPPORTED_NC, stencil_channels,
                             stencil_channels_split, x_to_split, x_from_split,
                             small_fits, bind_apply, dslash_apply,
@@ -37,28 +38,35 @@ from . import solvers
 __all__ = ["make_solver", "state_to_numpy", "state_from_numpy"]
 
 
-FINE_KERNELS = ("wilson-r1", "matrix", "matrix-split", "small")
+FINE_KERNELS = ("wilson-r1", "wilson-phase", "matrix", "matrix-split",
+                "small")
+WILSON_KERNELS = ("wilson-r1", "wilson-phase")
 MATRIX_KERNELS = ("matrix", "matrix-split", "small")
 COARSE_APPLIES = ("plain", "gather", "small")
 
 
-def _wilson_r1_apply(fine: Stencil2D):
-    """Level 0's apply through the rank-1 Wilson kernel. The kernel
-    ignores the clover array and assumes 2w I with w = 1, so anything but
-    a Wilson operator at w = 1 is refused."""
-    if (not isinstance(fine, Wilson2D) or fine.wilson_coeff != 1.0
-            or fine.lat.nc != 2):
+def _wilson_apply(fine: Stencil2D, kind: str):
+    """Level 0's apply through a Wilson kernel: "wilson-r1" (rank-1, w = 1
+    only) or "wilson-phase" (any w). The kernels ignore the clover array
+    and assume 2w I, so anything but a Wilson operator is refused."""
+    if not isinstance(fine, Wilson2D) or fine.lat.nc != 2:
+        raise ValueError(f"fine_kernel={kind!r} needs the fine operator to "
+                         "be Wilson2D (nc=2)")
+    w = fine.wilson_coeff
+    if kind == "wilson-r1" and w != 1.0:
         raise ValueError("fine_kernel='wilson-r1' needs the fine operator "
-                         "to be Wilson2D with wilson_coeff=1 (nc=2)")
-    phase = wilson_phases(fine.coeffs.hopping)
-    alpha = 2.0 + float(np.real(fine.coeffs.shift))
+                         f"to be Wilson2D with wilson_coeff=1, got {w}: use "
+                         "'wilson-phase'")
+    phase = wilson_phases(fine.coeffs.hopping, w)
+    alpha = 2.0 * w + float(np.real(fine.coeffs.shift))
+    if kind == "wilson-r1":
+        def kernel(v):
+            return wilson_r1_apply(phase, v, alpha)
+    else:
+        def kernel(v):
+            return wilson_phase_apply(phase, v, w, alpha)
 
-    def apply(v):
-        out = wilson_r1_apply(phase, v.to(torch.complex64).contiguous(),
-                              alpha)
-        return out.to(v.dtype)
-
-    return apply
+    return lambda v: kernel(v.to(torch.complex64).contiguous()).to(v.dtype)
 
 
 def _matrix_apply(coeffs, kind: str, coeff_dtype=None):
@@ -109,7 +117,8 @@ def make_solver(mg: StatefulMultigridMG, tol: float = 1e-8,
     included); they are also added to ``mg.tracker``.
 
     ``fine_kernel`` routes level 0's apply inside the K-cycle through a
-    CUDA kernel: "wilson-r1" (the rank-1 Wilson kernel), "matrix" (K4),
+    CUDA kernel: "wilson-r1" (the rank-1 Wilson kernel, w = 1 only),
+    "wilson-phase" (the Wilson kernel for any w), "matrix" (K4),
     "matrix-split" (K5) or "small" (K6); None keeps the plain apply.
     ``coeff_dtype=torch.bfloat16`` streams the matrix kernels'
     coefficients in bf16 (refused for the other kinds). ``coarse_apply``
@@ -136,8 +145,8 @@ def make_solver(mg: StatefulMultigridMG, tol: float = 1e-8,
     n_levels = mg.get_num_levels()
     stencils = [mg.get_stencil(lvl) for lvl in range(n_levels)]
     overrides, applies = [None], ["plain"]
-    if fine_kernel == "wilson-r1":
-        overrides[0] = _wilson_r1_apply(fine)
+    if fine_kernel in WILSON_KERNELS:
+        overrides[0] = _wilson_apply(fine, fine_kernel)
     elif fine_kernel is not None:
         overrides[0] = _matrix_apply(fine.coeffs, fine_kernel, coeff_dtype)
     if fine_kernel is not None:
@@ -208,7 +217,9 @@ def state_from_numpy(state: dict, cfg: KCycleConfig, *, device="cpu",
     ``qmg_tpu.tpu_compat.mg_state_planes``). ``cfg`` supplies the
     blocking and the per-level solve parameters. ``dtype`` defaults to
     complex64 for float32 planes and complex128 otherwise. Level 0 is
-    adopted as a Wilson operator at w = 1 (its structure is checked)."""
+    adopted as a Wilson operator at the Wilson coefficient its clover
+    holds (``Wilson2D.from_coeffs``; its structure is checked), so a
+    hierarchy built at w != 1 loads too."""
     if dtype is None:
         dtype = (torch.complex64 if state["clover0"].dtype == np.float32
                  else torch.complex128)

@@ -41,6 +41,12 @@ class StencilType(enum.IntEnum):
     RBJ_MDAGGER_M = 8
 
 
+class ChiralityState(enum.IntEnum):
+    NO = 0
+    YES = 1
+    UNKNOWN = 2
+
+
 class DefaultChirality(enum.IntEnum):
     NONE = 0
     GAMMA_5 = 1
