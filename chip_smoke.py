@@ -43,7 +43,22 @@ fallback). Phases, any failure exits non-zero:
      other and +-2 of qmg_tpu's; the rank-1 kernel must refuse it;
  10. the stencil-apply chains of qmg_tpu_torch.dslash at 2048^2 through
      K3 ("wilson-split") and K2 ("wilson-phase"): us per chain step, and
-     after 20 steps the same checksum as the rank-1 chain (1e-3).
+     after 20 steps the same checksum as the rank-1 chain (1e-3);
+ 11. the slab kernel (K7: the rank-1 kernel on a y-slab with halo rows)
+     on ny in {1, 2, 4, 8} slabs of 16x8 ... 2048^2 lattices, the slabs
+     being views of the whole field: each slab against its twin (5e-7),
+     the slabs together against K1's kernel on the whole lattice (bit for
+     bit at ny = 1, 2e-7 otherwise); CUDA-event timings at 2048^2 of one
+     slab launch and of the whole sharded apply at ny = 1 and 4 beside
+     K1's and the bound;
+ 12. (inside 7) the 2048^2 solve with level 0 cut into 4 y-slabs held in
+     this process (``make_solver(mesh=Mesh(4, 1))``): outer count within
+     +-1 of the rank-1 path's, true residual <= 1e-4, 4 K7 launches for
+     every fine apply of the K-cycle and no K1 launch;
+ 13. the 512^2 solve on a ``torch.distributed`` mesh of one rank on NCCL
+     (a ``file://`` store in a temporary directory): the group plumbing,
+     ``all_reduce`` / ``all_gather`` and the self-halo branch on the
+     card; outer count within +-1 of qmg_tpu's.
 
 The last two lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}.
@@ -80,6 +95,8 @@ JAX_ITERS_512_MATRIX_SMALL = 9
 W_OTHER = 1.3
 JAX_ITERS_512_W_OTHER = 8
 KERNEL_TOL = 1e-5
+HALO_TWIN_TOL = 5e-7      # K7 against its twin
+HALO_K1_TOL = 2e-7        # K7's slabs together against K1's kernel
 CHAIN_TOL = 1e-3
 TRUE_RES_BOUND = 1e-4
 TIMING_REPS = 100
@@ -296,6 +313,138 @@ def stencil_timings(torch, dk, dev):
     return out
 
 
+def slab_views(phase, x, y0, y_loc):
+    """Slab [y0, y0 + y_loc) of whole phases and x, and its halo rows
+    (the row below and the row above, periodic), all as views."""
+    return (phase[:, :, y0:y0 + y_loc], x[:, y0:y0 + y_loc], x[:, y0 - 1],
+            x[:, (y0 + y_loc) % x.shape[1]])
+
+
+def halo_bound(y_loc, xh):
+    """Bound of one slab launch: 64 B/site of the slab plus 2 halo rows x
+    2 parities x Xh x 16 B; 52 flops a site."""
+    sites = 2 * y_loc * xh
+    return bound(64 * sites + 2 * 2 * xh * 16, 52 * sites)
+
+
+def halo_phase(torch, wk, dev):
+    """Phase 11. Returns (worst abs error of K7 against its twin, (ms,
+    plain_ms, bound_ms, bound_by) of one slab launch at the sharded
+    solve's shape, a 512-row slab of the 2048^2 lattice)."""
+    from qmg_tpu_torch import dslash
+    shapes = {"16x8": (8, 8), "64x48": (48, 32), "512x512": (512, 256),
+              "2048x2048": (2048, 1024)}
+    alpha = 2.0 - 0.06
+    worst = 0.0
+    for name, (y_len, xh) in shapes.items():
+        rng = np.random.default_rng(y_len + 7)
+        phase = torch.as_tensor(
+            0.5 * np.exp(1j * rng.uniform(-np.pi, np.pi,
+                                          (4, 2, y_len, xh))),
+            dtype=torch.complex64, device=dev)
+        x = torch.as_tensor(rng.normal(size=(2, y_len, xh, 2))
+                            + 1j * rng.normal(size=(2, y_len, xh, 2)),
+                            dtype=torch.complex64, device=dev)
+        whole = wk.wilson_r1_apply(phase, x, alpha)
+        for ny in (1, 2, 4, 8):
+            if y_len % ny or (y_len // ny) % 2:
+                continue
+            y_loc = y_len // ny
+            out = torch.empty_like(x)
+            twin_rel = 0.0
+            for iy in range(ny):
+                args = slab_views(phase, x, iy * y_loc, y_loc)
+                got = wk.wilson_r1_halo_apply(
+                    *args, alpha, out=out[:, iy * y_loc:(iy + 1) * y_loc])
+                torch.cuda.synchronize()
+                abs_err, rel = rel_err(
+                    got, wk.wilson_r1_halo_apply_plain(*args, alpha))
+                worst, twin_rel = max(worst, abs_err), max(twin_rel, rel)
+            k1_rel = rel_err(out, whole)[1]
+            same = torch.equal(out, whole)
+            print(f"K7 {name} on {ny} slab(s): vs twin {twin_rel:.3e}, vs "
+                  f"the K1 kernel {k1_rel:.3e}"
+                  f"{' (bit for bit)' if same else ''}", flush=True)
+            check(twin_rel <= HALO_TWIN_TOL,
+                  f"K7 disagrees with its twin at {name}, ny={ny}")
+            check(k1_rel <= HALO_K1_TOL and (same or ny > 1),
+                  f"K7's slabs disagree with the K1 kernel at {name}, "
+                  f"ny={ny}")
+    # One slab launch at the sharded solve's shape: a 512-row slab of the
+    # 2048^2 lattice (x, phase are still bound). Through the wrapper a
+    # call is bound by its Python checks, so the kernel's time is taken
+    # as the solve launches it: the 4-slab apply with its checks made
+    # once (``bind_halo_slabs``), a quarter of it a launch.
+    y_loc = 512
+    args = slab_views(phase, x, y_loc, y_loc)
+    out = torch.empty_like(x)
+    wrapper_ms = time_ms(lambda: wk.wilson_r1_halo_apply(
+        *args, alpha, out=out[:, y_loc:2 * y_loc]), torch)
+    slabs = wk.bind_halo_slabs(phase, 4, alpha)
+    check(torch.equal(slabs(x), whole),
+          "the bound 4-slab apply differs from the K1 kernel")
+    ms = time_ms(lambda: slabs(x), torch) / 4
+    plain_ms = time_ms(lambda: wk.wilson_r1_halo_apply_plain(*args, alpha),
+                       torch)
+    slab_bound, slab_by = halo_bound(y_loc, xh)
+    print(f"K7 one 512-row slab of 2048^2: kernel {ms * 1e3:.2f} us a launch "
+          f"in the bound 4-slab apply ({wrapper_ms * 1e3:.2f} us through "
+          f"the wrapper, bound by its checks), plain {plain_ms * 1e3:.2f} "
+          f"us, bound {slab_bound * 1e3:.2f} us ({slab_by})", flush=True)
+    del phase, x, out, whole, args
+    coeffs, v = dslash.make_operator(2048, 2, dev)
+    applies = {"K1": dslash.make_step("wilson-r1", coeffs)[0]}
+    for ny in (1, 4):
+        applies[f"K7 x {ny}"] = dslash.make_step("wilson-r1", coeffs,
+                                                 shards=ny)[0]
+    for label, fn in list(applies.items()) + [("K1 again", applies["K1"])]:
+        t = time_ms(lambda: fn(v), torch)
+        ny = int(label[-1]) if label.startswith("K7") else 1
+        t_bound = (ny * halo_bound(2048 // ny, 1024)[0]
+                   if label.startswith("K7")
+                   else wilson_bound("K1", 2048 * 2048)[0])
+        print(f"sharded apply 2048^2 {label}: {t * 1e3:.2f} us/apply (halo "
+              f"rows taken in place + {ny} launch(es)), bound "
+              f"{t_bound * 1e3:.2f} us", flush=True)
+    return worst, (ms, plain_ms, slab_bound, slab_by)
+
+
+def nccl_phase(torch, dev):
+    """Phase 13: the 512^2 solve on a distributed mesh of one rank."""
+    import tempfile
+    import torch.distributed as dist
+    from qmg_tpu_torch.parallel import Mesh
+    from qmg_tpu_torch.kcycle import (build_problem, run_solver,
+                                      print_report, reset_launch_counts,
+                                      launch_counts)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1, device_id=dev)
+        try:
+            mesh = Mesh(1, 1, dist.group.WORLD)
+            problem = build_problem(512, dev, mesh=mesh)
+            reset_launch_counts()
+            r = run_solver(problem)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+        finally:
+            dist.destroy_process_group()
+    print("--- 512^2 wilson-r1 on a distributed mesh of 1 rank (NCCL)",
+          flush=True)
+    print_report(r)
+    print(f"bytes handed to the collectives: {mesh.sent}; launches "
+          f"{counts}", flush=True)
+    check_solve(r, "512^2 NCCL world size 1")
+    check(abs(r["iters"] - JAX_ITERS_512) <= 1,
+          f"512^2 NCCL outer iterations {r['iters']} vs qmg_tpu's "
+          f"{JAX_ITERS_512}")
+    check(counts["wilson_r1_halo"] > 0 and counts["wilson_r1"] == 0,
+          "the distributed path did not run the slab kernel alone")
+    check(mesh.sent["sum"] > 0 and mesh.sent["gather"] > 0
+          and mesh.sent["halo"] == 0,
+          f"one rank must reduce and gather but send no halo: {mesh.sent}")
+
+
 def check_solve(r, label):
     size = r["size"]
     check(r["converged"] and r["iters"] <= 200,
@@ -346,13 +495,24 @@ def kernel_paths(torch, dev):
     check(r_ph["launches"]["wilson_phase"] > 0,
           "2048^2 wilson-phase: K2 not launched in the timed solve")
     launches["wilson_phase"] = c["wilson_phase"]
-    for r in (r_ms, r_sg, r_ph):
+    # --- 12. level 0 cut into 4 y-slabs held in this process ---
+    from qmg_tpu_torch.parallel import Mesh
+    r_sh, c = path(dict(big, mesh=Mesh(4, 1)), "2048^2 wilson-r1 on 4 slabs")
+    check(r_sh["launches"]["wilson_r1_halo"]
+          == 4 * r_r1["launches"]["wilson_r1"]
+          and c["wilson_r1"] == 0,
+          f"2048^2 on 4 slabs: {r_sh['launches']['wilson_r1_halo']} K7 "
+          f"launches a solve against 4 x {r_r1['launches']['wilson_r1']} "
+          f"K1 launches of the unsharded path; K1 launches {c['wilson_r1']}")
+    launches["wilson_r1_halo"] = c["wilson_r1_halo"]
+    for r in (r_ms, r_sg, r_ph, r_sh):
         check(abs(r["iters"] - r_r1["iters"]) <= 1,
-              f"2048^2 outer iterations {r['iters']} ({r['fine_kernel']}) "
-              f"vs {r_r1['iters']} (wilson-r1)")
+              f"2048^2 outer iterations {r['iters']} "
+              f"({r['level_applies'][0]}) vs {r_r1['iters']} (wilson-r1)")
     print(f"2048^2 outer iterations wilson-r1 {r_r1['iters']}, matrix+small "
           f"{r_ms['iters']}, matrix-split+gather {r_sg['iters']}, "
-          f"wilson-phase {r_ph['iters']}: ok", flush=True)
+          f"wilson-phase {r_ph['iters']}, wilson-r1 on 4 slabs "
+          f"{r_sh['iters']}: ok", flush=True)
     del big
 
     mid = build_problem(512, dev)
@@ -479,6 +639,10 @@ def main():
     path_launches["wilson_split"] = dslash_chains(torch, dev)
     path_launches["wilson_r1"] = launches
 
+    # --- 11. the slab kernel, 13. the distributed mesh of one rank ---
+    halo_worst, halo_times = halo_phase(torch, wk, dev)
+    nccl_phase(torch, dev)
+
     # Each Wilson kernel at its path's shape: K1 the 512^2 solve, K2 the
     # 2048^2 solve, K3 the 2048^2 chain.
     kernels = []
@@ -495,6 +659,14 @@ def main():
             "max_abs_err": wilson_worst[kid], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": k_bound, "bound_by": k_by,
             "library_ms": None})
+    k_ms, k_plain, k_bound, k_by = halo_times
+    kernels.append({
+        "name": "wilson_r1_halo", "route": "cuda",
+        "source": "qmg_tpu_torch/csrc/wilson.cu",
+        "replaces": "qmg_tpu/shard_dslash.py:135",
+        "launches": path_launches["wilson_r1_halo"],
+        "max_abs_err": halo_worst, "ms": k_ms, "plain_ms": k_plain,
+        "bound_ms": k_bound, "bound_by": k_by, "library_ms": None})
     for name, kid, line in (("dslash", "K4", 76), ("dslash_split", "K5", 351),
                             ("dslash_small", "K6", 548)):
         k_ms, k_plain, k_bound, k_by = stimes[kid]

@@ -11,7 +11,9 @@ Inside the K-cycle the stencil applies run through hand-written CUDA
 kernels: the Wilson Dslash kernels (``csrc/wilson.cu``, wrappers
 ``wilson_kernel.py``) and the generic stencil kernels (``csrc/dslash.cu``,
 wrappers ``dslash_kernel.py``); every other operation is plain PyTorch.
-The package imports no JAX.
+The fine level can be cut into blocks over a mesh held in one process or
+spread over ``torch.distributed`` ranks (``parallel.py``,
+``shard_dslash.py``). The package imports no JAX.
 """
 
 from .lattice import Lattice2D  # noqa: F401

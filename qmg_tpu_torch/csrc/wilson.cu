@@ -7,8 +7,15 @@
 //                            layout; replaces ::_wilson_split_kernel
 //   wilson_phase_kernel      apply at any Wilson coefficient w, interleaved
 //                            layout; replaces ::_wilson_kernel
+//   wilson_r1_halo_kernel    the rank-1 apply on a y-slab of a lattice cut
+//                            into slabs: the row below the slab and the row
+//                            above it come in as halo rows, nothing wraps in
+//                            y; replaces ::_wilson_rank1_kernel in its
+//                            halo_frame form, which
+//                            qmg_tpu/shard_dslash.py::
+//                            make_sharded_pallas_wilson runs on each shard
 //
-// All three compute, from per-direction phases p_d = U_d/2 (the conj of the
+// All four compute, from per-direction phases p_d = U_d/2 (the conj of the
 // backward links included),
 //
 //   out(s) = alpha x(s) + sum_d p_d(s) P_d x(s + d),   alpha = 2w + m,
@@ -52,6 +59,22 @@
 // are the other half, a quarter of the lattice away), so its threads walk
 // the rows in y order instead. Shared-memory row tiling, TMA and CUDA graphs
 // are left for later work.
+//
+// The slab kernel. The TPU kernel reads a frame of the slab with 8 halo
+// rows on each side, 8 being its DMA granule; the stencil reaches one row,
+// so here a halo is one row per side: top = row y0 - 1 and bot = row
+// y0 + Y_loc of the whole field, both parities, (2, Xh, 2 spin). They are
+// pointers of their own (the receive buffers of a halo exchange, or rows
+// of a neighbouring slab in place), so no frame is assembled: that copy
+// would read and write the whole slab, 32 B/site on top of the 64. Row
+// y = 0 takes its -y neighbour from top, row Y_loc - 1 its +y neighbour
+// from bot; +-x wrap inside the slab. Y_loc is even, so a slab row's
+// parity is its parity in the whole lattice. x, phase, out and the halos
+// each come with the distance between their two parity halves (in
+// sites), so a slab may be a view of rows y0 .. y0 + Y_loc of a whole
+// field as well as a block of its own; the phases' direction stride is
+// twice their parity stride in both cases. One slab moves 64 B/site plus
+// 2 halo rows x 2 parities x Xh x 16 B.
 
 #include <cuda_runtime.h>
 
@@ -102,6 +125,31 @@ __device__ __forceinline__ bool locate(int y_len, int xh_len, Site& s) {
   return true;
 }
 
+// The rank-1 kernels' arithmetic on one site: the four pulled neighbour
+// spinors, the site's own spinor s and its four phases.
+// float4 = (v0.re, v0.im, v1.re, v1.im).
+__device__ __forceinline__ float4 rank1_site(
+    const float4 vxp, const float4 vxm, const float4 vyp, const float4 vym,
+    const float4 s, const float2 p_xp, const float2 p_yp, const float2 p_xm,
+    const float2 p_ym, const float alpha) {
+  const float2 a_xp = make_float2(vxp.z - vxp.x, vxp.w - vxp.y);
+  const float2 a_xm = make_float2(-(vxm.x + vxm.z), -(vxm.y + vxm.w));
+  const float2 a_yp = make_float2(-(vyp.x - vyp.w), -(vyp.y + vyp.z));
+  const float2 a_ym = make_float2(-(vym.x + vym.w), -(vym.y - vym.z));
+
+  const float2 t_xp = cmul(p_xp, a_xp);
+  const float2 t_xm = cmul(p_xm, a_xm);
+  const float2 t_yp = cmul(p_yp, a_yp);
+  const float2 t_ym = cmul(p_ym, a_ym);
+
+  float4 o;
+  o.x = alpha * s.x + (t_xp.x + t_xm.x) + (t_yp.x + t_ym.x);
+  o.y = alpha * s.y + (t_xp.y + t_xm.y) + (t_yp.y + t_ym.y);
+  o.z = alpha * s.z + (t_xm.x - t_xp.x) + (t_yp.y - t_ym.y);
+  o.w = alpha * s.w + (t_xm.y - t_xp.y) + (t_ym.x - t_yp.x);
+  return o;
+}
+
 template <bool SPLIT>
 __global__ void __launch_bounds__(kThreads)
 wilson_r1_kernel(const float2* __restrict__ phase,
@@ -125,23 +173,48 @@ wilson_r1_kernel(const float2* __restrict__ phase,
   const float2 p_xm = phase[(2 * 2 + st.q) * half + st.rem];
   const float2 p_ym = phase[(3 * 2 + st.q) * half + st.rem];
 
-  // float4 = (v0.re, v0.im, v1.re, v1.im)
-  const float2 a_xp = make_float2(vxp.z - vxp.x, vxp.w - vxp.y);
-  const float2 a_xm = make_float2(-(vxm.x + vxm.z), -(vxm.y + vxm.w));
-  const float2 a_yp = make_float2(-(vyp.x - vyp.w), -(vyp.y + vyp.z));
-  const float2 a_ym = make_float2(-(vym.x + vym.w), -(vym.y - vym.z));
+  out[st.idx] = rank1_site(vxp, vxm, vyp, vym, s, p_xp, p_yp, p_xm, p_ym,
+                           alpha);
+}
 
-  const float2 t_xp = cmul(p_xp, a_xp);
-  const float2 t_xm = cmul(p_xm, a_xm);
-  const float2 t_yp = cmul(p_yp, a_yp);
-  const float2 t_ym = cmul(p_ym, a_ym);
+// One thread per site of the slab (2 parity, y_len rows, xh_len). The
+// strides *_ps are the distances between the two parity halves, in sites.
+__global__ void __launch_bounds__(kThreads)
+wilson_r1_halo_kernel(const float2* __restrict__ phase,
+                      const float4* __restrict__ x,
+                      const float4* __restrict__ top,
+                      const float4* __restrict__ bot,
+                      float4* __restrict__ out, int y_len, int xh_len,
+                      int phase_ps, int x_ps, int halo_ps, int out_ps,
+                      float alpha) {
+  const int half = y_len * xh_len;
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  if (tid >= 2 * half) return;
+  const int q = tid / half;
+  const int rem = tid - q * half;
+  const int y = rem / xh_len;
+  const int xh = rem - y * xh_len;
+  // y_len is even: the slab row's parity is the lattice row's.
+  const bool direct = (y & 1) == q;
+  const int col_xp = direct ? xh : (xh + 1 == xh_len ? 0 : xh + 1);
+  const int col_xm = direct ? (xh == 0 ? xh_len - 1 : xh - 1) : xh;
+  const float4* src = x + (1 - q) * x_ps;        // neighbours: other parity
+  const float4* halo_top = top + (1 - q) * halo_ps;
+  const float4* halo_bot = bot + (1 - q) * halo_ps;
 
-  float4 o;
-  o.x = alpha * s.x + (t_xp.x + t_xm.x) + (t_yp.x + t_ym.x);
-  o.y = alpha * s.y + (t_xp.y + t_xm.y) + (t_yp.y + t_ym.y);
-  o.z = alpha * s.z + (t_xm.x - t_xp.x) + (t_yp.y - t_ym.y);
-  o.w = alpha * s.w + (t_xm.y - t_xp.y) + (t_ym.x - t_yp.x);
-  out[st.idx] = o;
+  const float4 vxp = src[y * xh_len + col_xp];
+  const float4 vxm = src[y * xh_len + col_xm];
+  const float4 vyp = y + 1 == y_len ? halo_bot[xh] : src[rem + xh_len];
+  const float4 vym = y == 0 ? halo_top[xh] : src[rem - xh_len];
+  const float4 s = x[q * x_ps + rem];
+
+  const float2 p_xp = phase[(0 * 2 + q) * phase_ps + rem];
+  const float2 p_yp = phase[(1 * 2 + q) * phase_ps + rem];
+  const float2 p_xm = phase[(2 * 2 + q) * phase_ps + rem];
+  const float2 p_ym = phase[(3 * 2 + q) * phase_ps + rem];
+
+  out[q * out_ps + rem] = rank1_site(vxp, vxm, vyp, vym, s, p_xp, p_yp, p_xm,
+                                     p_ym, alpha);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -237,5 +310,23 @@ extern "C" int wilson_phase_launch(const void* phase, const void* x,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float2*>(phase), static_cast<const float4*>(x),
       static_cast<float4*>(out), y_len, xh_len, w, alpha);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The rank-1 apply on a slab of y_len (even) rows: x, out (2, y_len, Xh, 2)
+// and phase (4, 2, y_len, Xh) with parity strides x_ps, out_ps, phase_ps
+// (the phases' direction stride is 2 * phase_ps); top, bot (2, Xh, 2) with
+// parity stride halo_ps; all strides in sites.
+extern "C" int wilson_r1_halo_launch(const void* phase, const void* x,
+                                     const void* top, const void* bot,
+                                     void* out, int y_len, int xh_len,
+                                     int phase_ps, int x_ps, int halo_ps,
+                                     int out_ps, float alpha, void* stream) {
+  wilson_r1_halo_kernel<<<blocks_for(y_len, xh_len), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float2*>(phase), static_cast<const float4*>(x),
+      static_cast<const float4*>(top), static_cast<const float4*>(bot),
+      static_cast<float4*>(out), y_len, xh_len, phase_ps, x_ps, halo_ps,
+      out_ps, alpha);
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,7 +12,10 @@ random coarse-like coefficients (gaussian clover and hopping, shift
 ``--iters`` steps of the renormalised chain x <- M x / |M x| with CUDA
 events, through one apply:
 
-  wilson-r1     the rank-1 Wilson kernel (nc = 2, w = 1 only);
+  wilson-r1     the rank-1 Wilson kernel (nc = 2, w = 1 only); with
+                ``--shards NY`` the slab kernel on NY y-slabs of the
+                lattice, held in this process (one launch per slab, the
+                neighbouring slabs' edge rows as halos);
   wilson-phase  the Wilson kernel for any w (nc = 2; bench.py's ``phase``);
   wilson-split  the rank-1 kernel in the row-parity-split layout (nc = 2,
                 w = 1; bench.py's ``phase-split``);
@@ -48,6 +51,8 @@ from .stencil import apply_M, make_coeffs
 from .wilson_kernel import (wilson_r1_apply, wilson_phase_apply,
                             wilson_split_apply, wilson_phases,
                             wilson_phases_split)
+from .parallel import Mesh
+from .shard_dslash import make_sharded_wilson
 from .dslash_kernel import (HBM_BYTES_S, stencil_channels,
                             stencil_channels_split, x_to_split, apply_bytes,
                             dslash_apply, dslash_split_apply,
@@ -87,10 +92,14 @@ def make_operator(size: int, nc: int, device, wilson_coeff: float = 1.0):
 
 
 def make_step(kind: str, coeffs, coeff_dtype=None,
-              wilson_coeff: float = 1.0):
+              wilson_coeff: float = 1.0, shards: int | None = None):
     """(apply, layout of its x): the apply of one chain step.
     ``wilson_coeff`` is the w that Wilson coefficients were built with
-    (the Wilson kernels need it; the others read the coefficients)."""
+    (the Wilson kernels need it; the others read the coefficients).
+    ``shards`` cuts the lattice into that many y-slabs (wilson-r1 only)."""
+    if shards is not None and kind != "wilson-r1":
+        raise ValueError(f"--shards runs the rank-1 slab kernel: use "
+                         f"--kernel wilson-r1, not {kind}")
     if coeff_dtype is not None and kind not in ("matrix", "split", "small"):
         raise ValueError(f"--coeff-dtype applies to the matrix kernels, "
                          f"not {kind}")
@@ -101,6 +110,10 @@ def make_step(kind: str, coeffs, coeff_dtype=None,
         if kind != "wilson-phase" and w != 1.0:
             raise ValueError(f"{kind} is a rank-1 kernel and needs w = 1, "
                              f"got {w}: use wilson-phase")
+        if shards is not None:
+            return (make_sharded_wilson(coeffs, Mesh(shards, 1),
+                                        float(np.real(coeffs.shift)), w),
+                    "interleaved")
         phase = wilson_phases(coeffs.hopping, w)
         alpha = 2.0 * w + float(np.real(coeffs.shift))
         if kind == "wilson-split":
@@ -140,7 +153,7 @@ def card_line() -> str:
 
 def run(size: int, kind: str, nc: int = 2, coeff_dtype=None,
         iters: int = 400, device="cuda", wilson_coeff: float = 1.0,
-        operator=None) -> dict:
+        operator=None, shards: int | None = None) -> dict:
     """Time ``iters`` chain steps with CUDA events after a warm-up of the
     same length; returns the measurements. On the CPU (the tests) it only
     runs the chain and returns its checksum: a CPU time is no device
@@ -150,7 +163,8 @@ def run(size: int, kind: str, nc: int = 2, coeff_dtype=None,
         raise ValueError("--wilson-coeff applies to the Wilson operator "
                          "(nc = 2)")
     coeffs, x = operator or make_operator(size, nc, device, wilson_coeff)
-    apply, layout = make_step(kind, coeffs, coeff_dtype, wilson_coeff)
+    apply, layout = make_step(kind, coeffs, coeff_dtype, wilson_coeff,
+                              shards)
     v = x_to_split(x) if layout == "split" else x
 
     def chain(v, n):
@@ -161,7 +175,7 @@ def run(size: int, kind: str, nc: int = 2, coeff_dtype=None,
 
     if torch.device(device).type != "cuda":
         out = chain(v, iters)
-        return {"size": size, "kernel": kind, "nc": nc,
+        return {"size": size, "kernel": kind, "nc": nc, "shards": shards,
                 "wilson_coeff": wilson_coeff, "iters": iters,
                 "checksum": float(out.abs().sum()), "device": "cpu"}
     chain(v, iters)
@@ -175,7 +189,7 @@ def run(size: int, kind: str, nc: int = 2, coeff_dtype=None,
     us = start.elapsed_time(stop) * 1e3 / iters  # per chain step
     gbs = (step_bytes(kind, nc, coeffs.lat.volume, coeff_dtype)
            / (us * 1e-6) / 1e9)
-    return {"size": size, "kernel": kind, "nc": nc,
+    return {"size": size, "kernel": kind, "nc": nc, "shards": shards,
             "wilson_coeff": wilson_coeff,
             "coeff_dtype": str(coeff_dtype or torch.float32).split(".")[-1],
             "iters": iters, "us_per_apply": us, "gbs": gbs,
@@ -194,6 +208,8 @@ def main(argv=None):
     p.add_argument("--wilson-coeff", type=float, default=1.0,
                    help="Wilson coefficient w of the nc = 2 operator (the "
                         "rank-1 kernels need 1)")
+    p.add_argument("--shards", type=int, default=None, metavar="NY",
+                   help="cut the lattice into NY y-slabs (wilson-r1 only)")
     p.add_argument("--iters", type=int, default=400)
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
@@ -203,10 +219,11 @@ def main(argv=None):
     coeff_dtype = (torch.bfloat16 if args.coeff_dtype == "bfloat16"
                    else None)
     r = run(args.size, args.kernel, args.nc, coeff_dtype, args.iters,
-            args.device, args.wilson_coeff)
+            args.device, args.wilson_coeff, shards=args.shards)
     if is_cuda:
         print(card_line())
-        print(f"dslash {r['size']}^2 nc{r['nc']} {r['kernel']} "
+        print(f"dslash {r['size']}^2 nc{r['nc']} {r['kernel']}"
+              f"{'' if args.shards is None else f' on {args.shards} slabs'} "
               f"({r['coeff_dtype']} coefficients) on {r['device']}: "
               f"{r['us_per_apply']:.2f} us/apply, {r['gbs']:.1f} GB/s = "
               f"{r['pct_of_hbm']:.1f}% of {HBM_BYTES_S / 1e12} TB/s",

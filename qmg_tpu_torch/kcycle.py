@@ -20,11 +20,25 @@ operator counts and the launches of each kernel. ``--repeats N`` times N
 solves and reports the median; ``--profile`` adds one solve under
 torch.profiler (device busy share and the kernels with the most device
 time).
+
+Level 0 can be cut into y-slabs (``parallel.Mesh``; fine kernel
+``wilson-r1``, the slab kernel, or ``none``):
+
+    python -m qmg_tpu_torch.kcycle --size 2048 --shards 4
+    torchrun --nproc-per-node N -m qmg_tpu_torch.kcycle --distributed
+
+``--shards NY`` holds the NY slabs in this process, on the one device.
+``--distributed`` takes one slab per process of a ``torch.distributed``
+job, from the environment that ``torchrun`` sets (NCCL for ``--device
+cuda``, each rank on the card of its LOCAL_RANK; gloo for ``cpu``): rank
+0 runs the setup, hands every rank its cut of the hierarchy and prints
+the report (every rank holds the same one).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -33,12 +47,15 @@ import torch
 from .lattice import Lattice2D
 from .operators.wilson import Wilson2D
 from .setup import KCycleConfig, build_kcycle_hierarchy
-from .solve import make_solver, FINE_KERNELS
+from .solve import (make_solver, FINE_KERNELS, state_to_numpy,
+                    state_from_numpy, shard_state)
 from .stencil import apply_M, make_coeffs
-from .linalg import norm2sq
+from .linalg import norm2sq, reductions
 from .rng import QMGRandom
-from .wilson_kernel import (wilson_r1_apply, wilson_phase_apply,
-                            wilson_split_apply)
+from .parallel import Mesh
+from .shard_dslash import make_sharded_dslash
+from .wilson_kernel import (wilson_r1_apply, wilson_r1_halo_apply,
+                            wilson_phase_apply, wilson_split_apply)
 from .dslash_kernel import (dslash_apply, dslash_split_apply,
                             dslash_small_apply)
 from . import u1
@@ -49,7 +66,9 @@ SEED = 1337
 TOL = 1e-5
 MAX_ITER = 200
 # The CUDA kernels' wrappers by the names the reports use.
-KERNELS = {"wilson_r1": wilson_r1_apply, "wilson_phase": wilson_phase_apply,
+KERNELS = {"wilson_r1": wilson_r1_apply,
+           "wilson_r1_halo": wilson_r1_halo_apply,
+           "wilson_phase": wilson_phase_apply,
            "wilson_split": wilson_split_apply, "dslash": dslash_apply,
            "dslash_split": dslash_split_apply,
            "dslash_small": dslash_small_apply}
@@ -82,17 +101,24 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def true_residual(op: Wilson2D, b, x) -> float:
+def true_residual(op: Wilson2D, b, x, mesh: Mesh | None = None) -> float:
     """||b - M x|| / ||b|| in complex128 with the exact plain apply of the
-    operator that was solved (its coefficients promoted to complex128)."""
+    operator that was solved (its coefficients promoted to complex128).
+    On a distributed ``mesh``, ``op``, ``b`` and ``x`` are the rank's
+    blocks: the apply exchanges halos and the norms are summed over the
+    ranks."""
     c = op.coeffs
     c128 = make_coeffs(c.lat, clover=c.clover.to(torch.complex128),
                        hopping=c.hopping.to(torch.complex128),
                        shift=c.shift, eo_shift=c.eo_shift,
                        dof_shift=c.dof_shift, dtype=torch.complex128)
-    b128 = b.to(torch.complex128)
-    r = b128 - apply_M(c128, x.to(torch.complex128))
-    return float(torch.sqrt(norm2sq(r) / norm2sq(b128)))
+    b128, x128 = b.to(torch.complex128), x.to(torch.complex128)
+    if mesh is None or not mesh.distributed:
+        r = b128 - apply_M(c128, x128)
+        return float(torch.sqrt(norm2sq(r) / norm2sq(b128)))
+    _, norm2sq_all, _ = reductions(mesh.all_sum)
+    r = b128 - make_sharded_dslash(c128, mesh)(x128)
+    return float(torch.sqrt(norm2sq_all(r) / norm2sq_all(b128)))
 
 
 def profile_solve(solve, b, solve_ms: float, top: int = 12):
@@ -123,10 +149,14 @@ def profile_solve(solve, b, solve_ms: float, top: int = 12):
 
 
 def build_problem(size: int = 512, device="cuda",
-                  wilson_coeff: float = 1.0) -> dict:
+                  wilson_coeff: float = 1.0, mesh: Mesh | None = None) -> dict:
     """The gauge field, the fine operator (Wilson coefficient
     ``wilson_coeff``), the hierarchy (setup timed) and the right-hand side
-    (drawn after the setup, as bench.py does)."""
+    (drawn after the setup, as bench.py does). ``mesh`` is the mesh the
+    solvers will cut level 0 over; a distributed one makes this rank's
+    cut of the problem (``_cut_for_rank``)."""
+    if mesh is not None and mesh.distributed:
+        return _cut_for_rank(size, device, wilson_coeff, mesh)
     lat = Lattice2D(size, size, 2)
     rng = QMGRandom(SEED)
     gauge = u1.gauss_gauge_u1(lat, rng, BETA)
@@ -142,7 +172,32 @@ def build_problem(size: int = 512, device="cuda",
     b = torch.as_tensor(rng.gaussian_cv(lat)).to(device=device,
                                                   dtype=torch.complex64)
     return {"size": size, "device": device, "op": op, "mg": mg, "b": b,
-            "restart": restart, "setup_s": setup_s}
+            "restart": restart, "setup_s": setup_s, "mesh": mesh}
+
+
+def _cut_for_rank(size: int, device, wilson_coeff: float, mesh: Mesh) -> dict:
+    """The problem on a distributed mesh: rank 0 runs the whole setup (the
+    setup itself is not sharded) and broadcasts the hierarchy's state and
+    the right-hand side; every rank loads its cut, so that all ranks hold
+    the same coarse levels bit for bit. ``op`` and ``b`` are the rank's
+    blocks."""
+    import torch.distributed as dist
+    payload = [None]
+    if dist.get_rank(mesh.group) == 0:
+        whole = build_problem(size, device, wilson_coeff)
+        payload = [(state_to_numpy(whole["mg"]), whole["b"].cpu().numpy(),
+                    whole["setup_s"])]
+        del whole
+    dist.broadcast_object_list(payload, dist.get_global_rank(mesh.group, 0),
+                               group=mesh.group, device=torch.device(device))
+    state, b, setup_s = payload[0]
+    (cut,), (b_loc,) = shard_state(state, mesh, b)
+    cfg, restart = kcycle_config(size)
+    mg = state_from_numpy(cut, cfg, device=device, mesh=mesh)
+    b_loc = torch.as_tensor(b_loc).to(device=device, dtype=torch.complex64)
+    return {"size": size, "device": device, "op": mg.get_stencil(0),
+            "mg": mg, "b": b_loc.contiguous(), "restart": restart,
+            "setup_s": setup_s, "mesh": mesh}
 
 
 def run_solver(problem: dict, fine_kernel: str | None = "wilson-r1",
@@ -151,12 +206,14 @@ def run_solver(problem: dict, fine_kernel: str | None = "wilson-r1",
     """One solver on ``problem``'s hierarchy: a warm-up solve and
     ``repeats`` timed solves (the median is reported); ``profile`` adds
     one profiled solve after the timed ones (CUDA only). ``launches`` are
-    the kernel launches per timed solve."""
+    the kernel launches per timed solve. Level 0 is cut over
+    ``problem["mesh"]`` when there is one."""
     device, mg, b = problem["device"], problem["mg"], problem["b"]
+    mesh = problem["mesh"]
     solve = make_solver(mg, tol=TOL, max_iter=MAX_ITER,
                         restart_freq=problem["restart"],
                         fine_kernel=fine_kernel, coarse_apply=coarse_apply,
-                        coeff_dtype=coeff_dtype)
+                        coeff_dtype=coeff_dtype, mesh=mesh)
     solve(b)  # warm-up
     _sync(device)
     launches0 = launch_counts()
@@ -171,7 +228,9 @@ def run_solver(problem: dict, fine_kernel: str | None = "wilson-r1",
     solve_s = float(np.median(times_s))
     if profile:
         profile_solve(solve, b, solve_s * 1e3)
-    rel_rec = float(torch.sqrt(res.res_sq / norm2sq(b)))
+    _, norm2sq_all, _ = reductions(
+        mesh.all_sum if mesh is not None and mesh.distributed else None)
+    rel_rec = float(torch.sqrt(res.res_sq / norm2sq_all(b)))
     return {
         "size": problem["size"],
         "wilson_coeff": problem["op"].wilson_coeff,
@@ -185,7 +244,8 @@ def run_solver(problem: dict, fine_kernel: str | None = "wilson-r1",
         "iters": res.iters,
         "converged": bool(res.converged),
         "rel_res_recursive": rel_rec,
-        "rel_res_true": true_residual(problem["op"], b, res.x),
+        "mesh": mesh,
+        "rel_res_true": true_residual(problem["op"], b, res.x, mesh),
         "x_finite": bool(torch.isfinite(torch.view_as_real(res.x)).all()),
         "x_shape": tuple(res.x.shape),
         "setup_s": problem["setup_s"],
@@ -202,14 +262,31 @@ def run_kcycle(size: int = 512, device="cuda",
                fine_kernel: str | None = "wilson-r1",
                coarse_apply: str = "plain", coeff_dtype=None,
                profile: bool = False, repeats: int = 1,
-               wilson_coeff: float = 1.0) -> dict:
+               wilson_coeff: float = 1.0, mesh: Mesh | None = None) -> dict:
     """Setup + one solver (``build_problem`` then ``run_solver``)."""
-    return run_solver(build_problem(size, device, wilson_coeff), fine_kernel,
-                      coarse_apply, coeff_dtype, profile=profile,
+    return run_solver(build_problem(size, device, wilson_coeff, mesh),
+                      fine_kernel, coarse_apply, coeff_dtype, profile=profile,
                       repeats=repeats)
 
 
+def mesh_from_env(device: str):
+    """(mesh, device) of this process in a ``torch.distributed`` job
+    started by ``torchrun``: one y-slab per rank, NCCL for a CUDA device
+    (the card of LOCAL_RANK), gloo for the CPU. Starts the process group;
+    the caller ends it with ``destroy_process_group``."""
+    import torch.distributed as dist
+    if torch.device(device).type == "cuda":
+        device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
+        torch.cuda.set_device(device)
+        dist.init_process_group("nccl", device_id=torch.device(device))
+    else:
+        dist.init_process_group("gloo")
+    return Mesh(dist.get_world_size(), 1, dist.group.WORLD), device
+
+
 def print_report(r: dict):
+    if r["mesh"] is not None:
+        print(f"level 0 cut over {r['mesh']}")
     print(f"kcycle {r['size']}^2 w={r['wilson_coeff']:g} on {r['device']}: "
           f"fine_kernel "
           f"{r['fine_kernel']}, coarse_apply {r['coarse_apply']}, "
@@ -245,6 +322,11 @@ def main(argv=None):
     p.add_argument("--coeff-dtype", default="float32",
                    choices=["float32", "bfloat16"],
                    help="coefficient stream of the matrix kernels")
+    p.add_argument("--shards", type=int, default=None, metavar="NY",
+                   help="cut level 0 into NY y-slabs held in this process")
+    p.add_argument("--distributed", action="store_true",
+                   help="one y-slab per rank of the torch.distributed job "
+                        "that torchrun started")
     p.add_argument("--repeats", type=int, default=1,
                    help="timed solves; the median is reported")
     p.add_argument("--profile", action="store_true",
@@ -255,14 +337,34 @@ def main(argv=None):
         raise SystemExit("--device cuda requested but no CUDA device")
     if args.profile and not is_cuda:
         raise SystemExit("--profile measures the card; use --device cuda")
-    r = run_kcycle(args.size, args.device,
-                   None if args.fine_kernel == "none" else args.fine_kernel,
-                   args.coarse_apply,
-                   torch.bfloat16 if args.coeff_dtype == "bfloat16"
-                   else None,
-                   profile=args.profile, repeats=args.repeats,
-                   wilson_coeff=args.wilson_coeff)
-    print_report(r)
+    sharded = args.distributed or args.shards is not None
+    if args.distributed and args.shards is not None:
+        raise SystemExit("--shards and --distributed exclude each other")
+    if sharded and args.fine_kernel not in ("wilson-r1", "none"):
+        raise SystemExit("--shards and --distributed take --fine-kernel "
+                         "wilson-r1 (the slab kernel) or none; the other "
+                         "kernels are single-device")
+    mesh, device, is_root = None, args.device, True
+    if args.distributed:
+        mesh, device = mesh_from_env(args.device)
+        is_root = mesh.blocks == [(0, 0)]
+    elif args.shards is not None:
+        mesh = Mesh(args.shards, 1)
+    try:
+        r = run_kcycle(args.size, device,
+                       None if args.fine_kernel == "none"
+                       else args.fine_kernel,
+                       args.coarse_apply,
+                       torch.bfloat16 if args.coeff_dtype == "bfloat16"
+                       else None,
+                       profile=args.profile, repeats=args.repeats,
+                       wilson_coeff=args.wilson_coeff, mesh=mesh)
+    finally:
+        if args.distributed:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+    if is_root:
+        print_report(r)
     if not (r["converged"] and np.isfinite(r["rel_res_true"])):
         raise SystemExit(1)
 

@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["vdot", "norm2sq", "norm", "normalize", "orthogonal",
+__all__ = ["vdot", "norm2sq", "reductions", "norm", "normalize",
+           "orthogonal",
            "site_matvec", "stacked_site_matvec", "identity_like"]
 
 
@@ -22,6 +23,20 @@ def vdot(a, b):
 def norm2sq(a):
     """||a||^2 as a real 0-dim tensor."""
     return vdot(a, a).real
+
+
+def reductions(reduce=None):
+    """(vdot, norm2sq, sum) for a Krylov solve on fields that are one
+    rank's block of a lattice cut over ranks: ``reduce`` sums a tensor of
+    partial results over the ranks in place and returns it
+    (``parallel.Mesh.all_sum``). Without it, the plain functions. A solve
+    takes the reduction as an argument because only its own level is cut:
+    the coarse solves nested in its preconditioner run whole on every rank
+    and must not be summed."""
+    if reduce is None:
+        return vdot, norm2sq, lambda t: t
+    return (lambda a, b: reduce(vdot(a, b)),
+            lambda a: reduce(vdot(a, a)).real, reduce)
 
 
 def norm(a):

@@ -24,7 +24,7 @@ from .lattice import Lattice2D
 from .stencil import Stencil2D, make_coeffs, apply_M, build_gather_apply
 from .operators.wilson import Wilson2D
 from .operators.coarse import CoarseOperator2D
-from .transfer import TransferMG, DoublingType
+from .transfer import TransferMG, ShardedTransferMG, DoublingType
 from .stateful import StatefulMultigridMG, zero_carry, DSLASH_KRYLOV
 from .setup import KCycleConfig, pin_full_precision
 from .wilson_kernel import (wilson_r1_apply, wilson_phase_apply,
@@ -33,9 +33,12 @@ from .dslash_kernel import (SUPPORTED_NC, stencil_channels,
                             stencil_channels_split, x_to_split, x_from_split,
                             small_fits, bind_apply, dslash_apply,
                             dslash_split_apply, dslash_small_apply)
+from .parallel import Mesh, validate_mg_sharding
+from .shard_dslash import make_sharded_dslash, make_sharded_wilson
 from . import solvers
 
-__all__ = ["make_solver", "state_to_numpy", "state_from_numpy"]
+__all__ = ["make_solver", "state_to_numpy", "state_from_numpy",
+           "shard_state"]
 
 
 FINE_KERNELS = ("wilson-r1", "wilson-phase", "matrix", "matrix-split",
@@ -45,10 +48,11 @@ MATRIX_KERNELS = ("matrix", "matrix-split", "small")
 COARSE_APPLIES = ("plain", "gather", "small")
 
 
-def _wilson_apply(fine: Stencil2D, kind: str):
+def _wilson_apply(fine: Stencil2D, kind: str, mesh: Mesh | None = None):
     """Level 0's apply through a Wilson kernel: "wilson-r1" (rank-1, w = 1
-    only) or "wilson-phase" (any w). The kernels ignore the clover array
-    and assume 2w I, so anything but a Wilson operator is refused."""
+    only; on a mesh the slab kernel of ``make_sharded_wilson``) or
+    "wilson-phase" (any w). The kernels ignore the clover array and assume
+    2w I, so anything but a Wilson operator is refused."""
     if not isinstance(fine, Wilson2D) or fine.lat.nc != 2:
         raise ValueError(f"fine_kernel={kind!r} needs the fine operator to "
                          "be Wilson2D (nc=2)")
@@ -57,8 +61,13 @@ def _wilson_apply(fine: Stencil2D, kind: str):
         raise ValueError("fine_kernel='wilson-r1' needs the fine operator "
                          f"to be Wilson2D with wilson_coeff=1, got {w}: use "
                          "'wilson-phase'")
+    mass = float(np.real(fine.coeffs.shift))
+    if mesh is not None:
+        kernel = make_sharded_wilson(fine.coeffs, mesh, mass, w)
+        return lambda v: kernel(v.to(torch.complex64).contiguous()).to(
+            v.dtype)
     phase = wilson_phases(fine.coeffs.hopping, w)
-    alpha = 2.0 * w + float(np.real(fine.coeffs.shift))
+    alpha = 2.0 * w + mass
     if kind == "wilson-r1":
         def kernel(v):
             return wilson_r1_apply(phase, v, alpha)
@@ -110,7 +119,8 @@ def _coarse_apply(st: Stencil2D, coarse_apply: str):
 def make_solver(mg: StatefulMultigridMG, tol: float = 1e-8,
                 max_iter: int = 400, restart_freq: int = 32,
                 fine_kernel: str | None = "wilson-r1",
-                coarse_apply: str = "plain", coeff_dtype=None):
+                coarse_apply: str = "plain", coeff_dtype=None,
+                mesh: Mesh | None = None):
     """Returns solve(b) -> (SolveResult, carry): outer FGCR on the fine
     operator, preconditioned by one K-cycle per iteration. ``carry`` holds
     this solve's per-level operator and iteration counts (outer ones
@@ -127,9 +137,25 @@ def make_solver(mg: StatefulMultigridMG, tol: float = 1e-8,
     ``solve.level_applies`` names the apply each level takes. The
     overrides exist only inside a solve: setup, the Galerkin build and
     the outer matvec keep the exact plain apply.
+
+    ``mesh`` (``parallel.Mesh``) cuts level 0 into blocks: its apply inside
+    the K-cycle is ``make_sharded_wilson`` ("wilson-r1", a (ny, 1) mesh)
+    or the plain ``make_sharded_dslash`` (None), the outer matvec the
+    exact ``make_sharded_dslash``; the other kernels are refused. On an
+    in-process mesh ``b`` and the solution are whole fields and all else
+    is the unsharded code. On a distributed mesh they are the rank's
+    blocks, ``mg`` is one that ``state_from_numpy(..., mesh=mesh)`` built
+    from ``shard_state``'s cut, level 0's inner products are summed over
+    the ranks and every rank holds the coarse levels whole.
     """
     if fine_kernel not in FINE_KERNELS + (None,):
         raise ValueError(f"unknown fine_kernel {fine_kernel!r}")
+    if mesh is not None and fine_kernel not in ("wilson-r1", None):
+        raise ValueError(
+            "mesh requires fine_kernel='wilson-r1' (the sharded kernel, "
+            "shard_dslash.make_sharded_wilson) or None (the plain sharded "
+            f"apply), got {fine_kernel!r}: the other kernels are "
+            "single-device")
     coarse_apply = "plain" if coarse_apply == "jnp" else coarse_apply
     if coarse_apply not in COARSE_APPLIES:
         raise ValueError(f"unknown coarse_apply {coarse_apply!r}")
@@ -145,29 +171,47 @@ def make_solver(mg: StatefulMultigridMG, tol: float = 1e-8,
     n_levels = mg.get_num_levels()
     stencils = [mg.get_stencil(lvl) for lvl in range(n_levels)]
     overrides, applies = [None], ["plain"]
+    reduce = None
+    if mesh is not None:
+        if mesh.distributed != isinstance(mg.get_transfer(0),
+                                          ShardedTransferMG):
+            raise ValueError(
+                "a distributed mesh needs a hierarchy built by "
+                "state_from_numpy(..., mesh=mesh), and an in-process mesh "
+                "a whole one")
+        validate_mg_sharding(mg, mesh)
+        reduce = mesh.all_sum if mesh.distributed else None
     if fine_kernel in WILSON_KERNELS:
-        overrides[0] = _wilson_apply(fine, fine_kernel)
+        overrides[0] = _wilson_apply(fine, fine_kernel, mesh)
     elif fine_kernel is not None:
         overrides[0] = _matrix_apply(fine.coeffs, fine_kernel, coeff_dtype)
+    elif mesh is not None:
+        overrides[0] = make_sharded_dslash(fine.coeffs, mesh)
     if fine_kernel is not None:
         applies[0] = fine_kernel
+    if mesh is not None:
+        applies[0] += f" on {mesh.ny}x{mesh.nx} blocks"
     for st in stencils[1:]:
         fn, name = _coarse_apply(st, coarse_apply)
         overrides.append(fn)
         applies.append(name)
 
-    def matvec(v):
-        return apply_M(fine.coeffs, v)
+    if mesh is None:
+        def matvec(v):
+            return apply_M(fine.coeffs, v)
+    else:
+        matvec = make_sharded_dslash(fine.coeffs, mesh)
 
     def solve(b):
         carry = zero_carry(n_levels)
         try:
             for st, fn in zip(stencils, overrides):
                 st.apply_override = fn
-            precond = mg.make_preconditioner(0)
+            precond = mg.make_preconditioner(0, reduce=reduce)
             res, carry = solvers.gcr_var_precond_restart(
                 matvec, b, precond, max_iter=max_iter, tol=tol,
-                restart_freq=restart_freq, precond_carry=carry)
+                restart_freq=restart_freq, precond_carry=carry,
+                reduce=reduce)
         finally:
             for st in stencils:
                 st.apply_override = None
@@ -211,15 +255,56 @@ def state_to_numpy(mg: StatefulMultigridMG, dtype=np.float32) -> dict:
     return state
 
 
+def shard_state(state: dict, mesh: Mesh, b=None):
+    """Cut a state dict (``state_to_numpy`` or qmg_tpu's
+    ``mg_state_planes``) for a mesh, the counterpart of qmg_tpu's
+    ``shard_planes_state``: level 0's ``clover0`` (2, Y, Xh, ...),
+    ``hopping0`` (4, 2, Y, Xh, ...) and blocked null vectors ``nvb0``
+    (nvec, 2c, B, Yc, Xhc, 2) are cut by block, everything else stays
+    whole. Returns one state per block the process holds, in mesh order
+    (all of them for an in-process mesh, the rank's for a distributed
+    one), and with ``b`` (a whole (2, Y, Xh, nc[, 2]) right-hand side)
+    also its blocks. ``state_from_numpy(cut, cfg, mesh=mesh)`` builds a
+    rank's hierarchy from its cut."""
+    y_dims = {"clover0": 1, "hopping0": 2, "nvb0": 3}
+
+    def cut(a, y_dim, iy, ix):
+        y_loc, x_loc = a.shape[y_dim] // mesh.ny, a.shape[y_dim + 1] // mesh.nx
+        if y_loc * mesh.ny != a.shape[y_dim] or \
+                x_loc * mesh.nx != a.shape[y_dim + 1]:
+            raise ValueError(f"an array of shape {a.shape} does not cut into "
+                             f"the mesh {mesh.shape} along axes {y_dim}, "
+                             f"{y_dim + 1}")
+        index = [slice(None)] * a.ndim
+        index[y_dim] = slice(iy * y_loc, (iy + 1) * y_loc)
+        index[y_dim + 1] = slice(ix * x_loc, (ix + 1) * x_loc)
+        return a[tuple(index)]
+
+    states = [{k: cut(v, y_dims[k], iy, ix) if k in y_dims else v
+               for k, v in state.items()} for iy, ix in mesh.blocks]
+    if b is None:
+        return states
+    return states, [cut(b, 1, iy, ix) for iy, ix in mesh.blocks]
+
+
 def state_from_numpy(state: dict, cfg: KCycleConfig, *, device="cpu",
-                     dtype=None) -> StatefulMultigridMG:
+                     dtype=None, mesh: Mesh | None = None
+                     ) -> StatefulMultigridMG:
     """Rebuild a hierarchy from a state dict (``state_to_numpy`` or
     ``qmg_tpu.tpu_compat.mg_state_planes``). ``cfg`` supplies the
     blocking and the per-level solve parameters. ``dtype`` defaults to
     complex64 for float32 planes and complex128 otherwise. Level 0 is
     adopted as a Wilson operator at the Wilson coefficient its clover
     holds (``Wilson2D.from_coeffs``; its structure is checked), so a
-    hierarchy built at w != 1 loads too."""
+    hierarchy built at w != 1 loads too.
+
+    With a distributed ``mesh``, ``state`` is the rank's cut from
+    ``shard_state``: the hierarchy's lattices are the whole ones, level
+    0's operator holds the rank's block of the coefficients (its ``lat``
+    is the block's), and level 0's transfer is a ``ShardedTransferMG``."""
+    if mesh is not None and not mesh.distributed:
+        raise ValueError("an in-process mesh takes the whole state: load it "
+                         "without mesh= and pass the mesh to make_solver")
     if dtype is None:
         dtype = (torch.complex64 if state["clover0"].dtype == np.float32
                  else torch.complex128)
@@ -233,17 +318,22 @@ def state_from_numpy(state: dict, cfg: KCycleConfig, *, device="cpu",
             shift=sh[0], eo_shift=sh[1], dof_shift=sh[2], dtype=dtype)
 
     _, y_len, xh, nc = state["clover0"].shape[:4]
-    lat0 = Lattice2D(2 * xh, y_len, nc)
-    fine = Wilson2D.from_coeffs(coeffs(0, lat0))
+    ny, nx = mesh.shape if mesh is not None else (1, 1)
+    lat0 = Lattice2D(2 * xh * nx, y_len * ny, nc)
+    fine = Wilson2D.from_coeffs(coeffs(0, Lattice2D(2 * xh, y_len, nc)))
     mg = StatefulMultigridMG(lat0, fine, cfg.coarsest_solve())
     lat_prev = lat0
     for lvl, lat in enumerate(cfg.coarse_lattices(lat0), start=1):
         if state[f"clover{lvl}"].shape[:-1] != lat.cm_shape():
             raise ValueError(f"clover{lvl} does not match the lattice "
                              f"{lat} that cfg implies")
-        transfer = TransferMG.from_blocked(
-            lat_prev, lat, _complex(state[f"nvb{lvl - 1}"], dtype, device),
-            doubling=DoublingType.PROJECTION)
+        nvb = _complex(state[f"nvb{lvl - 1}"], dtype, device)
+        if lvl == 1 and mesh is not None:
+            transfer = ShardedTransferMG(lat_prev, lat, nvb, mesh,
+                                         doubling=DoublingType.PROJECTION)
+        else:
+            transfer = TransferMG.from_blocked(
+                lat_prev, lat, nvb, doubling=DoublingType.PROJECTION)
         coarse = CoarseOperator2D.from_coeffs(coeffs(lvl, lat), transfer,
                                               is_chiral=True)
         mg.push_level(lat, transfer, cfg.level_solve(), stencil=coarse)

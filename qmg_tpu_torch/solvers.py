@@ -8,7 +8,12 @@ Conventions, as in qmg_tpu:
     tensor (the K-cycle's rescaled inner tolerance);
   * results carry the iteration count, the final ||r||^2, a convergence
     flag and ops_count, the number of operator applications;
-  * flexible solvers take precond(r, carry) -> (z, carry).
+  * flexible solvers take precond(r, carry) -> (z, carry);
+  * ``reduce`` (GCR and MinRes) is for fields that are one rank's block of
+    a lattice cut over ranks: it sums partial inner products over the
+    ranks (``linalg.reductions``). Every stopping test and breakdown guard
+    then branches on a summed value, so all ranks leave a loop at the same
+    iteration.
 
 Scalars (inner products, step lengths) stay 0-dim device tensors; a loop
 reads one back to the host only for its stopping test. The breakdown
@@ -22,7 +27,7 @@ from typing import NamedTuple
 
 import torch
 
-from .linalg import vdot, norm2sq
+from .linalg import vdot, norm2sq, reductions
 
 __all__ = ["SolveResult", "gcr_restart", "gcr_var_precond_restart",
            "bicgstab_l", "minres"]
@@ -51,7 +56,8 @@ def _keep_going(rsq, target) -> bool:
 # ---------------------------------------------------------------------------
 
 def _gcr_impl(matvec, b, x0, max_iter: int, tol, restart_len: int,
-              precond=None, precond_carry=None):
+              precond=None, precond_carry=None, reduce=None):
+    vdot, norm2sq, total = reductions(reduce)
     shape = b.shape
     n = b.numel()
     x = torch.zeros_like(b) if x0 is None else x0
@@ -87,7 +93,7 @@ def _gcr_impl(matvec, b, x0, max_iter: int, tol, restart_len: int,
         ops += 1
         if j > 0:
             # Orthogonalize (z, Az) against the stored directions.
-            betas = (aps[:j].conj() @ ap) / apsq[:j]
+            betas = total(aps[:j].conj() @ ap) / apsq[:j]
             ap = ap - betas @ aps[:j]
             z = z - betas @ ps[:j]
         apsq_new = norm2sq(ap)
@@ -108,19 +114,20 @@ def _gcr_impl(matvec, b, x0, max_iter: int, tol, restart_len: int,
 
 
 def gcr_restart(matvec, b, x0=None, max_iter: int = 1000, tol=1e-8,
-                restart_freq: int = 32) -> SolveResult:
+                restart_freq: int = 32, reduce=None) -> SolveResult:
     res, _ = _gcr_impl(matvec, b, x0, max_iter, tol,
-                       restart_len=int(restart_freq))
+                       restart_len=int(restart_freq), reduce=reduce)
     return res
 
 
 def gcr_var_precond_restart(matvec, b, precond, x0=None,
                             max_iter: int = 1000, tol=1e-8,
-                            restart_freq: int = 32, precond_carry=None):
+                            restart_freq: int = 32, precond_carry=None,
+                            reduce=None):
     """Restarted flexible GCR: the outer solver of the K-cycle stack."""
     return _gcr_impl(matvec, b, x0, max_iter, tol,
                      restart_len=int(restart_freq), precond=precond,
-                     precond_carry=precond_carry)
+                     precond_carry=precond_carry, reduce=reduce)
 
 
 # ---------------------------------------------------------------------------
@@ -199,7 +206,8 @@ def bicgstab_l(matvec, b, x0=None, max_iter: int = 1000, tol=1e-8,
 # ---------------------------------------------------------------------------
 
 def minres(matvec, b, x0=None, max_iter: int = 2, tol=1e-15,
-           omega: float = 1.0) -> SolveResult:
+           omega: float = 1.0, reduce=None) -> SolveResult:
+    vdot, norm2sq, _ = reductions(reduce)
     x = torch.zeros_like(b) if x0 is None else x0
     bsq = norm2sq(b)
     target = _target(tol, bsq)

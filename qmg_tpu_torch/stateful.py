@@ -121,12 +121,18 @@ class StatefulMultigridMG(MultigridMG):
     # The K-cycle preconditioner.
     # ------------------------------------------------------------------
 
-    def make_preconditioner(self, level: int = 0):
+    def make_preconditioner(self, level: int = 0, reduce=None):
         """precond(rhs, carry) -> (lhs, carry): one K-cycle at ``level``:
         MinRes(relax 0.85) presmoothing, restrict, the coarse solve
         (direct inverse, restarted GCR at the coarsest, or restarted
         flexible GCR around the next K-cycle), prolong, MinRes
-        postsmoothing."""
+        postsmoothing.
+
+        ``reduce`` sums inner products over the ranks that share this
+        level's fields (``linalg.reductions``). It reaches this level's
+        smoothers only: the levels below are held whole by every rank
+        (the transfer returns the whole coarse field), and their solves
+        take no reduction."""
         n_levels = self.get_num_levels()
         if n_levels == 1:
             return lambda rhs, carry: (rhs, carry)
@@ -153,7 +159,7 @@ class StatefulMultigridMG(MultigridMG):
 
         def smoother(rhs, n_iters, s_tol, dslash_type, carry):
             res = solvers.minres(apply_fine, rhs, max_iter=n_iters,
-                                 tol=s_tol, omega=0.85)
+                                 tol=s_tol, omega=0.85, reduce=reduce)
             carry["counts"][level, dslash_type] += res.ops_count
             return res.x, carry
 

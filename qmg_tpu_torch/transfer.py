@@ -10,6 +10,11 @@ exchange it unchanged). Then
     prolong_c2f:  fine[s, b]  = sum_v NV[v, s, b] coarse[s, v]
 
 Fields may carry leading batch axes (``(*batch, 2, Y, Xh, nc)``).
+
+``ShardedTransferMG`` is level 0's transfer on a distributed mesh
+(``parallel.Mesh``): each rank restricts its block of the fine field with
+its block of the null vectors and only the coarse slab is gathered, so no
+fine field ever crosses ranks.
 """
 
 from __future__ import annotations
@@ -84,14 +89,17 @@ class TransferMG:
 
     @classmethod
     def from_blocked(cls, fine_lat: Lattice2D, coarse_lat: Lattice2D, nvb,
-                     doubling: DoublingType = DoublingType.PROJECTION
-                     ) -> "TransferMG":
+                     doubling: DoublingType = DoublingType.PROJECTION,
+                     coarse_row0: int = 0) -> "TransferMG":
         """A transfer from already block-orthonormal blocked null vectors
-        (nvec, 2c, B, Yc, Xhc), e.g. the ``nvb{l}`` entry of a state dict."""
+        (nvec, 2c, B, Yc, Xhc), e.g. the ``nvb{l}`` entry of a state dict.
+        For a block of a larger lattice, ``coarse_row0`` is the row of the
+        whole coarse lattice at which the block's coarse rows start: the
+        coarse parity of a site follows the whole lattice's row."""
         t = cls.__new__(cls)
         t.fine_lat, t.coarse_lat = fine_lat, coarse_lat
         t.doubling = DoublingType(doubling)
-        t._init_geometry(nvb.device)
+        t._init_geometry(nvb.device, coarse_row0)
         t._set_nvb(nvb)
         return t
 
@@ -104,7 +112,7 @@ class TransferMG:
         self._nvb = nvb
         self._nvb_conj = torch.conj(nvb).resolve_conj()
 
-    def _init_geometry(self, device):
+    def _init_geometry(self, device, coarse_row0: int = 0):
         fl, cl = self.fine_lat, self.coarse_lat
         by = fl.y_len // cl.y_len
         bx = fl.x_len // cl.x_len
@@ -118,8 +126,9 @@ class TransferMG:
             perm, inv_perm, _ = _block_permutation(fl, cl)
             self._perm = torch.as_tensor(perm, device=device)
             self._inv_perm = torch.as_tensor(inv_perm, device=device)
-        self._row_odd = (torch.arange(cl.y_len, device=device) % 2 == 1
-                         ).reshape(cl.y_len, 1, 1)
+        rows = torch.arange(coarse_row0, coarse_row0 + cl.y_len,
+                            device=device)
+        self._row_odd = (rows % 2 == 1).reshape(cl.y_len, 1, 1)
 
     # --- layout plumbing ---
     def _to_blocked(self, fine):
@@ -193,6 +202,53 @@ class TransferMG:
     def null_vectors(self):
         """Block-orthonormalized null vectors, (nvec, 2, Y, Xh, nc)."""
         return self._from_blocked(self._nvb)
+
+
+class ShardedTransferMG:
+    """Level 0's transfer on a distributed mesh, from the rank's block of
+    the blocked null vectors (``nvb`` cut along Yc and Xhc).
+    ``restrict_f2c`` takes the rank's block of a fine field and returns
+    the whole coarse field (the local restriction, then a gather of the
+    coarse slabs); ``prolong_c2f`` takes the whole coarse field and
+    returns the rank's block of the fine one. Aggregation blocks must lie
+    inside mesh blocks (``parallel.validate_mg_sharding``), and a mesh
+    cut in x must leave every block an even number of coarse columns,
+    so that a block's coarse sites pack even-odd as the whole lattice's.
+    """
+
+    def __init__(self, fine_lat: Lattice2D, coarse_lat: Lattice2D, nvb_loc,
+                 mesh, doubling: DoublingType = DoublingType.PROJECTION):
+        self.fine_lat, self.coarse_lat, self.mesh = fine_lat, coarse_lat, mesh
+        ny, nx = mesh.shape
+        (iy, _), = mesh.blocks
+        if (fine_lat.y_len % ny or fine_lat.xh % nx or coarse_lat.y_len % ny
+                or coarse_lat.x_len % nx
+                or (nx > 1 and (coarse_lat.x_len // nx) % 2)):
+            raise ValueError(
+                f"fine lattice {fine_lat} and coarse lattice {coarse_lat} "
+                f"do not cut into the mesh {mesh.shape} with whole "
+                "even-odd packed coarse blocks")
+        self._yc_loc = coarse_lat.y_len // ny
+        self._xhc_loc = coarse_lat.xh // nx
+        self.local = TransferMG.from_blocked(
+            Lattice2D(fine_lat.x_len // nx, fine_lat.y_len // ny,
+                      fine_lat.nc),
+            Lattice2D(coarse_lat.x_len // nx, self._yc_loc, coarse_lat.nc),
+            nvb_loc, doubling, coarse_row0=iy * self._yc_loc)
+
+    def restrict_f2c(self, fine_loc):
+        return self.mesh.gather(self.local.restrict_f2c(fine_loc),
+                                y_dim=fine_loc.ndim - 3)
+
+    def prolong_c2f(self, coarse):
+        (iy, ix), = self.mesh.blocks
+        y_dim = coarse.ndim - 3
+        slab = coarse.narrow(y_dim, iy * self._yc_loc, self._yc_loc) \
+            .narrow(y_dim + 1, ix * self._xhc_loc, self._xhc_loc)
+        return self.local.prolong_c2f(slab)
+
+    def get_doubling(self) -> DoublingType:
+        return self.local.doubling
 
 
 def _bdot(a, b):

@@ -13,7 +13,14 @@ operator (``wilson_phases``), complex64:
   * ``wilson_split_apply(phase_split, x_split, alpha)``: the rank-1
     arithmetic in the row-parity-split layout (``_wilson_split_kernel``);
     x (2p, 2r, Yh, Xh, 2) as ``dslash_kernel.x_to_split`` makes it, phases
-    (4, 2p, 2r, Yh, Xh) from ``wilson_phases_split``.
+    (4, 2p, 2r, Yh, Xh) from ``wilson_phases_split``;
+  * ``wilson_r1_halo_apply(phase_loc, x_loc, top, bot, alpha)``: the rank-1
+    operator on a y-slab of a lattice cut into slabs
+    (``_wilson_rank1_kernel`` with ``halo_frame=True``, which
+    qmg_tpu/shard_dslash.py runs on each shard): ``top`` is the row below
+    the slab and ``bot`` the row above it, each (2 parity, Xh, 2 spin);
+    nothing wraps in y. The slab, its phases and the halos may be views of
+    a whole field (rows y0 .. y0 + Y_loc of every parity).
 
 On a CUDA tensor each wrapper launches its kernel, or raises; on a CPU
 tensor it runs its ``*_plain`` twin, which repeats the kernel's
@@ -33,8 +40,9 @@ from .dslash_kernel import _rows_to_split, _split_pulls
 
 __all__ = ["wilson_r1_apply", "wilson_r1_apply_plain", "wilson_phase_apply",
            "wilson_phase_apply_plain", "wilson_split_apply",
-           "wilson_split_apply_plain", "wilson_phases", "wilson_phases_split",
-           "build_wilson"]
+           "wilson_split_apply_plain", "wilson_r1_halo_apply",
+           "wilson_r1_halo_apply_plain", "bind_halo_slabs", "wilson_phases",
+           "wilson_phases_split", "build_wilson"]
 
 SOURCE = "wilson.cu"
 _LIB = {}
@@ -53,6 +61,10 @@ def build_wilson() -> float:
         fn.argtypes = [ptr, ptr, ptr, c_int, c_int, *scalars, ptr]
         fn.restype = c_int
         _LIB[name] = fn
+    fn = lib.wilson_r1_halo_launch
+    fn.argtypes = [ptr] * 5 + [c_int] * 6 + [c_float, ptr]
+    fn.restype = c_int
+    _LIB["wilson_r1_halo_launch"] = fn
     _LIB["lib"] = lib
     return seconds
 
@@ -100,6 +112,20 @@ def wilson_split_apply_plain(phase_split, x_split, alpha: float):
     """The split rank-1 kernel's arithmetic in PyTorch: the same combines
     on the split layout's neighbour pulls."""
     return _rank1(phase_split, x_split, _split_pulls(x_split), alpha)
+
+
+def wilson_r1_halo_apply_plain(phase_loc, x_loc, top, bot, alpha: float):
+    """The slab kernel's arithmetic in PyTorch: the rank-1 combines on the
+    slab's pulls, +-x inside the slab (its rows have the lattice's row
+    parity, the slab holding an even number of rows) and +-y from the
+    other parity's rows, the slab's edge rows reading ``bot`` (+y of the
+    last row) and ``top`` (-y of the first)."""
+    other = x_loc.flip(0)
+    vyp = torch.cat([other[:, 1:], bot.flip(0)[:, None]], dim=1)
+    vym = torch.cat([top.flip(0)[:, None], other[:, :-1]], dim=1)
+    pulls = [cshift_pull(x_loc, DIR_XP1), vyp, cshift_pull(x_loc, DIR_XM1),
+             vym]
+    return _rank1(phase_loc, x_loc, pulls, alpha)
 
 
 def wilson_phase_apply_plain(phase_half, x, w: float, alpha: float):
@@ -207,6 +233,183 @@ def wilson_split_apply(phase_split, x_split, alpha: float):
                    x_split, yh_len, xh_len, alpha)
 
 
+def _parity_stride(name: str, what: str, t, p_ax: int, unit: int) -> int:
+    """The distance between the two parity halves of ``t`` (parity axis
+    ``p_ax``), in sites of ``unit`` elements; the axes after the parity
+    axis must be dense."""
+    step = 1
+    for ax in range(t.ndim - 1, p_ax, -1):
+        if t.shape[ax] > 1 and t.stride(ax) != step:
+            step = -1
+            break
+        step *= t.shape[ax]
+    if step < 0 or t.stride(p_ax) % unit or t.stride(p_ax) < step:
+        raise ValueError(f"{name}: {what} must be dense below its parity "
+                         f"axis (a block of its own or a view of whole "
+                         f"rows), got shape {tuple(t.shape)} strides "
+                         f"{t.stride()}")
+    return t.stride(p_ax) // unit
+
+
+def _halo_args(name: str, phase_loc, x_loc, top, bot, out=None):
+    """The slab kernel's input checks; returns the launch function's
+    integers (Y_loc, Xh, and the parity strides of phase, x, the halos
+    and out, in sites). ``out=None`` stands for a new dense tensor."""
+    tensors = {"phase": phase_loc, "x": x_loc, "top": top, "bot": bot}
+    if out is not None:
+        tensors["out"] = out
+    for what, t in tensors.items():
+        if t.dtype != torch.complex64:
+            raise TypeError(f"{name} needs complex64 tensors, got "
+                            f"{t.dtype} {what}")
+        if t.device != x_loc.device:
+            raise ValueError(f"{name}: {what} on {t.device}, x on "
+                             f"{x_loc.device}")
+        if t.is_conj():
+            raise ValueError(f"{name} needs resolved (non-lazy-conj) "
+                             f"tensors")
+    if x_loc.ndim != 4 or x_loc.shape[0] != 2 or x_loc.shape[-1] != 2:
+        raise ValueError(f"{name}: x must be (2, Y_loc, Xh, 2), got "
+                         f"{tuple(x_loc.shape)}")
+    y_loc, xh_len = x_loc.shape[1], x_loc.shape[2]
+    if y_loc % 2:
+        raise ValueError(f"{name}: the slab's row count {y_loc} must be "
+                         f"even, so that a slab row's parity is the "
+                         f"lattice row's")
+    expect = {"phase": (4, 2, y_loc, xh_len), "top": (2, xh_len, 2),
+              "bot": (2, xh_len, 2), "out": tuple(x_loc.shape)}
+    for what, t in tensors.items():
+        if what in expect and tuple(t.shape) != expect[what]:
+            raise ValueError(f"{name}: {what} must be {expect[what]}, got "
+                             f"{tuple(t.shape)}")
+    phase_ps = _parity_stride(name, "phase", phase_loc, 1, 1)
+    if phase_loc.stride(0) != 2 * phase_loc.stride(1):
+        raise ValueError(f"{name}: the phases' direction stride must be "
+                         f"twice their parity stride, got strides "
+                         f"{phase_loc.stride()}")
+    x_ps, halo_ps, bot_ps = (_parity_stride(name, what, tensors[what], 0, 2)
+                             for what in ("x", "top", "bot"))
+    if bot_ps != halo_ps:
+        raise ValueError(f"{name}: top and bot must share one parity "
+                         f"stride")
+    out_ps = (y_loc * xh_len if out is None
+              else _parity_stride(name, "out", out, 0, 2))
+    # The kernel's largest index is (3 * 2 + 1) * phase_ps + Y_loc * Xh
+    # < 8 * phase_ps, in 32-bit ints.
+    largest = max(phase_ps, x_ps, halo_ps, out_ps)
+    if 8 * largest > 2 ** 31:
+        raise ValueError(f"{name}: slab {tuple(x_loc.shape)} with parity "
+                         f"strides up to {largest} sites is too large for "
+                         f"the kernel's 32-bit indices")
+    if x_loc.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {x_loc.device}")
+    return y_loc, xh_len, phase_ps, x_ps, halo_ps, out_ps
+
+
+def _halo_launch(name: str, ptrs, ints, alpha: float, stream: int):
+    """Launch the slab kernel on raw addresses (phase, x, top, bot, out),
+    each checked by ``_halo_args`` and for alignment by the caller."""
+    err = _LIB["wilson_r1_halo_launch"](*ptrs, *ints, alpha, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}'s launch failed: CUDA error {err}")
+    wilson_r1_halo_apply.launches += 1
+
+
+def wilson_r1_halo_apply(phase_loc, x_loc, top, bot, alpha: float,
+                         out=None):
+    """Rank-1 Wilson apply (w = 1) on a y-slab: x_loc (2, Y_loc, Xh, 2)
+    with Y_loc even, phase_loc (4, 2, Y_loc, Xh), halo rows top and bot
+    (2, Xh, 2); the CUDA kernel for CUDA tensors, the plain twin for CPU
+    tensors. Each argument may be a view of whole rows of a larger field.
+    ``out`` names where the result goes (such a view too); by default a
+    new tensor."""
+    name = "wilson_r1_halo_apply"
+    ints = _halo_args(name, phase_loc, x_loc, top, bot, out)
+    if x_loc.device.type == "cpu":
+        res = wilson_r1_halo_apply_plain(phase_loc, x_loc, top, bot, alpha)
+        return res if out is None else out.copy_(res)
+    if out is None:
+        out = torch.empty(x_loc.shape, dtype=x_loc.dtype,
+                          device=x_loc.device)
+    ptrs = [t.data_ptr() for t in (phase_loc, x_loc, top, bot, out)]
+    if ptrs[0] % 8 or any(p % 16 for p in ptrs[1:]):
+        raise ValueError(f"{name} needs 16-byte aligned x, halos and out "
+                         f"and 8-byte aligned phases")
+    build_wilson()
+    with torch.cuda.device(x_loc.device):
+        _halo_launch(name, ptrs, ints, float(alpha),
+                     torch.cuda.current_stream(x_loc.device).cuda_stream)
+    return out
+
+
+def bind_halo_slabs(phase, ny: int, alpha: float):
+    """The rank-1 apply on a whole field cut into ``ny`` y-slabs, with
+    ``wilson_r1_halo_apply``'s checks made here, once: returns apply(x)
+    for a contiguous complex64 x (2, Y, Xh, 2) on ``phase``'s device.
+    Each slab is one launch (counted in ``wilson_r1_halo_apply.launches``)
+    on rows of x in place, its halos the neighbouring slabs' edge rows
+    (its own at ny = 1), its result written into its rows of one output
+    field: nothing is copied. For CPU tensors the twin per slab."""
+    name = "wilson_r1_halo_apply"
+    phase = phase.contiguous()
+    _, _, y_len, xh_len = phase.shape
+    if y_len % ny:
+        raise ValueError(f"{name}: Y={y_len} does not tile {ny} slabs")
+    y_loc = y_len // ny
+    x_shape, device = (2, y_len, xh_len, 2), phase.device
+    alpha = float(alpha)
+
+    def slab(x, out, y0):
+        return (phase[:, :, y0:y0 + y_loc], x[:, y0:y0 + y_loc], x[:, y0 - 1],
+                x[:, (y0 + y_loc) % y_len], out[:, y0:y0 + y_loc])
+
+    probe = torch.empty(x_shape, dtype=torch.complex64, device=device)
+    launches = []   # per slab: its integers, its tensors' byte offsets
+    for y0 in range(0, y_len, y_loc):
+        views = slab(probe, probe, y0)
+        ints = _halo_args(name, *views)
+        base = (phase.data_ptr(),) + (probe.data_ptr(),) * 4
+        launches.append((ints, [v.data_ptr() - b
+                                for v, b in zip(views, base)]))
+
+    def check(x):
+        if (tuple(x.shape) != x_shape or x.device != device
+                or x.dtype != torch.complex64 or not x.is_contiguous()
+                or x.is_conj()):
+            raise ValueError(f"{name} was bound to contiguous complex64 x "
+                             f"of shape {x_shape} on {device}, got "
+                             f"{x.dtype} {tuple(x.shape)} on {x.device}")
+
+    if device.type == "cpu":
+        def apply(x):
+            check(x)
+            out = torch.empty_like(x)
+            for y0 in range(0, y_len, y_loc):
+                *args, out_loc = slab(x, out, y0)
+                out_loc.copy_(wilson_r1_halo_apply_plain(*args, alpha))
+            return out
+        return apply
+
+    build_wilson()
+
+    def apply(x):
+        check(x)
+        out = torch.empty_like(x)
+        bases = (phase.data_ptr(), x.data_ptr(), x.data_ptr(), x.data_ptr(),
+                 out.data_ptr())
+        if bases[0] % 8 or bases[1] % 16 or bases[4] % 16:
+            raise ValueError(f"{name} needs 16-byte aligned x and out and "
+                             f"8-byte aligned phases")
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            for ints, offsets in launches:
+                _halo_launch(name, [b + o for b, o in zip(bases, offsets)],
+                             ints, alpha, stream)
+        return out
+    return apply
+
+
 wilson_r1_apply.launches = 0
+wilson_r1_halo_apply.launches = 0
 wilson_phase_apply.launches = 0
 wilson_split_apply.launches = 0

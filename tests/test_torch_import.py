@@ -16,7 +16,8 @@ MODULES = ["qmg_tpu_torch", "qmg_tpu_torch.lattice", "qmg_tpu_torch.rng",
            "qmg_tpu_torch.transfer", "qmg_tpu_torch.multigrid",
            "qmg_tpu_torch.eig", "qmg_tpu_torch.stateful",
            "qmg_tpu_torch.setup", "qmg_tpu_torch.solve",
-           "qmg_tpu_torch.kcycle"]
+           "qmg_tpu_torch.kcycle", "qmg_tpu_torch.parallel",
+           "qmg_tpu_torch.shard_dslash"]
 
 
 def test_port_imports_no_jax():
