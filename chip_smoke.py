@@ -14,8 +14,13 @@ fallback). Phases, any failure exits non-zero:
      64x48, 512^2 and 2048^2 (max relative error <= 1e-5): the rank-1
      kernel (K1); the any-w kernel (K2) at w = 1 and w = 1.3, and at w = 1
      against K1's kernel; the split rank-1 kernel (K3) in its own layout
-     and, converted back, against K1's kernel; with CUDA-event timings of
-     each kernel and twin at 512^2 and 2048^2 beside the bound;
+     and, converted back, against K1's kernel; with CUDA-event timings at
+     512^2 and 2048^2 beside the bound: each kernel through its wrapper,
+     through its bound apply (``bind_wilson``, bit-equal to the wrapper)
+     and on the device alone (100 bound launches captured in one CUDA
+     graph and replayed: a measuring device of this script, no path of
+     the port uses it), its twin, and the card's launch floor (an empty
+     kernel timed the same way);
   4. the original path: qmg_tpu_torch.kcycle at 512^2 with the rank-1
      kernel (setup, warm-up solve, timed solve). It must converge, reach
      a true relative residual <= 1e-4 (complex128, exact operator), take
@@ -25,16 +30,26 @@ fallback). Phases, any failure exits non-zero:
      through the solve's bound apply (``bind_apply``): K4 and K5 at every
      nc they take, f32 and bf16 coefficients, at 16x8 and 64x48, at 2048^2
      nc2 and 512^2 nc2 (the fine levels of phases 7 and 8, f32 and bf16)
-     and at 512^2 nc8; K6 at 32^2 nc8, 8^2 nc8, 2x2, 64^2 nc2 and 64x8
-     nc16;
-  6. CUDA-event timings of each of them (through its wrapper and its
-     bound apply) and its twin at its path's shape, beside its bound;
+     and at 512^2 nc8; K6 at 32^2 nc8, 8^2 nc8, 64^2 nc8, 2x2, 64^2 nc2
+     and 64x8 nc16, in both its layouts: the split entry against K5's
+     twin, the interleaved entry (the solve's) against K4's twin and,
+     bit for bit after ``x_from_split``, against the split entry;
+  6. CUDA-event timings of each of them (through its wrapper, through its
+     bound apply and on the device alone) and its twin at its path's
+     shape, beside its bound; K6 in both layouts and K4 also at 32^2 nc8
+     and 8^2 nc8, with the grid K6 launches there (at least as many
+     blocks as the card has SMs at 32^2 nc8, at least 8 at 8^2 nc8); and
+     one coarse apply as the solve binds it, beside the same apply made
+     of the split entry between its two layout copies;
   7. the kernel paths at 2048^2 on one hierarchy: the rank-1 kernel
      (plain coarse levels), fine K4 with K6 on the coarse levels that it
      takes, fine K5 with the gather coarse apply, and the any-w Wilson
      kernel K2 (fine_kernel="wilson-phase", plain coarse levels). Each
      must converge to a true residual <= 1e-4 and launch its kernels in
-     the timed solve; the outer counts agree within +-1;
+     the timed solve; the outer counts agree within +-1; the K4 + K6
+     solves must call neither ``x_to_split`` nor ``x_from_split``, and
+     one more K4 + K6 solve runs under torch.profiler to count its device
+     kernels;
   8. 512^2 with fine K4 and coarse K6, against qmg_tpu's outer count for
      the same options (+-2), and again with bf16 coefficient streams;
   9. a Wilson operator at w = 1.3 (512^2, its own setup): solved with K2
@@ -43,14 +58,19 @@ fallback). Phases, any failure exits non-zero:
      other and +-2 of qmg_tpu's; the rank-1 kernel must refuse it;
  10. the stencil-apply chains of qmg_tpu_torch.dslash at 2048^2 through
      K3 ("wilson-split") and K2 ("wilson-phase"): us per chain step, and
-     after 20 steps the same checksum as the rank-1 chain (1e-3);
+     after 20 steps the same checksum as the rank-1 chain (1e-3); and
+     at 32^2 nc8 through K6's two entries ("small", "small-split"), the
+     same checksum as the plain chain (1e-5);
  11. the slab kernel (K7: the rank-1 kernel on a y-slab with halo rows)
      on ny in {1, 2, 4, 8} slabs of 16x8 ... 2048^2 lattices, the slabs
      being views of the whole field: each slab against its twin (5e-7),
      the slabs together against K1's kernel on the whole lattice (bit for
      bit at ny = 1, 2e-7 otherwise); CUDA-event timings at 2048^2 of one
      slab launch and of the whole sharded apply at ny = 1 and 4 beside
-     K1's and the bound;
+     K1's and the bound, and at 512^2 and 2048^2 of one slab that is the
+     whole lattice with its own rows as halos (the one-rank distributed
+     form) through the wrapper, through ``bind_halo`` and on the device
+     alone;
  12. (inside 7) the 2048^2 solve with level 0 cut into 4 y-slabs held in
      this process (``make_solver(mesh=Mesh(4, 1))``): outer count within
      +-1 of the rank-1 path's, true residual <= 1e-4, 4 K7 launches for
@@ -100,6 +120,7 @@ HALO_K1_TOL = 2e-7        # K7's slabs together against K1's kernel
 CHAIN_TOL = 1e-3
 TRUE_RES_BOUND = 1e-4
 TIMING_REPS = 100
+PLAIN_REPS = 20           # the twins: tens of small kernels a call
 # H100 SXM data sheet peak at 700 W of float32 (non-tensor core) flop/s;
 # the memory rate is qmg_tpu_torch.dslash_kernel.HBM_BYTES_S.
 FP32_FLOP_S = 67e12
@@ -133,6 +154,37 @@ def time_ms(fn, torch, reps=TIMING_REPS, warmup=10):
     return start.elapsed_time(stop) / reps
 
 
+def graph_ms(fn, torch, reps=TIMING_REPS, replays=5):
+    """Device ms per call of ``fn`` alone: ``reps`` calls captured in one
+    CUDA graph (``fn`` launches on the current stream), replayed
+    ``replays`` times between two CUDA events, so that no host work
+    stands between two launches."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (reps * replays)
+
+
+def three_ways(wrapper_call, bound_call, torch):
+    """(ms through the wrapper, through the bound apply, on the device
+    alone) of one kernel."""
+    return (time_ms(wrapper_call, torch), time_ms(bound_call, torch),
+            graph_ms(bound_call, torch))
+
+
 def rel_err(got, ref):
     """(max abs error, the same over max |ref|)."""
     abs_err = float((got - ref).abs().max())
@@ -142,7 +194,8 @@ def rel_err(got, ref):
 def kernel_phase(torch, wk, dk, dev):
     """Phase 3: the three Wilson kernels against their twins and each
     other. Returns ({kernel: max abs error vs its twin},
-    {kernel: {size: (ms, plain_ms)}})."""
+    {kernel: {size: (ms through the wrapper, plain_ms, ms through the
+    bound apply, ms on the device alone)}})."""
     shapes = {"16x8": (8, 8), "64x48": (48, 32), "512x512": (512, 256),
               "2048x2048": (2048, 1024)}
     mass = -0.06
@@ -168,23 +221,36 @@ def kernel_phase(torch, wk, dk, dev):
                                                        aw)),
             "K3": (lambda: wk.wilson_split_apply(phase_s, x_s, a1),
                    lambda: wk.wilson_split_apply_plain(phase_s, x_s, a1))}
+        binds = {
+            "K1": wk.bind_wilson(wk.wilson_r1_apply, phase, x.shape, a1),
+            "K2": wk.bind_wilson(wk.wilson_phase_apply, phase, x.shape,
+                                 W_OTHER, aw),
+            "K3": wk.bind_wilson(wk.wilson_split_apply, phase_s, x_s.shape,
+                                 a1)}
         got = {}
         for kid, (kernel, plain) in calls.items():
             got[kid] = kernel()
+            arg = x_s if kid == "K3" else x
+            bound_got = binds[kid](arg)
             torch.cuda.synchronize()
+            check(torch.equal(bound_got, got[kid]),
+                  f"{kid}'s bound apply differs from its wrapper at {name}")
             abs_err, rel = rel_err(got[kid], plain())
             worst[kid] = max(worst[kid], abs_err)
             line = f"{kid} vs plain {name}: max rel err {rel:.3e}"
             if y_len >= 512:
-                ms = time_ms(kernel, torch)
-                plain_ms = time_ms(plain, torch)
+                ms, bound_ms, dev_ms = three_ways(
+                    kernel, lambda: binds[kid](arg), torch)
+                plain_ms = time_ms(plain, torch, reps=PLAIN_REPS)
                 sites = 2 * y_len * xh
-                gbs = 64.0 * sites / (ms * 1e-3) / 1e9
-                times[kid][name] = (ms, plain_ms)
-                line += (f"; kernel {ms * 1e3:.2f} us/apply ({gbs:.1f} GB/s "
-                         f"at 64 B/site, bound "
-                         f"{wilson_bound(kid, sites)[0] * 1e3:.2f} us), "
-                         f"plain {plain_ms * 1e3:.2f} us/apply")
+                gbs = 64.0 * sites / (dev_ms * 1e-3) / 1e9
+                times[kid][name] = (ms, plain_ms, bound_ms, dev_ms)
+                line += (f"; us/apply through the wrapper {ms * 1e3:.2f}, "
+                         f"through bind_wilson {bound_ms * 1e3:.2f}, on the "
+                         f"device alone {dev_ms * 1e3:.2f} ({gbs:.1f} GB/s "
+                         f"at 64 B/site), bound "
+                         f"{wilson_bound(kid, sites)[0] * 1e3:.2f}, plain "
+                         f"{plain_ms * 1e3:.2f}")
             print(line, flush=True)
             check(rel <= KERNEL_TOL, f"{kid} disagrees with plain at {name}")
         # K2 at w = 1: against its twin and against K1's kernel; K3 in
@@ -239,9 +305,19 @@ def stencil_wrappers(dk):
             "K6": (dk.dslash_small_apply, dk.dslash_small_apply_plain)}
 
 
+def small_grid_line(dk, nc, y_len, xh, at_least):
+    """K6's grid at one shape, held to its least block count."""
+    blocks, threads, sms = dk.small_grid(nc, y_len, xh)
+    least = sms if at_least == "SMs" else at_least
+    print(f"K6 Y={y_len} Xh={xh} nc={nc}: {blocks} blocks of {threads} "
+          f"threads on {sms} SMs", flush=True)
+    check(blocks >= least, f"K6 launches {blocks} blocks at Y={y_len} "
+          f"Xh={xh} nc={nc}, fewer than {least}")
+
+
 def stencil_phase(torch, dk, dev):
     """Phase 5: each generic stencil kernel against its twin. Returns
-    {kernel: worst abs error}."""
+    {kernel: worst abs error}; "K6i" is K6's interleaved entry."""
     wrappers = stencil_wrappers(dk)
     cases = []
     for kind in ("K4", "K5"):
@@ -251,11 +327,12 @@ def stencil_phase(torch, dk, dev):
         for shape in ((2048, 1024), (512, 256)):
             cases += [(kind, 2, shape, False), (kind, 2, shape, True)]
         cases.append((kind, 8, (512, 256), False))
-    for nc, shape in ((8, (32, 16)), (8, (8, 4)), (8, (2, 1)), (1, (2, 1)),
-                      (2, (2, 1)), (2, (64, 32)), (16, (8, 32))):
+    for nc, shape in ((8, (32, 16)), (8, (8, 4)), (8, (64, 32)), (8, (2, 1)),
+                      (1, (2, 1)), (2, (2, 1)), (2, (64, 32)), (16, (8, 32)),
+                      (4, (48, 32))):
         cases += [("K6", nc, shape, False), ("K6", nc, shape, True)]
-    worst = {k: 0.0 for k in wrappers}
-    worst_rel = {k: 0.0 for k in wrappers}
+    worst = {k: 0.0 for k in (*wrappers, "K6i")}
+    worst_rel = dict(worst)
     for kind, nc, (y_len, xh), bf16 in cases:
         ch, x = stencil_inputs(torch, dk, kind, nc, y_len, xh, dev, bf16)
         fn, plain = wrappers[kind]
@@ -271,46 +348,109 @@ def stencil_phase(torch, dk, dev):
         worst_rel[kind] = max(worst_rel[kind], rel)
         check(rel <= KERNEL_TOL, f"{kind} disagrees with its twin at nc={nc} "
               f"Y={y_len} Xh={xh} bf16={bf16}: {rel:.3e}")
-    for kind in wrappers:
-        print(f"{kind} vs plain: {sum(c[0] == kind for c in cases)} cases, "
-              f"max rel err {worst_rel[kind]:.3e}", flush=True)
+        if kind != "K6":
+            continue
+        # K6's interleaved entry on the same numbers in K4's layout.
+        ch_i, x_i = stencil_inputs(torch, dk, "K4", nc, y_len, xh, dev, bf16)
+        fn_i = dk.dslash_small_interleaved_apply
+        got_i = fn_i(ch_i, x_i)
+        bound_i = dk.bind_apply(fn_i, ch_i, x_i.shape)(x_i)
+        torch.cuda.synchronize()
+        abs_err, rel = rel_err(got_i, dk.dslash_apply_plain(ch_i, x_i))
+        worst["K6i"], worst_rel["K6i"] = (max(worst["K6i"], abs_err),
+                                          max(worst_rel["K6i"], rel))
+        check(rel <= KERNEL_TOL, f"K6's interleaved entry disagrees with "
+              f"its twin at nc={nc} Y={y_len} Xh={xh} bf16={bf16}: {rel:.3e}")
+        check(torch.equal(got_i, dk.x_from_split(got))
+              and torch.equal(bound_i, got_i),
+              f"K6's two entries (or the interleaved one's bound apply) "
+              f"differ at nc={nc} Y={y_len} Xh={xh} bf16={bf16}")
+    for kind in worst:
+        n_cases = sum(c[0] == kind[:2] for c in cases)
+        print(f"{kind} vs plain: {n_cases} cases, max rel err "
+              f"{worst_rel[kind]:.3e}"
+              + (" (K6's interleaved entry; bit-equal to the split entry "
+                 "in every case)" if kind == "K6i" else ""), flush=True)
     return worst
 
 
 def stencil_timings(torch, dk, dev):
-    """Phase 6: CUDA-event times of each stencil kernel and its twin at the
-    shapes of its path (and K4 also at the first coarse level and with bf16
-    coefficients), beside the bound. Returns {kernel: (ms, plain_ms,
-    bound_ms, bound_by)} at the path's shape."""
+    """Phase 6: CUDA-event times of each stencil kernel (through its
+    wrapper, its bound apply and on the device alone) and its twin at the
+    shapes of its path, beside the bound: K4 also at the first coarse
+    level and with bf16 coefficients, and K6 (both entries) and K4 side by
+    side at the K-cycle's small levels. Returns {kernel: (ms, plain_ms,
+    bound_ms, bound_by, bound-apply ms, device ms)} at the path's shape;
+    "K6i" is K6's interleaved entry, the one on the solve's path."""
+    small_grid_line(dk, 8, 32, 16, "SMs")
+    small_grid_line(dk, 8, 8, 4, 8)
+    # (kernel, nc, (Y, Xh), bf16 coefficients, the path's shape)
     runs = [("K4", 2, (2048, 1024), False, True),
             ("K4", 2, (2048, 1024), True, False),
             ("K4", 8, (512, 256), False, False),
             ("K5", 2, (2048, 1024), False, True),
-            ("K6", 8, (32, 16), False, True),
             ("K6", 2, (64, 32), False, False)]
-    wrappers = stencil_wrappers(dk)
+    for shape in ((32, 16), (8, 4)):
+        runs += [(kind, 8, shape, False, shape == (32, 16))
+                 for kind in ("K6i", "K6", "K4", "K6i")]
+    wrappers = dict(stencil_wrappers(dk),
+                    K6i=(dk.dslash_small_interleaved_apply,
+                         dk.dslash_apply_plain))
     out = {}
     for kind, nc, (y_len, xh), bf16, on_path in runs:
-        ch, x = stencil_inputs(torch, dk, kind, nc, y_len, xh, dev, bf16)
+        ch, x = stencil_inputs(torch, dk, "K4" if kind == "K6i" else kind,
+                               nc, y_len, xh, dev, bf16)
         fn, plain = wrappers[kind]
-        ms = time_ms(lambda: fn(ch, x), torch)
         bound_apply = dk.bind_apply(fn, ch, x.shape)
-        bound_apply_ms = time_ms(lambda: bound_apply(x), torch)
-        plain_ms = time_ms(lambda: plain(ch, x), torch)
+        ms, bound_apply_ms, dev_ms = three_ways(
+            lambda: fn(ch, x), lambda: bound_apply(x), torch)
+        plain_ms = time_ms(lambda: plain(ch, x), torch, reps=PLAIN_REPS)
         sites = 2 * y_len * xh
         bytes_moved = dk.apply_bytes(nc, sites,
                                      torch.bfloat16 if bf16 else None)
         flops = 40 * nc * nc * sites  # 5 nc^2 complex multiply-adds a site
         bound_ms, bound_by = bound(bytes_moved, flops)
         print(f"{kind} Y={y_len} Xh={xh} nc={nc} "
-              f"{'bf16' if bf16 else 'f32'}: kernel {ms * 1e3:.2f} us/apply "
-              f"({bytes_moved / (ms * 1e-3) / 1e9:.1f} GB/s; through the "
-              f"solve's bound apply {bound_apply_ms * 1e3:.2f} us), plain "
-              f"{plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
-              f"({bound_by}; {bytes_moved / 1e6:.1f} MB)", flush=True)
-        if on_path:
-            out[kind] = (ms, plain_ms, bound_ms, bound_by)
+              f"{'bf16' if bf16 else 'f32'}: us/apply through the wrapper "
+              f"{ms * 1e3:.2f}, through the solve's bound apply "
+              f"{bound_apply_ms * 1e3:.2f}, on the device alone "
+              f"{dev_ms * 1e3:.2f} "
+              f"({bytes_moved / (dev_ms * 1e-3) / 1e9:.1f} GB/s), plain "
+              f"{plain_ms * 1e3:.2f}, bound {bound_ms * 1e3:.2f} "
+              f"({bound_by}; {bytes_moved / 1e6:.2f} MB)", flush=True)
+        if on_path and kind not in out:
+            out[kind] = (ms, plain_ms, bound_ms, bound_by, bound_apply_ms,
+                         dev_ms)
+    solve_apply_timings(torch, dk, dev)
     return out
+
+
+def solve_apply_timings(torch, dk, dev):
+    """One coarse apply as the solve makes it on a 32^2 nc8 level: the
+    interleaved entry bound by ``solve._matrix_apply``, beside the same
+    apply composed around the split entry (``x_to_split``, the kernel,
+    ``x_from_split``: the layout copies the interleaved entry spares)."""
+    from qmg_tpu_torch import dslash, solve
+    coeffs, v = dslash.make_operator(32, 8, dev)
+    direct = solve._matrix_apply(coeffs, "small")
+    split = dk.bind_apply(dk.dslash_small_apply,
+                          dk.stencil_channels_split(coeffs),
+                          (2, 2, 16, 16, 8))
+
+    def copied(t):
+        return dk.x_from_split(split(dk.x_to_split(t.to(torch.complex64)))
+                               ).to(t.dtype)
+
+    check(torch.equal(direct(v), copied(v)),
+          "the solve's small apply differs from the split entry between "
+          "its layout copies")
+    for label, fn in (("interleaved entry", direct),
+                      ("split entry between two layout copies", copied),
+                      ("interleaved entry again", direct)):
+        print(f"the solve's coarse apply at 32^2 nc8, {label}: "
+              f"{time_ms(lambda: fn(v), torch) * 1e3:.2f} us a call, "
+              f"{graph_ms(lambda: fn(v), torch) * 1e3:.2f} us on the device "
+              f"alone", flush=True)
 
 
 def slab_views(phase, x, y0, y_loc):
@@ -329,8 +469,9 @@ def halo_bound(y_loc, xh):
 
 def halo_phase(torch, wk, dev):
     """Phase 11. Returns (worst abs error of K7 against its twin, (ms,
-    plain_ms, bound_ms, bound_by) of one slab launch at the sharded
-    solve's shape, a 512-row slab of the 2048^2 lattice)."""
+    plain_ms, bound_ms, bound_by, wrapper ms, device ms) of one slab
+    launch at the sharded solve's shape, a 512-row slab of the 2048^2
+    lattice)."""
     from qmg_tpu_torch import dslash
     shapes = {"16x8": (8, 8), "64x48": (48, 32), "512x512": (512, 256),
               "2048x2048": (2048, 1024)}
@@ -370,6 +511,21 @@ def halo_phase(torch, wk, dev):
             check(k1_rel <= HALO_K1_TOL and (same or ny > 1),
                   f"K7's slabs disagree with the K1 kernel at {name}, "
                   f"ny={ny}")
+        if y_len < 512:
+            continue
+        # One slab that is the whole lattice, its own first and last rows
+        # as halos: what one rank of the distributed path launches.
+        own = (x, x[:, -1], x[:, 0])
+        rank = wk.bind_halo(phase, alpha, own_halos=True)
+        check(torch.equal(rank(*own), whole),
+              f"the bind_halo apply differs from the K1 kernel at {name}")
+        ms, bound_ms, dev_ms = three_ways(
+            lambda: wk.wilson_r1_halo_apply(phase, *own, alpha),
+            lambda: rank(*own), torch)
+        print(f"K7 {name}, one slab with its own halos: us/apply through "
+              f"the wrapper {ms * 1e3:.2f}, through bind_halo "
+              f"{bound_ms * 1e3:.2f}, on the device alone {dev_ms * 1e3:.2f},"
+              f" bound {halo_bound(y_len, xh)[0] * 1e3:.2f}", flush=True)
     # One slab launch at the sharded solve's shape: a 512-row slab of the
     # 2048^2 lattice (x, phase are still bound). Through the wrapper a
     # call is bound by its Python checks, so the kernel's time is taken
@@ -384,13 +540,15 @@ def halo_phase(torch, wk, dev):
     check(torch.equal(slabs(x), whole),
           "the bound 4-slab apply differs from the K1 kernel")
     ms = time_ms(lambda: slabs(x), torch) / 4
+    dev_ms = graph_ms(lambda: slabs(x), torch) / 4
     plain_ms = time_ms(lambda: wk.wilson_r1_halo_apply_plain(*args, alpha),
-                       torch)
+                       torch, reps=PLAIN_REPS)
     slab_bound, slab_by = halo_bound(y_loc, xh)
     print(f"K7 one 512-row slab of 2048^2: kernel {ms * 1e3:.2f} us a launch "
-          f"in the bound 4-slab apply ({wrapper_ms * 1e3:.2f} us through "
-          f"the wrapper, bound by its checks), plain {plain_ms * 1e3:.2f} "
-          f"us, bound {slab_bound * 1e3:.2f} us ({slab_by})", flush=True)
+          f"in the bound 4-slab apply, {dev_ms * 1e3:.2f} us on the device "
+          f"alone ({wrapper_ms * 1e3:.2f} us through the wrapper, bound by "
+          f"its checks), plain {plain_ms * 1e3:.2f} us, bound "
+          f"{slab_bound * 1e3:.2f} us ({slab_by})", flush=True)
     del phase, x, out, whole, args
     coeffs, v = dslash.make_operator(2048, 2, dev)
     applies = {"K1": dslash.make_step("wilson-r1", coeffs)[0]}
@@ -406,7 +564,7 @@ def halo_phase(torch, wk, dev):
         print(f"sharded apply 2048^2 {label}: {t * 1e3:.2f} us/apply (halo "
               f"rows taken in place + {ny} launch(es)), bound "
               f"{t_bound * 1e3:.2f} us", flush=True)
-    return worst, (ms, plain_ms, slab_bound, slab_by)
+    return worst, (ms, plain_ms, slab_bound, slab_by, wrapper_ms, dev_ms)
 
 
 def nccl_phase(torch, dev):
@@ -458,10 +616,29 @@ def check_solve(r, label):
 
 def kernel_paths(torch, dev):
     """Phases 7 and 8. Returns {kernel: launches over its path's run}."""
+    from qmg_tpu_torch import solve as solve_module
     from qmg_tpu_torch.kcycle import (build_problem, run_solver,
                                       print_report, reset_launch_counts,
                                       launch_counts)
     launches = {}
+    # Calls of the split-layout copies from the solve's applies.
+    copies = {"x_to_split": 0, "x_from_split": 0}
+
+    def counted(name):
+        inner = getattr(solve_module, name)
+
+        def fn(t):
+            copies[name] += 1
+            return inner(t)
+        return fn
+
+    for name in copies:
+        setattr(solve_module, name, counted(name))
+
+    def no_copies(label):
+        check(not any(copies.values()), f"{label} made layout copies: "
+              f"{copies}")
+        print(f"{label}: no x_to_split / x_from_split call", flush=True)
 
     def path(problem, label, **kw):
         reset_launch_counts()
@@ -485,10 +662,22 @@ def kernel_paths(torch, dev):
           "2048^2 matrix + small: K4 or K6 not launched in the timed solve")
     launches["dslash"], launches["dslash_small"] = (c["dslash"],
                                                      c["dslash_small"])
+    no_copies("2048^2 matrix + small")
+    r_prof = run_solver(big, fine_kernel="matrix", coarse_apply="small",
+                        profile=True)
+    check(r_prof["device_kernels"] > 0 and r_prof["iters"] == r_ms["iters"],
+          "the profiled 2048^2 matrix + small solve counted no device kernel")
+    print(f"2048^2 matrix + small: {r_prof['device_kernels']} device kernels "
+          f"in one profiled solve, {r_prof['device_busy_ms']:.3f} ms of "
+          f"device time, {r_ms['launches']['dslash_small']} K6 and "
+          f"{r_ms['launches']['dslash']} K4 launches a solve", flush=True)
     r_sg, c = path(big, "2048^2 matrix-split + gather coarse",
                    fine_kernel="matrix-split", coarse_apply="gather")
     check(r_sg["launches"]["dslash_split"] > 0,
           "2048^2 matrix-split: K5 not launched in the timed solve")
+    check(copies["x_to_split"] > 0 and copies["x_from_split"] > 0,
+          "the matrix-split path must pass through the layout copies")
+    copies.update(x_to_split=0, x_from_split=0)
     launches["dslash_split"] = c["dslash_split"]
     r_ph, c = path(big, "2048^2 wilson-phase + plain coarse",
                    fine_kernel="wilson-phase")
@@ -521,9 +710,12 @@ def kernel_paths(torch, dev):
     check(abs(r["iters"] - JAX_ITERS_512_MATRIX_SMALL) <= 2,
           f"512^2 matrix+small outer iterations {r['iters']} vs qmg_tpu's "
           f"{JAX_ITERS_512_MATRIX_SMALL}")
+    check(r["launches"]["dslash_small"] > 0,
+          "512^2 matrix + small: K6 not launched in the timed solve")
     r_bf, _ = path(mid, "512^2 matrix + small coarse, bf16 coefficients",
                    fine_kernel="matrix", coarse_apply="small",
                    coeff_dtype=torch.bfloat16)
+    no_copies("512^2 matrix + small (f32 and bf16)")
     print(f"512^2 outer iterations matrix+small {r['iters']} (qmg_tpu "
           f"{JAX_ITERS_512_MATRIX_SMALL}), bf16 coefficients "
           f"{r_bf['iters']}: ok", flush=True)
@@ -555,8 +747,10 @@ def kernel_paths(torch, dev):
 
 
 def dslash_chains(torch, dev):
-    """Phase 10: the 2048^2 chains through K3 and K2, beside K1's.
-    Returns K3's launches over its timed run."""
+    """Phase 10: the 2048^2 chains through K3 and K2, beside K1's, and
+    the 32^2 nc8 chains through K6's two entries beside the plain one.
+    Returns (K3's launches over its timed run, those of K6's split
+    entry over its)."""
     from qmg_tpu_torch import dslash
     from qmg_tpu_torch.kcycle import reset_launch_counts, launch_counts
     operator = dslash.make_operator(2048, 2, dev)
@@ -578,7 +772,24 @@ def dslash_chains(torch, dev):
         check(launches[name] > 0, f"the {kind} chain launched no {name}")
         check(err <= CHAIN_TOL and np.isfinite(short[kind]),
               f"the {kind} chain's checksum differs from wilson-r1's")
-    return launches["wilson_split"]
+    operator = dslash.make_operator(32, 8, dev)
+    plain = dslash.run(32, "plain", 8, iters=20, device=dev,
+                       operator=operator)["checksum"]
+    for kind in ("small", "small-split"):
+        reset_launch_counts()
+        r = dslash.run(32, kind, 8, iters=200, device=dev, operator=operator)
+        launches[kind] = launch_counts()["dslash_small"]
+        short = dslash.run(32, kind, 8, iters=20, device=dev,
+                           operator=operator)["checksum"]
+        err = abs(short - plain) / abs(plain)
+        print(f"dslash chain 32^2 nc8 {kind}: {r['us_per_apply']:.2f} "
+              f"us/step (apply + renormalisation); {launches[kind]} "
+              f"launches; checksum after 20 steps {short:.6f} vs the plain "
+              f"chain's {plain:.6f} (rel {err:.2e})", flush=True)
+        check(launches[kind] > 0, f"the {kind} chain launched no K6")
+        check(err <= KERNEL_TOL and np.isfinite(short),
+              f"the {kind} chain's checksum differs from the plain chain's")
+    return launches["wilson_split"], launches["small-split"]
 
 
 def main():
@@ -610,6 +821,11 @@ def main():
                   flush=True)
 
     # --- 3. kernel vs plain ---
+    floor_ms = graph_ms(dk.empty_launch, torch)
+    print(f"launch floor: an empty kernel {floor_ms * 1e3:.2f} us a launch "
+          f"on the device alone (100 launches in one CUDA graph), "
+          f"{time_ms(dk.empty_launch, torch) * 1e3:.2f} us a launch from a "
+          f"Python loop", flush=True)
     wilson_worst, wilson_times = kernel_phase(torch, wk, dk, dev)
 
     # --- 4. the original path ---
@@ -636,7 +852,8 @@ def main():
     path_launches = kernel_paths(torch, dev)
 
     # --- 10. the dslash chains through K3 and K2 ---
-    path_launches["wilson_split"] = dslash_chains(torch, dev)
+    (path_launches["wilson_split"],
+     path_launches["dslash_small_split"]) = dslash_chains(torch, dev)
     path_launches["wilson_r1"] = launches
 
     # --- 11. the slab kernel, 13. the distributed mesh of one rank ---
@@ -649,7 +866,7 @@ def main():
     for name, kid, line, size in (("wilson_r1", "K1", 475, 512),
                                   ("wilson_phase", "K2", 50, 2048),
                                   ("wilson_split", "K3", 267, 2048)):
-        ms, plain_ms = wilson_times[kid][f"{size}x{size}"]
+        ms, plain_ms, apply_ms, dev_ms = wilson_times[kid][f"{size}x{size}"]
         k_bound, k_by = wilson_bound(kid, size * size)
         kernels.append({
             "name": name, "route": "cuda",
@@ -658,25 +875,31 @@ def main():
             "launches": path_launches[name],
             "max_abs_err": wilson_worst[kid], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": k_bound, "bound_by": k_by,
-            "library_ms": None})
-    k_ms, k_plain, k_bound, k_by = halo_times
+            "library_ms": None, "bound_apply_ms": apply_ms,
+            "device_ms": dev_ms})
+    k_ms, k_plain, k_bound, k_by, k_wrapper, k_dev = halo_times
     kernels.append({
         "name": "wilson_r1_halo", "route": "cuda",
         "source": "qmg_tpu_torch/csrc/wilson.cu",
         "replaces": "qmg_tpu/shard_dslash.py:135",
         "launches": path_launches["wilson_r1_halo"],
         "max_abs_err": halo_worst, "ms": k_ms, "plain_ms": k_plain,
-        "bound_ms": k_bound, "bound_by": k_by, "library_ms": None})
+        "bound_ms": k_bound, "bound_by": k_by, "library_ms": None,
+        "wrapper_ms": k_wrapper, "device_ms": k_dev})
+    # K6 twice: its interleaved entry (the solve's coarse levels) and its
+    # split entry (the 32^2 nc8 "small-split" chain).
     for name, kid, line in (("dslash", "K4", 76), ("dslash_split", "K5", 351),
-                            ("dslash_small", "K6", 548)):
-        k_ms, k_plain, k_bound, k_by = stimes[kid]
+                            ("dslash_small", "K6i", 548),
+                            ("dslash_small_split", "K6", 548)):
+        k_ms, k_plain, k_bound, k_by, k_apply, k_dev = stimes[kid]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "qmg_tpu_torch/csrc/dslash.cu",
             "replaces": f"qmg_tpu/pallas_dslash.py:{line}",
             "launches": path_launches[name], "max_abs_err": worst[kid],
             "ms": k_ms, "plain_ms": k_plain, "bound_ms": k_bound,
-            "bound_by": k_by, "library_ms": None})
+            "bound_by": k_by, "library_ms": None, "bound_apply_ms": k_apply,
+            "device_ms": k_dev})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -4,23 +4,27 @@
 //   v = [x(s), x(s + x), x(s + y), x(s - x), x(s - y)],
 //   C = [clover + mass pattern, H_+x, H_+y, H_-x, H_-y]   (nc x nc each)
 //
-// Three entries, each with its own C launcher:
+// Four entries, each with its own C launcher:
 //
 //   dslash_launch        replaces qmg_tpu/pallas_dslash.py::_dslash_kernel
 //                        (K4), the interleaved layout;
 //   dslash_split_launch  replaces ::_dslash_split_kernel (K5), the same
 //                        arithmetic on rows stored by y % 2;
-//   dslash_small_launch  replaces ::_dslash_small_kernel (K6), the split
-//                        layout with x staged in shared memory.
+//   dslash_small_launch, dslash_small_interleaved_launch
+//                        replace ::_dslash_small_kernel (K6), the kernel
+//                        of the lattices too small to stream, in the
+//                        split layout (the TPU kernel's) and in the
+//                        interleaved one (the solve's own).
 //
 // Layouts (complex64 fields, channels built by dslash_kernel.py):
 //   interleaved  x, out (2p, Y, Xh, nc);       C (5, 2p, Y, Xh, nc, nc)
 //   split        x, out (2p, 2r, Yh, Xh, nc);  C (5, 2p, 2r, Yh, Xh, nc, nc)
 // Within a parity both are "storage row, xh, colour": the split layout is
-// the interleaved one with row y stored at r * Yh + m (y = 2m + r), so K4
-// and K5 are one kernel template that differs only in the neighbour row
-// map. Coefficients are float2 (complex64) or __nv_bfloat162 (bf16 real,
-// bf16 imaginary), widened with __bfloat162float; sums are in float32.
+// the interleaved one with row y stored at r * Yh + m (y = 2m + r), so
+// every kernel here is a template that differs between the layouts only
+// in the neighbour row map (``stencil_sources``). Coefficients are float2
+// (complex64) or __nv_bfloat162 (bf16 real, bf16 imaginary), widened with
+// __bfloat162float; sums are in float32.
 //
 // Neighbours follow cshift_pull: destination (q, y, xh) reads parity 1-q;
 // +-y move one row with torus wrap (split: half r = 0 reads half 1 at rows
@@ -29,7 +33,7 @@
 // otherwise, the -x source column xh-1 on those rows and xh otherwise, all
 // mod Xh. Yh = 1 and Xh = 1 need no special case: the wrap is the identity.
 //
-// What bounds them on an H100: bytes. Per site they read 5 nc^2
+// K4 and K5. What bounds them on an H100: bytes. Per site they read 5 nc^2
 // coefficients (8 B each, 4 B in bf16) and the site's own x, and write
 // nc outputs: (5 nc^2 + 2 nc) * 8 B = 192 B at nc = 2 and 2688 B at nc = 8
 // for 40 nc^2 flops, about 1 flop/byte - far under the card's 20 flops/byte
@@ -38,10 +42,42 @@
 // coalesced: for nc >= 4 one thread computes one output row (site, i), so
 // the nc threads of a site read consecutive rows of each nc x nc block and
 // a warp reads contiguous bytes; for nc <= 2 one thread computes a whole
-// site. K6 additionally stages the x rows a block reads (its rows +- 1 and
-// its columns +- 1, with wrap) in shared memory, sized from the lattice,
-// so every neighbour read is from shared memory. Tiled loads, TMA and
-// wider vector loads are left for later work.
+// site. Tiled loads and TMA are left for later work.
+//
+// K6. The TPU kernel keeps a whole small lattice in VMEM and applies it in
+// one grid step, because such a level is bound there by the latency of a
+// chain of small operations, not by bandwidth. Here too nothing streams:
+// a 32^2 nc8 level is 2.75 MB, of which the 2.6 MB of coefficients stay in
+// the 50 MB L2 from one apply to the next and x (64 KB) in L1/L2. What
+// bounds the kernel is the latency of one launch that fills only a part
+// of the card, and inside it each thread's chain of dependent loads. The
+// design shortens the chain and widens the launch:
+//   * the 5 nc products of one output row are split over L lanes (L = 4
+//     at nc = 8 with complex64 coefficients); a lane makes one 16-byte
+//     coefficient load (two complex64, or four bf16 pairs) and one or two
+//     16-byte loads of x per stencil term, all ten independent of each
+//     other, and the L partial sums are joined with __shfl_xor_sync.
+//     Neighbouring lanes read neighbouring 16 bytes, the lanes of a site
+//     one contiguous nc x nc block per term; the threads of a site that
+//     read the same x chunk are served by one broadcast load;
+//   * the block size falls from 256 threads to as few as 32 until the
+//     grid has at least as many blocks as the card has SMs
+//     (cudaDevAttrMultiProcessorCount): 256 blocks of 128 threads at 32^2
+//     nc8 and 64 blocks of 32 threads at 8^2 nc8, where a tile rule that
+//     gave each block 512 output rows launched 16 blocks and 1;
+//   * x is not staged in shared memory. A staged variant (each site's
+//     five neighbour vectors copied to shared memory once by the site's
+//     own warp, indexed by (site in block, term, lane), then a warp
+//     barrier) was timed beside this one in one run on an H100, on the
+//     device alone at nc = 8: it came out 0.1-0.2 us faster at 8^2 and
+//     32^2 and 0.1-0.2 us slower at 64^2, of 2-3 us a launch and under a
+//     host path of 14-30 us a call. That pays for no second code path
+//     (staging fits only the nc whose site is one warp): the re-reads it
+//     saves are L1 broadcasts. PERF.md has the numbers;
+//   * the row map is a template parameter, so the solve applies its
+//     coarse levels in the interleaved layout its fields already have,
+//     without the two layout copies that the split entry needs.
+// nc = 1 keeps 8-byte (4-byte in bf16) loads, nc = 2 in bf16 8-byte ones.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -49,17 +85,49 @@
 namespace {
 
 constexpr int kThreads = 256;
-// Output rows per K6 block, two per thread. The K-cycle's levels get few
-// blocks from it: 16 at 32^2 nc8 (tile 1 x 16) and a single one at 8^2
-// nc8, far fewer than the card's 132 SMs, so a launch there is latency-
-// bound, not bytes-bound. A finer tile rule is left for later work.
-constexpr int kSmallOutputsPerBlock = 512;
-constexpr int kSmallMaxTileW = 32;
+constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ float2 widen(float2 c) { return c; }
 
 __device__ __forceinline__ float2 widen(__nv_bfloat162 c) {
   return make_float2(__bfloat162float(c.x), __bfloat162float(c.y));
+}
+
+// The five sources of destination (q, row, xh), as site offsets into x:
+// the site itself, then its +x, +y, -x, -y neighbours in the other parity.
+// ``row`` is a storage row; ``half`` = sites per parity.
+template <bool SPLIT>
+__device__ __forceinline__ void stencil_sources(int q, int row, int xh,
+                                                int y_len, int xh_len,
+                                                int (&src)[5]) {
+  int par, row_yp, row_ym;
+  if (SPLIT) {
+    const int yh_len = y_len >> 1;
+    const int r = row >= yh_len ? 1 : 0;
+    const int m = row - r * yh_len;
+    par = r;
+    if (r == 0) {
+      row_yp = yh_len + m;
+      row_ym = yh_len + (m == 0 ? yh_len - 1 : m - 1);
+    } else {
+      row_yp = m + 1 == yh_len ? 0 : m + 1;
+      row_ym = m;
+    }
+  } else {
+    par = row & 1;
+    row_yp = row + 1 == y_len ? 0 : row + 1;
+    row_ym = row == 0 ? y_len - 1 : row - 1;
+  }
+  const bool direct = par == q;
+  const int xp = direct ? xh : (xh + 1 == xh_len ? 0 : xh + 1);
+  const int xm = direct ? (xh == 0 ? xh_len - 1 : xh - 1) : xh;
+  const int half = y_len * xh_len;
+  const int other = (1 - q) * half;
+  src[0] = q * half + row * xh_len + xh;
+  src[1] = other + row * xh_len + xp;
+  src[2] = other + row_yp * xh_len + xh;
+  src[3] = other + row * xh_len + xm;
+  src[4] = other + row_ym * xh_len + xh;
 }
 
 // acc[r] += sum_j C[i0 + r, j] v[j] for one stencil term; ``row0`` points
@@ -88,7 +156,7 @@ struct RowsPerThread {
   static constexpr int value = NC <= 2 ? NC : 1;
 };
 
-// K4 (SPLIT = false) and K5 (SPLIT = true). ``half`` = sites per parity.
+// K4 (SPLIT = false) and K5 (SPLIT = true).
 template <int NC, typename CT, bool SPLIT>
 __global__ void __launch_bounds__(kThreads)
 dslash_kernel(const CT* __restrict__ ch, const float2* __restrict__ x,
@@ -104,122 +172,116 @@ dslash_kernel(const CT* __restrict__ ch, const float2* __restrict__ x,
   const int rem = site - q * half;
   const int row = rem / xh_len;  // storage row
   const int xh = rem - row * xh_len;
+  int src[5];
+  stencil_sources<SPLIT>(q, row, xh, y_len, xh_len, src);
 
-  int par, row_yp, row_ym;
-  if (SPLIT) {
-    const int yh_len = y_len >> 1;
-    const int r = row >= yh_len ? 1 : 0;
-    const int m = row - r * yh_len;
-    par = r;
-    if (r == 0) {
-      row_yp = yh_len + m;
-      row_ym = yh_len + (m == 0 ? yh_len - 1 : m - 1);
-    } else {
-      row_yp = m + 1 == yh_len ? 0 : m + 1;
-      row_ym = m;
-    }
-  } else {
-    par = row & 1;
-    row_yp = row + 1 == y_len ? 0 : row + 1;
-    row_ym = row == 0 ? y_len - 1 : row - 1;
-  }
-  const bool direct = par == q;
-  const int xp = direct ? xh : (xh + 1 == xh_len ? 0 : xh + 1);
-  const int xm = direct ? (xh == 0 ? xh_len - 1 : xh - 1) : xh;
-
-  const float2* src = x + (1 - q) * half * NC;
-  const float2* nb[5] = {x + site * NC,
-                         src + (row * xh_len + xp) * NC,
-                         src + (row_yp * xh_len + xh) * NC,
-                         src + (row * xh_len + xm) * NC,
-                         src + (row_ym * xh_len + xh) * NC};
   float2 acc[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) acc[r] = make_float2(0.f, 0.f);
 #pragma unroll
   for (int t = 0; t < 5; ++t) {
     accumulate<NC, R, CT>(ch + ((t * 2 + q) * half + rem) * NC * NC + i0 * NC,
-                          nb[t], acc);
+                          x + src[t] * NC, acc);
   }
   float2* o = out + site * NC + i0;
 #pragma unroll
   for (int r = 0; r < R; ++r) o[r] = acc[r];
 }
 
-// K6. Block b owns a tile of tile_t rows x tile_w columns of the Yh x Xh
-// plane in all four (q, r) halves. It stages x at rows m0-1 .. m0+tile_t
-// and columns x0-1 .. x0+tile_w of all four (p, r) halves (torus wrap) in
-// shared memory, laid out [h = 2p + r][row][column][colour], then
-// computes its outputs from there.
+// K6's split of one output row over lanes: a lane takes V consecutive
+// coefficients of the row per stencil term, in one load of at most 16
+// bytes, and L = NC / V lanes share the row.
+constexpr int small_lanes(int nc, int coeff_bytes) {
+  return nc * coeff_bytes <= 16 ? 1 : nc * coeff_bytes / 16;
+}
+
 template <int NC, typename CT>
-__global__ void __launch_bounds__(kThreads)
-dslash_small_kernel(const CT* __restrict__ ch, const float2* __restrict__ x,
-                    float2* __restrict__ out, int yh_len, int xh_len,
-                    int tile_t, int tile_w) {
-  extern __shared__ float2 sx[];
-  constexpr int R = RowsPerThread<NC>::value;
-  constexpr int G = NC / R;
-  const int tt2 = tile_t + 2;
-  const int tw2 = tile_w + 2;
-  const int n_tx = (xh_len + tile_w - 1) / tile_w;
-  const int m0 = (blockIdx.x / n_tx) * tile_t;
-  const int x0 = (blockIdx.x % n_tx) * tile_w;
-  const int half = 2 * yh_len * xh_len;  // sites per parity
+struct SmallShape {
+  static constexpr int L = small_lanes(NC, sizeof(CT));
+  static constexpr int V = NC / L;
+};
 
-  const int n_stage = 4 * tt2 * tw2 * NC;
-  for (int k = threadIdx.x; k < n_stage; k += blockDim.x) {
-    const int c = k % NC;
-    int rest = k / NC;
-    const int lc = rest % tw2;
-    rest /= tw2;
-    const int lr = rest % tt2;
-    const int h = rest / tt2;
-    const int gm = ((m0 - 1 + lr) % yh_len + yh_len) % yh_len;
-    const int gx = ((x0 - 1 + lc) % xh_len + xh_len) % xh_len;
-    sx[k] = x[((h * yh_len + gm) * xh_len + gx) * NC + c];
-  }
-  __syncthreads();
+template <int BYTES> struct Word;
+template <> struct Word<4> { using type = unsigned int; };
+template <> struct Word<8> { using type = uint2; };
+template <> struct Word<16> { using type = uint4; };
 
-  const int n_out = 4 * tile_t * tile_w * G;
-  for (int o = threadIdx.x; o < n_out; o += blockDim.x) {
-    const int g = o % G;
-    int rest = o / G;
-    const int lw = rest % tile_w;
-    rest /= tile_w;
-    const int lt = rest % tile_t;
-    const int h = rest / tile_t;  // 2q + r of the destination
-    const int m = m0 + lt;
-    const int xx = x0 + lw;
-    if (m >= yh_len || xx >= xh_len) continue;
-    const int q = h >> 1;
-    const int r = h & 1;
-    const int ps = 2 * (1 - q);  // first source half (p, r = 0)
-    const int lr = lt + 1;
-    const int lc = lw + 1;
-    const bool direct = r == q;
-#define QMG_SX(hh, rr, cc) (sx + (((hh) * tt2 + (rr)) * tw2 + (cc)) * NC)
-    const float2* nb[5] = {
-        QMG_SX(h, lr, lc),
-        QMG_SX(ps + r, lr, direct ? lc : lc + 1),
-        r == 0 ? QMG_SX(ps + 1, lr, lc) : QMG_SX(ps, lr + 1, lc),
-        QMG_SX(ps + r, lr, direct ? lc - 1 : lc),
-        r == 0 ? QMG_SX(ps + 1, lr - 1, lc) : QMG_SX(ps, lr, lc)};
-#undef QMG_SX
-    const int rem = (r * yh_len + m) * xh_len + xx;
-    const int i0 = g * R;
-    float2 acc[R];
+// V coefficients at ``p`` (aligned to V * sizeof(CT)) in one load.
+template <typename CT, int V>
+__device__ __forceinline__ void load_coeffs(const CT* __restrict__ p,
+                                            float2 (&c)[V]) {
+  using W = typename Word<sizeof(CT) * V>::type;
+  const W w = __ldg(reinterpret_cast<const W*>(p));
+  const CT* e = reinterpret_cast<const CT*>(&w);
 #pragma unroll
-    for (int rr = 0; rr < R; ++rr) acc[rr] = make_float2(0.f, 0.f);
+  for (int k = 0; k < V; ++k) c[k] = widen(e[k]);
+}
+
+// V complex64 at ``p`` (aligned to min(16, 8 V) bytes) in 16-byte loads.
+template <int V>
+__device__ __forceinline__ void load_x(const float2* __restrict__ p,
+                                       float2 (&v)[V]) {
+  if constexpr (V == 1) {
+    v[0] = __ldg(p);
+  } else {
 #pragma unroll
-    for (int t = 0; t < 5; ++t) {
-      accumulate<NC, R, CT>(
-          ch + ((t * 2 + q) * half + rem) * NC * NC + i0 * NC, nb[t], acc);
+    for (int k = 0; k < V; k += 2) {
+      const float4 w = __ldg(reinterpret_cast<const float4*>(p + k));
+      v[k] = make_float2(w.x, w.y);
+      v[k + 1] = make_float2(w.z, w.w);
     }
-    float2* dst = out + (q * half + rem) * NC + i0;
-#pragma unroll
-    for (int rr = 0; rr < R; ++rr) dst[rr] = acc[rr];
   }
 }
+
+// K6. Thread tid is lane tid % L of output row tid / L = (site, i); it
+// sums its V columns of the five terms, the row's lanes join their sums by
+// shuffles and lane 0 writes. No thread leaves before the shuffles: one
+// past the last row works on row 0 and does not write.
+template <int NC, typename CT, bool SPLIT>
+__global__ void __launch_bounds__(kThreads)
+dslash_small_kernel(const CT* __restrict__ ch, const float2* __restrict__ x,
+                    float2* __restrict__ out, int y_len, int xh_len) {
+  constexpr int V = SmallShape<NC, CT>::V;
+  constexpr int L = SmallShape<NC, CT>::L;
+  const int half = y_len * xh_len;
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = tid < 2 * half * NC * L;
+  const int orow = live ? tid / L : 0;  // site * NC + i
+  const int j0 = (tid % L) * V;
+  const int site = orow / NC;
+  const int i = orow - site * NC;
+  const int q = site / half;
+  const int rem = site - q * half;
+  const int row = rem / xh_len;
+  const int xh = rem - row * xh_len;
+  int src[5];
+  stencil_sources<SPLIT>(q, row, xh, y_len, xh_len, src);
+
+  float2 c[5][V], v[5][V];
+#pragma unroll
+  for (int t = 0; t < 5; ++t) {
+    load_coeffs<CT, V>(
+        ch + (((t * 2 + q) * half + rem) * NC + i) * NC + j0, c[t]);
+    load_x<V>(x + src[t] * NC + j0, v[t]);
+  }
+  float2 acc = make_float2(0.f, 0.f);
+#pragma unroll
+  for (int t = 0; t < 5; ++t) {
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      acc.x += c[t][k].x * v[t][k].x - c[t][k].y * v[t][k].y;
+      acc.y += c[t][k].x * v[t][k].y + c[t][k].y * v[t][k].x;
+    }
+  }
+#pragma unroll
+  for (int m = L >> 1; m > 0; m >>= 1) {
+    acc.x += __shfl_xor_sync(0xffffffffu, acc.x, m);
+    acc.y += __shfl_xor_sync(0xffffffffu, acc.y, m);
+  }
+  if (live && j0 == 0) out[orow] = acc;
+}
+
+__global__ void empty_kernel() {}
 
 template <int NC, typename CT, bool SPLIT>
 int launch_dslash(const void* ch, const void* x, void* out, int y_len,
@@ -233,26 +295,47 @@ int launch_dslash(const void* ch, const void* x, void* out, int y_len,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int NC, typename CT>
-int launch_small(const void* ch, const void* x, void* out, int yh_len,
-                 int xh_len, cudaStream_t stream) {
-  constexpr int G = NC / RowsPerThread<NC>::value;
-  const int tile_w = xh_len < kSmallMaxTileW ? xh_len : kSmallMaxTileW;
-  int tile_t = kSmallOutputsPerBlock / (4 * tile_w * G);
-  tile_t = tile_t < 1 ? 1 : (tile_t > yh_len ? yh_len : tile_t);
-  const int blocks = ((yh_len + tile_t - 1) / tile_t) *
-                     ((xh_len + tile_w - 1) / tile_w);
-  const size_t smem =
-      sizeof(float2) * 4 * (tile_t + 2) * (tile_w + 2) * NC;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        dslash_small_kernel<NC, CT>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+// SMs of the current device, asked once per device.
+int sm_count(int* sms) {
+  static int known[kMaxDevices] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (device < 0 || device >= kMaxDevices) {
+    return static_cast<int>(cudaErrorInvalidDevice);
+  }
+  if (known[device] == 0) {
+    err = cudaDeviceGetAttribute(&known[device],
+                                 cudaDevAttrMultiProcessorCount, device);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  dslash_small_kernel<NC, CT><<<blocks, kThreads, smem, stream>>>(
+  *sms = known[device];
+  return 0;
+}
+
+// K6's grid for ``threads_total`` threads: blocks of 256 threads, halved
+// down to one warp until there are at least as many blocks as SMs.
+int small_grid(int threads_total, int* blocks, int* threads) {
+  int sms = 0;
+  const int err = sm_count(&sms);
+  if (err != 0) return err;
+  int t = kThreads;
+  while (t > 32 && (threads_total + t - 1) / t < sms) t >>= 1;
+  *threads = t;
+  *blocks = (threads_total + t - 1) / t;
+  return 0;
+}
+
+template <int NC, typename CT, bool SPLIT>
+int launch_small(const void* ch, const void* x, void* out, int y_len,
+                 int xh_len, cudaStream_t stream) {
+  int blocks = 0, threads = 0;
+  const int err = small_grid(
+      2 * y_len * xh_len * NC * SmallShape<NC, CT>::L, &blocks, &threads);
+  if (err != 0) return err;
+  dslash_small_kernel<NC, CT, SPLIT><<<blocks, threads, 0, stream>>>(
       static_cast<const CT*>(ch), static_cast<const float2*>(x),
-      static_cast<float2*>(out), yh_len, xh_len, tile_t, tile_w);
+      static_cast<float2*>(out), y_len, xh_len);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -269,17 +352,28 @@ int dispatch_dslash(int nc, const void* ch, const void* x, void* out,
   }
 }
 
-template <typename CT>
+template <typename CT, bool SPLIT>
 int dispatch_small(int nc, const void* ch, const void* x, void* out,
-                   int yh_len, int xh_len, cudaStream_t s) {
+                   int y_len, int xh_len, cudaStream_t s) {
   switch (nc) {
-    case 1: return launch_small<1, CT>(ch, x, out, yh_len, xh_len, s);
-    case 2: return launch_small<2, CT>(ch, x, out, yh_len, xh_len, s);
-    case 4: return launch_small<4, CT>(ch, x, out, yh_len, xh_len, s);
-    case 8: return launch_small<8, CT>(ch, x, out, yh_len, xh_len, s);
-    case 16: return launch_small<16, CT>(ch, x, out, yh_len, xh_len, s);
+    case 1: return launch_small<1, CT, SPLIT>(ch, x, out, y_len, xh_len, s);
+    case 2: return launch_small<2, CT, SPLIT>(ch, x, out, y_len, xh_len, s);
+    case 4: return launch_small<4, CT, SPLIT>(ch, x, out, y_len, xh_len, s);
+    case 8: return launch_small<8, CT, SPLIT>(ch, x, out, y_len, xh_len, s);
+    case 16: return launch_small<16, CT, SPLIT>(ch, x, out, y_len, xh_len, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+template <bool SPLIT>
+int small_entry(const void* ch, int coeff_bf16, const void* x, void* out,
+                int nc, int y_len, int xh_len, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return coeff_bf16
+             ? dispatch_small<__nv_bfloat162, SPLIT>(nc, ch, x, out, y_len,
+                                                     xh_len, s)
+             : dispatch_small<float2, SPLIT>(nc, ch, x, out, y_len, xh_len,
+                                             s);
 }
 
 }  // namespace
@@ -312,13 +406,39 @@ extern "C" int dslash_split_launch(const void* ch, int coeff_bf16,
                                              xh_len, s);
 }
 
-// K6: the layouts of K5.
+// K6 in the layouts of K5; ch, x and out 16-byte aligned.
 extern "C" int dslash_small_launch(const void* ch, int coeff_bf16,
                                    const void* x, void* out, int nc,
                                    int yh_len, int xh_len, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return coeff_bf16
-             ? dispatch_small<__nv_bfloat162>(nc, ch, x, out, yh_len, xh_len,
-                                              s)
-             : dispatch_small<float2>(nc, ch, x, out, yh_len, xh_len, s);
+  return small_entry<true>(ch, coeff_bf16, x, out, nc, 2 * yh_len, xh_len,
+                           stream);
+}
+
+// K6 in the layouts of K4; ch, x and out 16-byte aligned.
+extern "C" int dslash_small_interleaved_launch(const void* ch,
+                                               int coeff_bf16, const void* x,
+                                               void* out, int nc, int y_len,
+                                               int xh_len, void* stream) {
+  return small_entry<false>(ch, coeff_bf16, x, out, nc, y_len, xh_len,
+                            stream);
+}
+
+// The grid K6 launches on the current device for a lattice of
+// ``sites`` = 2 Y Xh sites: its blocks, their threads and the card's SMs.
+extern "C" int dslash_small_grid(int coeff_bf16, int nc, int sites,
+                                 int* blocks, int* threads, int* sms) {
+  if (nc != 1 && nc != 2 && nc != 4 && nc != 8 && nc != 16) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int lanes = small_lanes(
+      nc, coeff_bf16 ? sizeof(__nv_bfloat162) : sizeof(float2));
+  const int err = sm_count(sms);
+  return err != 0 ? err : small_grid(sites * nc * lanes, blocks, threads);
+}
+
+// A kernel that does nothing, on ``stream``: the card's launch floor, for
+// measurements.
+extern "C" int empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
 }

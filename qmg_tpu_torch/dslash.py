@@ -21,8 +21,14 @@ events, through one apply:
                 w = 1; bench.py's ``phase-split``);
   matrix     the generic stencil kernel, interleaved layout (K4);
   split      the same in the row-parity-split layout (K5);
-  small      the small-lattice kernel (K6; refuses lattices it cannot take);
+  small      the small-lattice kernel (K6) through its interleaved entry,
+             the one the solve applies (refuses lattices it cannot take);
+  small-split  K6 through its split-layout entry, the TPU kernel's layout;
   plain      the plain PyTorch apply (``stencil.apply_M``).
+
+Every kernel is applied as the solve applies it: bound once to its fixed
+arguments (``wilson_kernel.bind_wilson``, ``dslash_kernel.bind_apply``), so
+that a chain step pays the checks of x only.
 
 It prints us per apply (one chain step: the apply and the
 renormalisation, as bench.py times it), the effective GB/s on bench.py's
@@ -50,18 +56,20 @@ from .rng import QMGRandom
 from .stencil import apply_M, make_coeffs
 from .wilson_kernel import (wilson_r1_apply, wilson_phase_apply,
                             wilson_split_apply, wilson_phases,
-                            wilson_phases_split)
+                            wilson_phases_split, bind_wilson)
 from .parallel import Mesh
 from .shard_dslash import make_sharded_wilson
 from .dslash_kernel import (HBM_BYTES_S, stencil_channels,
                             stencil_channels_split, x_to_split, apply_bytes,
-                            dslash_apply, dslash_split_apply,
-                            dslash_small_apply)
+                            bind_apply, dslash_apply, dslash_split_apply,
+                            dslash_small_apply,
+                            dslash_small_interleaved_apply)
 from . import u1
 
 MASS = -0.075
 WILSON_KINDS = ("wilson-r1", "wilson-phase", "wilson-split")
-KINDS = WILSON_KINDS + ("matrix", "split", "small", "plain")
+MATRIX_KINDS = ("matrix", "split", "small", "small-split")
+KINDS = WILSON_KINDS + MATRIX_KINDS + ("plain",)
 
 
 def make_operator(size: int, nc: int, device, wilson_coeff: float = 1.0):
@@ -100,7 +108,7 @@ def make_step(kind: str, coeffs, coeff_dtype=None,
     if shards is not None and kind != "wilson-r1":
         raise ValueError(f"--shards runs the rank-1 slab kernel: use "
                          f"--kernel wilson-r1, not {kind}")
-    if coeff_dtype is not None and kind not in ("matrix", "split", "small"):
+    if coeff_dtype is not None and kind not in MATRIX_KINDS:
         raise ValueError(f"--coeff-dtype applies to the matrix kernels, "
                          f"not {kind}")
     if kind in WILSON_KINDS:
@@ -116,21 +124,27 @@ def make_step(kind: str, coeffs, coeff_dtype=None,
                     "interleaved")
         phase = wilson_phases(coeffs.hopping, w)
         alpha = 2.0 * w + float(np.real(coeffs.shift))
+        lat = coeffs.lat
         if kind == "wilson-split":
-            phase = wilson_phases_split(phase)
-            return (lambda v: wilson_split_apply(phase, v, alpha)), "split"
+            return bind_wilson(wilson_split_apply, wilson_phases_split(phase),
+                               (2, 2, lat.y_len // 2, lat.xh, 2),
+                               alpha), "split"
         if kind == "wilson-r1":
-            return (lambda v: wilson_r1_apply(phase, v, alpha),
-                    "interleaved")
-        return (lambda v: wilson_phase_apply(phase, v, w, alpha),
-                "interleaved")
-    if kind == "matrix":
-        ch = stencil_channels(coeffs, coeff_dtype)
-        return (lambda v: dslash_apply(ch, v)), "interleaved"
-    if kind in ("split", "small"):
-        ch = stencil_channels_split(coeffs, coeff_dtype)
-        fn = dslash_split_apply if kind == "split" else dslash_small_apply
-        return (lambda v: fn(ch, v)), "split"
+            return bind_wilson(wilson_r1_apply, phase, lat.cv_shape(),
+                               alpha), "interleaved"
+        return bind_wilson(wilson_phase_apply, phase, lat.cv_shape(), w,
+                           alpha), "interleaved"
+    if kind in ("matrix", "small"):
+        wrapper = (dslash_apply if kind == "matrix"
+                   else dslash_small_interleaved_apply)
+        return bind_apply(wrapper, stencil_channels(coeffs, coeff_dtype),
+                          coeffs.lat.cv_shape()), "interleaved"
+    if kind in ("split", "small-split"):
+        lat = coeffs.lat
+        return bind_apply(dslash_split_apply if kind == "split"
+                          else dslash_small_apply,
+                          stencil_channels_split(coeffs, coeff_dtype),
+                          (2, 2, lat.y_len // 2, lat.xh, lat.nc)), "split"
     if kind == "plain":
         return (lambda v: apply_M(coeffs, v)), "interleaved"
     raise ValueError(f"unknown kernel {kind!r}")
@@ -222,7 +236,9 @@ def main(argv=None):
             args.device, args.wilson_coeff, shards=args.shards)
     if is_cuda:
         print(card_line())
-        print(f"dslash {r['size']}^2 nc{r['nc']} {r['kernel']}"
+        entry = {"small": " (K6, interleaved entry)",
+                 "small-split": " (K6, split entry)"}.get(r["kernel"], "")
+        print(f"dslash {r['size']}^2 nc{r['nc']} {r['kernel']}{entry}"
               f"{'' if args.shards is None else f' on {args.shards} slabs'} "
               f"({r['coeff_dtype']} coefficients) on {r['device']}: "
               f"{r['us_per_apply']:.2f} us/apply, {r['gbs']:.1f} GB/s = "

@@ -11,7 +11,7 @@ folded into the clover diagonal), as
 
 Layouts (complex, the ri-plane axis of the TPU kernels is not carried):
 
-  * interleaved (K4): x (2p, Y, Xh, nc), ch (5, 2p, Y, Xh, nc, nc);
+  * interleaved (K4, K6): x (2p, Y, Xh, nc), ch (5, 2p, Y, Xh, nc, nc);
   * split (K5, K6): rows stored by y % 2, x (2p, 2r, Yh, Xh, nc) with
     y = 2m + r, ch (5, 2p, 2r, Yh, Xh, nc, nc).
 
@@ -20,12 +20,16 @@ rounded real and imaginary parts of the complex64 channels; the kernels
 and the twins widen bf16 to float32 and accumulate in float32.
 
 Each wrapper (``dslash_apply``, ``dslash_split_apply``,
-``dslash_small_apply``) launches its kernel for CUDA tensors, or raises,
-and runs its twin for CPU tensors; ``<wrapper>.launches`` counts kernel
-launches. The kernels take nc in ``SUPPORTED_NC``; the wrappers refuse any
-other nc on every device. ``bind_apply`` makes a wrapper's checks once for
-fixed channels and x shape, for callers that apply one operator many
-times (the solve).
+``dslash_small_apply``, ``dslash_small_interleaved_apply``) launches its
+kernel for CUDA tensors, or raises, and runs its twin for CPU tensors;
+``<wrapper>.launches`` counts kernel launches. K6 has two entries, one per
+layout: ``dslash_small_apply`` takes the split layout of the TPU kernel,
+``dslash_small_interleaved_apply`` the interleaved one that the solve's
+fields have, and both count in ``dslash_small_apply.launches``. The
+kernels take nc in ``SUPPORTED_NC``; the wrappers refuse any other nc on
+every device. ``bind_apply`` makes a wrapper's checks once for fixed
+channels and x shape, for callers that apply one operator many times (the
+solve).
 
 ``apply_bytes`` is the kernels' compulsory byte count and ``HBM_BYTES_S``
 the card's memory rate; their bound is the one over the other.
@@ -34,6 +38,7 @@ the card's memory rate; their bound is the one over the other.
 from __future__ import annotations
 
 import ctypes
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -45,9 +50,11 @@ from .stencil import StencilCoeffs, mass_pattern
 __all__ = ["SUPPORTED_NC", "HBM_BYTES_S", "stencil_channels",
            "stencil_channels_split", "channels_to_split", "x_to_split",
            "x_from_split", "small_fits", "apply_bytes", "dslash_apply",
-           "dslash_split_apply", "dslash_small_apply", "bind_apply",
+           "dslash_split_apply", "dslash_small_apply",
+           "dslash_small_interleaved_apply", "bind_apply",
            "dslash_apply_plain", "dslash_split_apply_plain",
-           "dslash_small_apply_plain", "build_dslash"]
+           "dslash_small_apply_plain", "small_grid", "empty_launch",
+           "build_dslash"]
 
 SOURCE = "dslash.cu"
 SUPPORTED_NC = (1, 2, 4, 8, 16)
@@ -73,13 +80,18 @@ def build_dslash() -> float:
         return 0.0
     lib, seconds = build_library(SOURCE)
     for name in ("dslash_launch", "dslash_split_launch",
-                 "dslash_small_launch"):
+                 "dslash_small_launch", "dslash_small_interleaved_launch"):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                        ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _LIB[name] = fn
+    int_p = ctypes.POINTER(ctypes.c_int)
+    lib.dslash_small_grid.argtypes = [ctypes.c_int] * 3 + [int_p] * 3
+    lib.dslash_small_grid.restype = ctypes.c_int
+    lib.empty_launch.argtypes = [ctypes.c_void_p]
+    lib.empty_launch.restype = ctypes.c_int
     _LIB["lib"] = lib
     return seconds
 
@@ -203,7 +215,8 @@ def dslash_split_apply_plain(ch, xs):
     return stacked_site_matvec(_widen(ch), nbrs)
 
 
-# K6 computes K5's function in K5's layout; its twin is K5's.
+# K6 computes K5's function in K5's layout and K4's in K4's; its twins are
+# theirs.
 dslash_small_apply_plain = dslash_split_apply_plain
 
 
@@ -251,16 +264,25 @@ def _launcher(wrapper, launcher, ch, x):
     if x.device.type != "cuda":
         raise ValueError(f"{wrapper.__name__}: unsupported device "
                          f"{x.device}")
-    if x.data_ptr() % 8 or ch.data_ptr() % (4 if ch.dtype == torch.bfloat16
-                                            else 8):
-        raise ValueError(f"{wrapper.__name__} needs 8-byte aligned x and "
-                         "element-aligned channels")
+    x_align, ch_align = _alignment(wrapper, ch)
+    if x.data_ptr() % x_align or ch.data_ptr() % ch_align:
+        raise ValueError(f"{wrapper.__name__} needs {x_align}-byte aligned "
+                         f"x and {ch_align}-byte aligned channels")
     build_dslash()
     return _LIB[launcher]
 
 
+def _alignment(wrapper, ch):
+    """(x's, the channels') alignment in bytes: K6 loads 16 bytes at a
+    time, K4 and K5 one element."""
+    if _BINDINGS[wrapper].small:
+        return 16, 16
+    return 8, (4 if ch.dtype == torch.bfloat16 else 8)
+
+
 def _run(wrapper, fn, ch, x, rows: int, xh_len: int):
-    """Launch ``fn`` on x's device and its current stream, unchecked."""
+    """Launch ``fn`` on x's device and its current stream, unchecked, and
+    count the launch on the wrapper's counter."""
     if x.device.index != torch.cuda.current_device():
         with torch.cuda.device(x.device):
             return _run(wrapper, fn, ch, x, rows, xh_len)
@@ -271,13 +293,14 @@ def _run(wrapper, fn, ch, x, rows: int, xh_len: int):
     if err != 0:
         raise RuntimeError(f"{wrapper.__name__}'s launch failed: CUDA "
                            f"error {err}")
-    wrapper.launches += 1
+    _BINDINGS[wrapper].counter.launches += 1
     return out
 
 
-def _launch(wrapper, launcher, ch, x, rows: int, xh_len: int):
-    return _run(wrapper, _launcher(wrapper, launcher, ch, x), ch, x, rows,
-                xh_len)
+def _launch(wrapper, ch, x):
+    binding = _BINDINGS[wrapper]
+    return _run(wrapper, _launcher(wrapper, binding.launcher, ch, x), ch, x,
+                *binding.dims(x.shape))
 
 
 def dslash_apply(ch, x):
@@ -286,8 +309,7 @@ def dslash_apply(ch, x):
     _check("dslash_apply", ch, x, 4)
     if x.device.type == "cpu":
         return dslash_apply_plain(ch, x)
-    return _launch(dslash_apply, "dslash_launch", ch, x, x.shape[1],
-                   x.shape[2])
+    return _launch(dslash_apply, ch, x)
 
 
 def dslash_split_apply(ch, xs):
@@ -295,73 +317,130 @@ def dslash_split_apply(ch, xs):
     _check("dslash_split_apply", ch, xs, 5)
     if xs.device.type == "cpu":
         return dslash_split_apply_plain(ch, xs)
-    return _launch(dslash_split_apply, "dslash_split_launch", ch, xs,
-                   xs.shape[2], xs.shape[3])
+    return _launch(dslash_split_apply, ch, xs)
 
 
-def _check_small(ch, xs):
-    nc, yh_len, xh_len = xs.shape[-1], xs.shape[2], xs.shape[3]
-    if not small_fits(nc, 2 * yh_len, xh_len, ch.dtype):
-        raise ValueError(f"dslash_small_apply: operands of Y={2 * yh_len}, "
-                         f"Xh={xh_len}, nc={nc} exceed the small kernel's "
-                         f"{SMALL_MAX_BYTES // 2 ** 20} MiB")
+def _check_small(name, ch, x):
+    nc, xh_len = x.shape[-1], x.shape[-2]
+    y_len = x.shape[1] if x.ndim == 4 else 2 * x.shape[2]
+    if not small_fits(nc, y_len, xh_len, ch.dtype):
+        raise ValueError(f"{name}: Y={y_len} is odd, or the operands of "
+                         f"Y={y_len}, Xh={xh_len}, nc={nc} exceed the small "
+                         f"kernel's {SMALL_MAX_BYTES // 2 ** 20} MiB")
 
 
 def dslash_small_apply(ch, xs):
-    """K6: the stencil apply in the split layout for lattices that
-    ``small_fits`` accepts, x staged in shared memory."""
+    """K6 in the split layout: the stencil apply for lattices that
+    ``small_fits`` accepts."""
     _check("dslash_small_apply", ch, xs, 5)
-    _check_small(ch, xs)
-    yh_len, xh_len = xs.shape[2], xs.shape[3]
+    _check_small("dslash_small_apply", ch, xs)
     if xs.device.type == "cpu":
         return dslash_small_apply_plain(ch, xs)
-    return _launch(dslash_small_apply, "dslash_small_launch", ch, xs,
-                   yh_len, xh_len)
+    return _launch(dslash_small_apply, ch, xs)
+
+
+def dslash_small_interleaved_apply(ch, x):
+    """K6 in the interleaved layout (K4's, the solve's own): the same
+    kernel with the other row map, the same refusals; its twin is K4's.
+    Its launches count in ``dslash_small_apply.launches``."""
+    _check("dslash_small_interleaved_apply", ch, x, 4)
+    _check_small("dslash_small_interleaved_apply", ch, x)
+    if x.device.type == "cpu":
+        return dslash_apply_plain(ch, x)
+    return _launch(dslash_small_interleaved_apply, ch, x)
 
 
 dslash_apply.launches = 0
 dslash_split_apply.launches = 0
 dslash_small_apply.launches = 0
 
-# wrapper: (x ndim, C launcher, twin, storage rows of x, Xh of x)
+
+class _Binding(NamedTuple):
+    """What ``bind_apply`` and the wrappers' launches know of a wrapper.
+    ``dims`` maps x's shape to (rows, Xh) as the C entry takes them: Y of
+    the interleaved layout, Yh of the split one."""
+    x_ndim: int
+    launcher: str          # the C entry
+    twin: Callable
+    dims: Callable
+    counter: Callable      # the wrapper whose ``launches`` counts
+    small: bool = False    # K6: small_fits' refusal, 16-byte alignment
+
+
 _BINDINGS = {
-    dslash_apply: (4, "dslash_launch", dslash_apply_plain,
-                   lambda shape: (shape[1], shape[2])),
-    dslash_split_apply: (5, "dslash_split_launch", dslash_split_apply_plain,
-                         lambda shape: (shape[2], shape[3])),
-    dslash_small_apply: (5, "dslash_small_launch", dslash_small_apply_plain,
-                         lambda shape: (shape[2], shape[3]))}
+    dslash_apply: _Binding(4, "dslash_launch", dslash_apply_plain,
+                           lambda shape: (shape[1], shape[2]), dslash_apply),
+    dslash_split_apply: _Binding(
+        5, "dslash_split_launch", dslash_split_apply_plain,
+        lambda shape: (shape[2], shape[3]), dslash_split_apply),
+    dslash_small_apply: _Binding(
+        5, "dslash_small_launch", dslash_small_apply_plain,
+        lambda shape: (shape[2], shape[3]), dslash_small_apply, small=True),
+    dslash_small_interleaved_apply: _Binding(
+        4, "dslash_small_interleaved_launch", dslash_apply_plain,
+        lambda shape: (shape[1], shape[2]), dslash_small_apply, small=True)}
 
 
 def bind_apply(wrapper, ch, x_shape):
     """``wrapper``'s apply for the fixed channels ``ch`` and x of shape
     ``x_shape``, with the wrapper's checks made here, once. The returned
     function takes a contiguous complex64 x of that shape on ``ch``'s
-    device: the kernel (counted in ``wrapper.launches``) for a CUDA ``ch``,
-    the twin for a CPU one."""
-    x_ndim, launcher, twin, dims = _BINDINGS[wrapper]
+    device, aligned as the kernel needs it (checked in one expression):
+    the kernel (counted like the wrapper's own launches) for a CUDA
+    ``ch``, the twin for a CPU one."""
+    binding = _BINDINGS[wrapper]
     x_shape = torch.Size(x_shape)
     probe = torch.empty(x_shape, dtype=torch.complex64, device=ch.device)
-    _check(wrapper.__name__, ch, probe, x_ndim)
-    if wrapper is dslash_small_apply:
-        _check_small(ch, probe)
+    _check(wrapper.__name__, ch, probe, binding.x_ndim)
+    if binding.small:
+        _check_small(wrapper.__name__, ch, probe)
     device = ch.device
+    x_align = _alignment(wrapper, ch)[0] if device.type == "cuda" else 1
 
     def check(x):
-        if x.shape != x_shape or x.device != device:
-            raise ValueError(f"{wrapper.__name__} was bound to x of shape "
-                             f"{tuple(x_shape)} on {device}, got "
-                             f"{tuple(x.shape)} on {x.device}")
+        if (x.shape != x_shape or x.device != device
+                or x.dtype != torch.complex64 or not x.is_contiguous()
+                or x.is_conj() or x.data_ptr() % x_align):
+            raise ValueError(
+                f"{wrapper.__name__} was bound to x of shape "
+                f"{tuple(x_shape)} on {device} (contiguous complex64, "
+                f"{x_align}-byte aligned), got {x.dtype} {tuple(x.shape)} "
+                f"on {x.device}")
 
     if device.type == "cpu":
+        twin = binding.twin
+
         def apply(x):
             check(x)
             return twin(ch, x)
         return apply
-    rows, xh_len = dims(x_shape)
-    fn = _launcher(wrapper, launcher, ch, probe)
+    rows, xh_len = binding.dims(x_shape)
+    fn = _launcher(wrapper, binding.launcher, ch, probe)
 
     def apply(x):
         check(x)
         return _run(wrapper, fn, ch, x, rows, xh_len)
     return apply
+
+
+def small_grid(nc: int, y_len: int, xh_len: int, coeff_dtype=None):
+    """(blocks, threads per block, the card's SMs) of the grid that K6
+    launches on the current CUDA device for a (2, Y, Xh, nc) lattice, as
+    its launcher sizes it."""
+    build_dslash()
+    blocks, threads, sms = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = _LIB["lib"].dslash_small_grid(
+        int(coeff_dtype == torch.bfloat16), nc, 2 * y_len * xh_len,
+        ctypes.byref(blocks), ctypes.byref(threads), ctypes.byref(sms))
+    if err != 0:
+        raise RuntimeError(f"small_grid failed: CUDA error {err}")
+    return blocks.value, threads.value, sms.value
+
+
+def empty_launch():
+    """Launch a kernel that does nothing on the current CUDA stream: the
+    card's launch floor, for measurements. No path of the port calls it."""
+    build_dslash()
+    err = _LIB["lib"].empty_launch(torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"empty_launch failed: CUDA error {err}")

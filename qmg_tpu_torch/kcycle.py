@@ -125,7 +125,8 @@ def profile_solve(solve, b, solve_ms: float, top: int = 12):
     """One solve under torch.profiler: prints its device time as a share
     of ``solve_ms``, the median wall time of the unprofiled solves (the
     profiler's own host cost inflates the profiled wall), the number of
-    device kernels, and the kernels with the most device time."""
+    device kernels, and the kernels with the most device time. Returns
+    (device busy ms, device kernels)."""
     from torch.autograd import DeviceType
     from torch.profiler import profile, ProfilerActivity
     torch.cuda.synchronize()
@@ -146,6 +147,7 @@ def profile_solve(solve, b, solve_ms: float, top: int = 12):
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:7d} x  "
               f"{e.key[:90]}")
+    return busy_us / 1e3, n_kernels
 
 
 def build_problem(size: int = 512, device="cuda",
@@ -205,7 +207,8 @@ def run_solver(problem: dict, fine_kernel: str | None = "wilson-r1",
                profile: bool = False, repeats: int = 1) -> dict:
     """One solver on ``problem``'s hierarchy: a warm-up solve and
     ``repeats`` timed solves (the median is reported); ``profile`` adds
-    one profiled solve after the timed ones (CUDA only). ``launches`` are
+    one profiled solve after the timed ones (CUDA only; its device time
+    and kernel count are reported too). ``launches`` are
     the kernel launches per timed solve. Level 0 is cut over
     ``problem["mesh"]`` when there is one."""
     device, mg, b = problem["device"], problem["mg"], problem["b"]
@@ -226,8 +229,8 @@ def run_solver(problem: dict, fine_kernel: str | None = "wilson-r1",
     launches = {k: (n - launches0[k]) // repeats
                 for k, n in launch_counts().items()}
     solve_s = float(np.median(times_s))
-    if profile:
-        profile_solve(solve, b, solve_s * 1e3)
+    busy_ms, n_kernels = (profile_solve(solve, b, solve_s * 1e3) if profile
+                          else (None, None))
     _, norm2sq_all, _ = reductions(
         mesh.all_sum if mesh is not None and mesh.distributed else None)
     rel_rec = float(torch.sqrt(res.res_sq / norm2sq_all(b)))
@@ -255,6 +258,8 @@ def run_solver(problem: dict, fine_kernel: str | None = "wilson-r1",
         "counts": carry["counts"].tolist(),
         "level_iters": carry["iters"].tolist(),
         "launches": launches,
+        "device_busy_ms": busy_ms,      # of the profiled solve, or None
+        "device_kernels": n_kernels,
     }
 
 

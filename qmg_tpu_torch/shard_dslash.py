@@ -27,8 +27,7 @@ from .lattice import DIR_XP1, DIR_YP1, DIR_XM1, DIR_YM1
 from .cshift import ALL_DIRS
 from .stencil import StencilCoeffs, apply_clover, apply_shift
 from .parallel import Mesh, shard_coeffs, shard_field, unshard_field
-from .wilson_kernel import (wilson_r1_halo_apply, bind_halo_slabs,
-                            wilson_phases)
+from .wilson_kernel import bind_halo, bind_halo_slabs, wilson_phases
 from . import linalg
 
 __all__ = ["halo_roll", "cshift_pull_sharded", "make_sharded_dslash",
@@ -149,8 +148,10 @@ def make_sharded_wilson(coeffs: StencilCoeffs, mesh: Mesh, mass: float,
     (``wilson_kernel.bind_halo_slabs``: nothing is copied, each slab
     writes its rows of one output field, and the wrapper's checks are
     made once, not per launch), the receive buffers of two ring
-    exchanges on a distributed one. With one slab they are the slab's own
-    last and first rows.
+    exchanges on a distributed one (``wilson_kernel.bind_halo``: the
+    checks of the rank's phases and shapes made once, those of x and the
+    two buffers per call). With one slab they are the slab's own last and
+    first rows.
 
     Requires an x-unsharded (ny, 1) mesh, as qmg_tpu does: the kernel
     wraps +-x inside the slab. qmg_tpu also asks for a local row count
@@ -180,10 +181,13 @@ def make_sharded_wilson(coeffs: StencilCoeffs, mesh: Mesh, mass: float,
     alpha = 2.0 * w + float(mass)
 
     if mesh.distributed:
+        # One rank is its own neighbour: ring_recv hands its edges back.
+        kernel = bind_halo(phase, alpha, own_halos=mesh.ny == 1)
+
         def apply_fn(x):
             (top,) = mesh.ring_recv([x[:, -1]], "y", -1)
             (bot,) = mesh.ring_recv([x[:, 0]], "y", +1)
-            return wilson_r1_halo_apply(phase, x, top, bot, alpha)
+            return kernel(x, top, bot)
         return apply_fn
 
     return bind_halo_slabs(phase, mesh.ny, alpha)

@@ -28,11 +28,12 @@ from .transfer import TransferMG, ShardedTransferMG, DoublingType
 from .stateful import StatefulMultigridMG, zero_carry, DSLASH_KRYLOV
 from .setup import KCycleConfig, pin_full_precision
 from .wilson_kernel import (wilson_r1_apply, wilson_phase_apply,
-                            wilson_phases)
+                            wilson_phases, bind_wilson)
 from .dslash_kernel import (SUPPORTED_NC, stencil_channels,
                             stencil_channels_split, x_to_split, x_from_split,
                             small_fits, bind_apply, dslash_apply,
-                            dslash_split_apply, dslash_small_apply)
+                            dslash_split_apply,
+                            dslash_small_interleaved_apply)
 from .parallel import Mesh, validate_mg_sharding
 from .shard_dslash import make_sharded_dslash, make_sharded_wilson
 from . import solvers
@@ -51,8 +52,9 @@ COARSE_APPLIES = ("plain", "gather", "small")
 def _wilson_apply(fine: Stencil2D, kind: str, mesh: Mesh | None = None):
     """Level 0's apply through a Wilson kernel: "wilson-r1" (rank-1, w = 1
     only; on a mesh the slab kernel of ``make_sharded_wilson``) or
-    "wilson-phase" (any w). The kernels ignore the clover array and assume
-    2w I, so anything but a Wilson operator is refused."""
+    "wilson-phase" (any w), its checks made here, once
+    (``wilson_kernel.bind_wilson``). The kernels ignore the clover array
+    and assume 2w I, so anything but a Wilson operator is refused."""
     if not isinstance(fine, Wilson2D) or fine.lat.nc != 2:
         raise ValueError(f"fine_kernel={kind!r} needs the fine operator to "
                          "be Wilson2D (nc=2)")
@@ -69,36 +71,38 @@ def _wilson_apply(fine: Stencil2D, kind: str, mesh: Mesh | None = None):
     phase = wilson_phases(fine.coeffs.hopping, w)
     alpha = 2.0 * w + mass
     if kind == "wilson-r1":
-        def kernel(v):
-            return wilson_r1_apply(phase, v, alpha)
+        kernel = bind_wilson(wilson_r1_apply, phase, fine.lat.cv_shape(),
+                             alpha)
     else:
-        def kernel(v):
-            return wilson_phase_apply(phase, v, w, alpha)
-
+        kernel = bind_wilson(wilson_phase_apply, phase, fine.lat.cv_shape(),
+                             w, alpha)
     return lambda v: kernel(v.to(torch.complex64).contiguous()).to(v.dtype)
 
 
 def _matrix_apply(coeffs, kind: str, coeff_dtype=None):
     """An apply through one generic stencil kernel (K4 "matrix", K5
     "matrix-split", K6 "small"), its channels built and its checks made
-    here, once."""
+    here, once. K4 and K6 take the fields as they are (K6 through its
+    interleaved entry); K5 is applied in its own split layout, between
+    two layout copies."""
     lat = coeffs.lat
     if lat.nc not in SUPPORTED_NC:
         raise ValueError(f"the stencil kernels take nc in {SUPPORTED_NC}, "
                          f"not {lat.nc}")
-    if kind == "matrix":
-        fn = bind_apply(dslash_apply, stencil_channels(coeffs, coeff_dtype),
-                        lat.cv_shape())
-        return lambda v: fn(v.to(torch.complex64).contiguous()).to(v.dtype)
+    if kind == "matrix-split":
+        fn = bind_apply(dslash_split_apply,
+                        stencil_channels_split(coeffs, coeff_dtype),
+                        (2, 2, lat.y_len // 2, lat.xh, lat.nc))
+        return lambda v: x_from_split(fn(
+            x_to_split(v.to(torch.complex64)))).to(v.dtype)
     if kind == "small" and not small_fits(lat.nc, lat.y_len, lat.xh,
                                           coeff_dtype):
         raise ValueError(f"the small-lattice kernel does not take {lat}")
-    wrapper = (dslash_split_apply if kind == "matrix-split"
-               else dslash_small_apply)
-    fn = bind_apply(wrapper, stencil_channels_split(coeffs, coeff_dtype),
-                    (2, 2, lat.y_len // 2, lat.xh, lat.nc))
-    return lambda v: x_from_split(fn(
-        x_to_split(v.to(torch.complex64)))).to(v.dtype)
+    wrapper = (dslash_apply if kind == "matrix"
+               else dslash_small_interleaved_apply)
+    fn = bind_apply(wrapper, stencil_channels(coeffs, coeff_dtype),
+                    lat.cv_shape())
+    return lambda v: fn(v.to(torch.complex64).contiguous()).to(v.dtype)
 
 
 def _coarse_apply(st: Stencil2D, coarse_apply: str):

@@ -25,6 +25,14 @@ operator (``wilson_phases``), complex64:
 On a CUDA tensor each wrapper launches its kernel, or raises; on a CPU
 tensor it runs its ``*_plain`` twin, which repeats the kernel's
 arithmetic. ``<wrapper>.launches`` counts kernel launches.
+
+A wrapper checks everything on every call. Callers that apply one
+operator many times (the solve, the benchmark chains) bind it instead:
+``bind_wilson`` (the three whole-lattice kernels), ``bind_halo_slabs``
+(the slab kernel on the slabs of a whole field in one process) and
+``bind_halo`` (the slab kernel on one rank's slab) make the checks of the
+fixed arguments once and return an apply that checks x in one expression
+and launches; the launches count on the wrapper as its own do.
 """
 
 from __future__ import annotations
@@ -41,7 +49,8 @@ from .dslash_kernel import _rows_to_split, _split_pulls
 __all__ = ["wilson_r1_apply", "wilson_r1_apply_plain", "wilson_phase_apply",
            "wilson_phase_apply_plain", "wilson_split_apply",
            "wilson_split_apply_plain", "wilson_r1_halo_apply",
-           "wilson_r1_halo_apply_plain", "bind_halo_slabs", "wilson_phases",
+           "wilson_r1_halo_apply_plain", "bind_wilson", "bind_halo",
+           "bind_halo_slabs", "wilson_phases",
            "wilson_phases_split", "build_wilson"]
 
 SOURCE = "wilson.cu"
@@ -233,6 +242,74 @@ def wilson_split_apply(phase_split, x_split, alpha: float):
                    x_split, yh_len, xh_len, alpha)
 
 
+# wrapper: (C launcher, twin, split layout)
+_BINDINGS = {
+    wilson_r1_apply: ("wilson_r1_launch", wilson_r1_apply_plain, False),
+    wilson_phase_apply: ("wilson_phase_launch", wilson_phase_apply_plain,
+                         False),
+    wilson_split_apply: ("wilson_r1_split_launch", wilson_split_apply_plain,
+                         True)}
+
+
+def bind_wilson(wrapper, phase, x_shape, *scalars):
+    """``wrapper``'s apply (``wilson_r1_apply``, ``wilson_phase_apply`` or
+    ``wilson_split_apply``) for the fixed phases ``phase``, x of shape
+    ``x_shape`` and the wrapper's scalar arguments (alpha; w and alpha for
+    ``wilson_phase_apply``), with the wrapper's checks made here, once. The
+    returned function takes a contiguous, 16-byte aligned complex64 x of
+    that shape on ``phase``'s device (checked in one expression): the
+    kernel on the current stream (counted in ``wrapper.launches``) for
+    CUDA phases, the twin for CPU ones."""
+    launcher, twin, split = _BINDINGS[wrapper]
+    name = wrapper.__name__
+    takes = "w and alpha" if wrapper is wilson_phase_apply else "alpha"
+    if len(scalars) != len(takes.split(" and ")):
+        raise TypeError(f"{name} takes {takes}, got {len(scalars)} "
+                        f"scalar(s)")
+    scalars = tuple(map(float, scalars))
+    x_shape, device = torch.Size(x_shape), phase.device
+    probe = torch.empty(x_shape, dtype=torch.complex64, device=device)
+    rows, xh_len = _check(name, phase, probe, split)
+
+    align = 16 if device.type == "cuda" else 1   # the kernels' float4 loads
+
+    def check(x):
+        if (x.shape != x_shape or x.device != device
+                or x.dtype != torch.complex64 or not x.is_contiguous()
+                or x.is_conj() or x.data_ptr() % align):
+            raise ValueError(
+                f"{name} was bound to x of shape {tuple(x_shape)} on "
+                f"{device} (contiguous complex64, {align}-byte aligned), got "
+                f"{x.dtype} {tuple(x.shape)} on {x.device}")
+
+    if device.type == "cpu":
+        def apply(x):
+            check(x)
+            return twin(phase, x, *scalars)
+        return apply
+    if device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {device}")
+    if phase.data_ptr() % 8:
+        raise ValueError(f"{name} needs 8-byte aligned phases")
+    build_wilson()
+    fn = _LIB[launcher]
+
+    def apply(x):
+        check(x)
+        if device.index != torch.cuda.current_device():
+            with torch.cuda.device(device):
+                return apply(x)
+        out = torch.empty_like(x)
+        # phase.data_ptr() per call: the closure keeps the phases alive
+        err = fn(phase.data_ptr(), x.data_ptr(), out.data_ptr(), rows,
+                 xh_len, *scalars, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{name}'s launch failed: CUDA error {err}")
+        wrapper.launches += 1
+        return out
+    return apply
+
+
 def _parity_stride(name: str, what: str, t, p_ax: int, unit: int) -> int:
     """The distance between the two parity halves of ``t`` (parity axis
     ``p_ax``), in sites of ``unit`` elements; the axes after the parity
@@ -340,6 +417,76 @@ def wilson_r1_halo_apply(phase_loc, x_loc, top, bot, alpha: float,
         _halo_launch(name, ptrs, ints, float(alpha),
                      torch.cuda.current_stream(x_loc.device).cuda_stream)
     return out
+
+
+def bind_halo(phase_loc, alpha: float, own_halos: bool):
+    """``wilson_r1_halo_apply`` for one slab with fixed contiguous phases
+    (4, 2, Y_loc, Xh), with the wrapper's checks made here, once: returns
+    apply(x, top, bot) for a contiguous complex64 x (2, Y_loc, Xh, 2) and
+    halo rows (2, Xh, 2) that are either the slab's own last and first
+    rows, ``x[:, -1]`` and ``x[:, 0]`` (``own_halos``: a mesh of one
+    slab), or dense buffers (what a halo exchange receives). Each call
+    checks shapes, strides, types, devices and alignment in one expression
+    per tensor and launches (counted in ``wilson_r1_halo_apply.launches``);
+    for CPU phases it runs the twin."""
+    name = "wilson_r1_halo_apply"
+    if not phase_loc.is_contiguous():
+        raise ValueError(f"{name}: bind_halo needs contiguous phases")
+    if phase_loc.ndim != 4:
+        raise ValueError(f"{name}: phases must be (4, 2, Y_loc, Xh), got "
+                         f"{tuple(phase_loc.shape)}")
+    _, _, y_loc, xh_len = phase_loc.shape
+    device, alpha = phase_loc.device, float(alpha)
+    x_shape = torch.Size((2, y_loc, xh_len, 2))
+    probe = torch.empty(x_shape, dtype=torch.complex64, device=device)
+    if own_halos:
+        halos = (probe[:, -1], probe[:, 0])
+    else:
+        halos = tuple(torch.empty((2, xh_len, 2), dtype=torch.complex64,
+                                  device=device) for _ in range(2))
+    ints = _halo_args(name, phase_loc, probe, *halos)
+    halo_shape, halo_stride = halos[0].shape, halos[0].stride()
+
+    def check(x, top, bot):
+        if (x.shape != x_shape or x.device != device
+                or x.dtype != torch.complex64 or not x.is_contiguous()
+                or x.is_conj()):
+            raise ValueError(
+                f"{name} was bound to contiguous complex64 x of shape "
+                f"{tuple(x_shape)} on {device}, got {x.dtype} "
+                f"{tuple(x.shape)} on {x.device}")
+        for t in (top, bot):
+            if (t.shape != halo_shape or t.stride() != halo_stride
+                    or t.device != device or t.dtype != torch.complex64
+                    or t.is_conj()):
+                raise ValueError(
+                    f"{name} was bound to complex64 halo rows of shape "
+                    f"{tuple(halo_shape)} and strides {halo_stride} on "
+                    f"{device}, got {t.dtype} {tuple(t.shape)} with "
+                    f"strides {t.stride()} on {t.device}")
+
+    if device.type == "cpu":
+        def apply(x, top, bot):
+            check(x, top, bot)
+            return wilson_r1_halo_apply_plain(phase_loc, x, top, bot, alpha)
+        return apply
+    if phase_loc.data_ptr() % 8:
+        raise ValueError(f"{name} needs 8-byte aligned phases")
+    build_wilson()
+
+    def apply(x, top, bot):
+        check(x, top, bot)
+        out = torch.empty_like(x)
+        # phase_loc.data_ptr() per call: the closure keeps the phases alive
+        ptrs = (phase_loc.data_ptr(), x.data_ptr(), top.data_ptr(),
+                bot.data_ptr(), out.data_ptr())
+        if ptrs[1] % 16 or ptrs[2] % 16 or ptrs[3] % 16:
+            raise ValueError(f"{name} needs 16-byte aligned x and halos")
+        with torch.cuda.device(device):
+            _halo_launch(name, ptrs, ints, alpha,
+                         torch.cuda.current_stream(device).cuda_stream)
+        return out
+    return apply
 
 
 def bind_halo_slabs(phase, ny: int, alpha: float):

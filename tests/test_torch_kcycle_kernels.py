@@ -106,6 +106,52 @@ def test_outer_count_matches_qmg_tpu(jax_state_32, fine_kernel,
     assert rel < 10 * TOL
 
 
+@pytest.mark.parametrize("fine_kernel", ["matrix", "small", "wilson-r1"])
+def test_small_path_makes_no_layout_copy(jax_state_32, monkeypatch,
+                                         fine_kernel):
+    """K6 is applied in the solve's own layout: with the split-layout
+    copies made to raise, the "small" applies still solve, in the outer
+    count of the plain coarse apply, and ``level_applies`` still names
+    them."""
+    from qmg_tpu_torch import solve as solve_module
+    _, state, cfg, b = jax_state_32
+    _, _, plain, _ = _port_solve(state, cfg, b, fine_kernel=fine_kernel,
+                                 coarse_apply="plain")
+
+    def refuse(t):
+        raise AssertionError("the small path made a split-layout copy")
+
+    monkeypatch.setattr(solve_module, "x_to_split", refuse)
+    monkeypatch.setattr(solve_module, "x_from_split", refuse)
+    _, solve, res, rel = _port_solve(state, cfg, b, fine_kernel=fine_kernel,
+                                     coarse_apply="small")
+    assert solve.level_applies == [fine_kernel, "small", "small"]
+    assert bool(res.converged) and rel < 10 * TOL
+    assert res.iters == plain.iters
+
+
+def test_matrix_split_keeps_its_layout_copies(jax_state_32, monkeypatch):
+    """K5 is applied in its own split layout, between the two copies."""
+    from qmg_tpu_torch import solve as solve_module
+    _, state, cfg, b = jax_state_32
+    calls = {"to": 0, "from": 0}
+    to_split, from_split = solve_module.x_to_split, solve_module.x_from_split
+
+    def count_to(t):
+        calls["to"] += 1
+        return to_split(t)
+
+    def count_from(t):
+        calls["from"] += 1
+        return from_split(t)
+
+    monkeypatch.setattr(solve_module, "x_to_split", count_to)
+    monkeypatch.setattr(solve_module, "x_from_split", count_from)
+    _, _, res, _ = _port_solve(state, cfg, b, fine_kernel="matrix-split",
+                               coarse_apply="small")
+    assert bool(res.converged) and calls["to"] == calls["from"] > 0
+
+
 def test_bf16_coefficients_converge(jax_state_32):
     _, state, cfg, b = jax_state_32
     _, solve, res, rel = _port_solve(state, cfg, b, fine_kernel="matrix",

@@ -444,6 +444,48 @@ def test_bound_slabs_check_once_and_refuse_other_layouts():
         bind_halo_slabs(phase.to(torch.complex128), 2, ALPHA)
 
 
+@pytest.mark.parametrize("own_halos", [True, False],
+                         ids=["own_rows", "received"])
+def test_bound_halo_is_the_wrapper_on_cpu(own_halos):
+    """``bind_halo`` (one rank's slab): the wrapper's result for the
+    slab's own edge rows as halos and for dense received buffers, no
+    launch counted on the CPU, other halo layouts refused."""
+    from qmg_tpu_torch.wilson_kernel import bind_halo
+    phase, x = _inputs(8, 4, "cpu", seed=5)
+    if own_halos:
+        top, bot = x[:, -1], x[:, 0]
+    else:
+        top, bot = _inputs(8, 4, "cpu", seed=6)[1][:, :2].unbind(1)
+        top, bot = top.contiguous(), bot.contiguous()
+    before = wilson_r1_halo_apply.launches
+    apply = bind_halo(phase, ALPHA, own_halos=own_halos)
+    assert torch.equal(apply(x, top, bot),
+                       wilson_r1_halo_apply(phase, x, top, bot, ALPHA))
+    assert wilson_r1_halo_apply.launches == before
+    other = top.contiguous() if own_halos else x[:, -1]
+    for bad in ((x[:, :4], top, bot), (x.to(torch.complex128), top, bot),
+                (x, other, bot), (x, top, bot[:, :2]),
+                (x, top, bot.to(torch.complex128))):
+        with pytest.raises(ValueError, match="was bound to"):
+            apply(*bad)
+
+
+@pytest.mark.parametrize("bad, message", [
+    ("odd_rows", "must be even"), ("noncontig", "contiguous phases"),
+    ("dtype", "complex64"), ("meta", "unsupported device"),
+    ("ndim", "phases must be")])
+def test_bind_halo_checks_once(bad, message):
+    from qmg_tpu_torch.wilson_kernel import bind_halo
+    phase = torch.empty((4, 2, 8, 4), dtype=torch.complex64,
+                        device="meta" if bad == "meta" else "cpu")
+    phase = {"odd_rows": phase[:, :, :7].contiguous(),
+             "noncontig": phase[:, :, :, :2],
+             "dtype": phase.to(torch.complex128), "meta": phase,
+             "ndim": phase[0]}[bad]
+    with pytest.raises((TypeError, ValueError), match=message):
+        bind_halo(phase, ALPHA, own_halos=True)
+
+
 def _check_rejects(device, bad):
     phase, x = _inputs(8, 4, device)
     ph, xs, top, bot = _slab_inputs(phase, x, 4, 4)
@@ -538,3 +580,21 @@ def test_kernel_matches_twin_and_rank1_kernel_on_card(cuda_device, shape,
 @pytest.mark.parametrize("bad", BAD_INPUTS)
 def test_wrapper_rejects_bad_input_on_card(cuda_device, bad):
     _check_rejects(cuda_device, bad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("own_halos", [True, False],
+                         ids=["own_rows", "received"])
+def test_bound_halo_is_the_kernel_on_card(cuda_device, own_halos):
+    from qmg_tpu_torch.wilson_kernel import bind_halo
+    phase, x = _inputs(48, 32, cuda_device, seed=8)
+    if own_halos:
+        top, bot = x[:, -1], x[:, 0]
+    else:
+        top, bot = x[:, -1].contiguous(), x[:, 0].contiguous()
+    apply = bind_halo(phase, ALPHA, own_halos=own_halos)
+    before = wilson_r1_halo_apply.launches
+    got = apply(x, top, bot)
+    torch.cuda.synchronize()
+    assert wilson_r1_halo_apply.launches == before + 1
+    assert torch.equal(got, wilson_r1_apply(phase, x, ALPHA))

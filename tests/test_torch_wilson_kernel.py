@@ -21,7 +21,7 @@ from qmg_tpu.rng import QMGRandom as JQMGRandom
 
 from qmg_tpu_torch.wilson_kernel import (wilson_r1_apply,
                                          wilson_r1_apply_plain,
-                                         wilson_phases)
+                                         wilson_phases, bind_wilson)
 
 torch.set_num_threads(1)
 
@@ -115,6 +115,50 @@ def test_wrapper_index_range_guard(xh, message):
         wilson_r1_apply(phase, x, ALPHA)
 
 
+def test_bound_apply_is_the_wrapper_on_cpu():
+    """bind_wilson's function gives the wrapper's result and counts no
+    launch on the CPU."""
+    phase, x = _inputs(8, 4, "cpu", seed=2)
+    before = wilson_r1_apply.launches
+    apply = bind_wilson(wilson_r1_apply, phase, x.shape, ALPHA)
+    assert torch.equal(apply(x), wilson_r1_apply(phase, x, ALPHA))
+    assert wilson_r1_apply.launches == before
+
+
+@pytest.mark.parametrize("bad", ["shape", "dtype", "noncontig", "conj"])
+def test_bound_apply_holds_x_to_what_it_was_bound_to(bad):
+    phase, x = _inputs(8, 4, "cpu")
+    apply = bind_wilson(wilson_r1_apply, phase, x.shape, ALPHA)
+    x = {"shape": x[:, :4], "dtype": x.to(torch.complex128),
+         "noncontig": x.transpose(1, 2).contiguous().transpose(1, 2),
+         "conj": torch.conj(x)}[bad]
+    with pytest.raises(ValueError, match="was bound to x of shape"):
+        apply(x)
+
+
+@pytest.mark.parametrize("bad, message", [
+    ("meta", "unsupported device"), ("phase_shape", "phases must be"),
+    ("x_shape", "x must be"), ("phase_dtype", "complex64"),
+    ("scalars", "takes alpha"), ("too_large", "32-bit")])
+def test_bind_wilson_checks_once(bad, message):
+    """The wrapper's checks are made when it is bound."""
+    device = "meta" if bad in ("meta", "too_large") else "cpu"
+    y_len, xh = (16384, 16385) if bad == "too_large" else (8, 4)
+    phase = torch.empty((4, 2, y_len, xh), dtype=torch.complex64,
+                        device=device)
+    x_shape, scalars = (2, y_len, xh, 2), (ALPHA,)
+    if bad == "phase_shape":
+        phase = phase[:, :, :4]
+    elif bad == "x_shape":
+        x_shape = (2, 2, y_len // 2, xh, 2)
+    elif bad == "phase_dtype":
+        phase = phase.to(torch.complex128)
+    elif bad == "scalars":
+        scalars = (1.0, ALPHA)
+    with pytest.raises((TypeError, ValueError), match=message):
+        bind_wilson(wilson_r1_apply, phase, x_shape, *scalars)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -141,3 +185,29 @@ def test_kernel_matches_plain_on_card(cuda_device, shape):
 @pytest.mark.parametrize("bad", ["dtype", "noncontig", "shape"])
 def test_wrapper_rejects_bad_input_on_card(cuda_device, bad):
     _check_rejects(cuda_device, bad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 8), (512, 256)],
+                         ids=["16x8", "512x512"])
+def test_bound_apply_is_the_kernel_on_card(cuda_device, shape):
+    """The bound apply launches the wrapper's kernel (bit-equal output,
+    one launch counted a call) and refuses a misaligned x."""
+    y_len, xh = shape
+    phase, x = _inputs(y_len, xh, cuda_device, seed=y_len)
+    apply = bind_wilson(wilson_r1_apply, phase, x.shape, ALPHA)
+    before = wilson_r1_apply.launches
+    got = apply(x)
+    torch.cuda.synchronize()
+    assert wilson_r1_apply.launches == before + 1
+    assert torch.equal(got, wilson_r1_apply(phase, x, ALPHA))
+    # the bound apply owns the phases: the caller's reference may go, and
+    # a new tensor must not land in their memory
+    shape = phase.shape
+    del phase
+    junk = torch.zeros(shape, dtype=torch.complex64, device=cuda_device)
+    assert torch.equal(apply(x), got) and not junk.any()
+    flat = torch.empty(x.numel() + 1, dtype=torch.complex64,
+                       device=cuda_device)
+    with pytest.raises(ValueError, match="was bound to x of shape"):
+        apply(flat[1:].view(x.shape))

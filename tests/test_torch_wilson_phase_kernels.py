@@ -29,7 +29,7 @@ from qmg_tpu_torch.dslash_kernel import x_to_split, x_from_split
 from qmg_tpu_torch.wilson_kernel import (
     wilson_r1_apply, wilson_r1_apply_plain, wilson_phase_apply,
     wilson_phase_apply_plain, wilson_split_apply, wilson_split_apply_plain,
-    wilson_phases, wilson_phases_split)
+    wilson_phases, wilson_phases_split, bind_wilson)
 
 torch.set_num_threads(1)
 
@@ -240,6 +240,66 @@ def test_wrapper_index_range_guard(kind, xh, message):
         fn(phase, x, *args)
 
 
+# --- the bound applies ---
+
+def _bound(kind, phase, x, w=1.3):
+    """(bind_wilson's apply, its x, the wrapper's result) for ``kind``."""
+    if kind == "phase":
+        alpha = 2.0 * w - 0.06
+        return (bind_wilson(wilson_phase_apply, phase, x.shape, w, alpha), x,
+                wilson_phase_apply(phase, x, w, alpha))
+    ps, xs = wilson_phases_split(phase), x_to_split(x)
+    return (bind_wilson(wilson_split_apply, ps, xs.shape, 1.94), xs,
+            wilson_split_apply(ps, xs, 1.94))
+
+
+@pytest.mark.parametrize("kind, w", [("phase", 1.0), ("phase", 1.3),
+                                     ("split", 1.0)])
+def test_bound_apply_is_the_wrapper_on_cpu(kind, w):
+    phase, x = _inputs(8, 4, "cpu", seed=4)
+    fn = wilson_phase_apply if kind == "phase" else wilson_split_apply
+    before = fn.launches
+    apply, arg, expect = _bound(kind, phase, x, w)
+    assert torch.equal(apply(arg), expect)
+    assert fn.launches == before
+
+
+@pytest.mark.parametrize("bad", ["shape", "dtype", "noncontig", "conj",
+                                 "layout"])
+@pytest.mark.parametrize("kind", ["phase", "split"])
+def test_bound_apply_holds_x_to_what_it_was_bound_to(kind, bad):
+    phase, x = _inputs(8, 4, "cpu")
+    apply, arg, _ = _bound(kind, phase, x)
+    arg = {"shape": arg[..., :2, :], "dtype": arg.to(torch.complex128),
+           "noncontig": arg.transpose(-3, -2).contiguous().transpose(-3, -2),
+           "conj": torch.conj(arg),
+           "layout": x if kind == "split" else x_to_split(x)}[bad]
+    with pytest.raises(ValueError, match="was bound to x of shape"):
+        apply(arg)
+
+
+@pytest.mark.parametrize("kind", ["phase", "split"])
+@pytest.mark.parametrize("bad, message", [
+    ("meta", "unsupported device"), ("phase_shape", "phases must be"),
+    ("layout", "x must be"), ("scalars", "takes")])
+def test_bind_wilson_checks_once(kind, bad, message):
+    device = "meta" if bad == "meta" else "cpu"
+    phase = torch.empty((4, 2, 8, 4), dtype=torch.complex64, device=device)
+    x_shape = (2, 8, 4, 2)
+    if kind == "split":
+        phase, x_shape = wilson_phases_split(phase), (2, 2, 4, 4, 2)
+    fn = wilson_phase_apply if kind == "phase" else wilson_split_apply
+    scalars = (1.3, 2.54) if kind == "phase" else (1.94,)
+    if bad == "phase_shape":
+        phase = phase[..., :2, :]
+    elif bad == "layout":
+        x_shape = (2, 2, 4, 4, 2) if kind == "phase" else (2, 8, 4, 2)
+    elif bad == "scalars":
+        scalars = scalars[:-1] if kind == "phase" else scalars + (1.0,)
+    with pytest.raises((TypeError, ValueError), match=message):
+        bind_wilson(fn, phase, x_shape, *scalars)
+
+
 # --- on the card ---
 
 @pytest.fixture
@@ -291,3 +351,20 @@ def test_split_kernel_matches_plain_on_card(cuda_device, shape):
 @pytest.mark.parametrize("kind", ["phase", "split"])
 def test_wrapper_rejects_bad_input_on_card(cuda_device, kind, bad):
     _check_rejects(cuda_device, kind, bad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind, w", [("phase", 1.0), ("phase", 1.3),
+                                     ("split", 1.0)])
+@pytest.mark.parametrize("shape", [(8, 8), (512, 256)],
+                         ids=["16x8", "512x512"])
+def test_bound_apply_is_the_kernel_on_card(cuda_device, shape, kind, w):
+    y_len, xh = shape
+    phase, x = _inputs(y_len, xh, cuda_device, seed=y_len)
+    fn = wilson_phase_apply if kind == "phase" else wilson_split_apply
+    apply, arg, expect = _bound(kind, phase, x, w)
+    before = fn.launches
+    got = apply(arg)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert torch.equal(got, expect)
