@@ -9,7 +9,8 @@ fallback). Phases, any failure exits non-zero:
   1. environment: torch, CUDA, card, nvcc, and the card's name and power
      limit as nvidia-smi reports them;
   2. build: compile both CUDA sources (csrc/wilson.cu and
-     csrc/dslash.cu), one nvcc each, started together;
+     csrc/dslash.cu), one nvcc each, and the host heatbath
+     (csrc/heatbath.cpp, c++), all started together;
   3. the Wilson kernels vs their plain PyTorch twins on the card at 16x8,
      64x48, 512^2 and 2048^2 (max relative error <= 1e-5): the rank-1
      kernel (K1); the any-w kernel (K2) at w = 1 and w = 1.3, and at w = 1
@@ -78,7 +79,31 @@ fallback). Phases, any failure exits non-zero:
  13. the 512^2 solve on a ``torch.distributed`` mesh of one rank on NCCL
      (a ``file://`` store in a temporary directory): the group plumbing,
      ``all_reduce`` / ``all_gather`` and the self-halo branch on the
-     card; outer count within +-1 of qmg_tpu's.
+     card; outer count within +-1 of qmg_tpu's;
+ 14. the rhs-axis kernels: K1's rhs entry at 512^2 and 2048^2 and K6's at
+     32^2 nc8 and 8^2 nc8, nrhs 8, against their twins (max relative
+     error <= 1e-5) and lane by lane bit for bit against the single-field
+     kernel; each timed three ways beside 8 single-field launches; K1's
+     single-field (nrhs = 1) time on the device alone beside the one
+     recorded before the rhs axis;
+ 15. the batched solve: the 512^2 problem of phase 4 with 8 right-hand
+     sides (6 gaussian, a point and a wall source) through
+     ``make_batched_solver(fine_kernel="wilson-r1", coarse_apply="small")``
+     and as 8 sequential ``make_solver`` solves with the same options, in
+     turns; each lane's outer iterations within +-1 of its sequential
+     solve, every true residual <= 1e-4, K1's and K6's rhs entries
+     launched; ms per right-hand side of both;
+ 16. the measurement stream at full width:
+     ``stream.run_stream(L=512, n_refine=3, batched=True)`` for 3
+     configurations (200 thermalization updates, 5 between
+     configurations): plaquettes in 0.85-0.97, a positive correlator with
+     C(1) > C(5), no configuration at max_iter, the rhs kernels launched;
+     the first configuration's correlator within 1e-3 (t < 16) of the one
+     that plain applies and sequential solves give on the same
+     configuration; setup and solve seconds per configuration and the
+     heatbath's seconds per update. The correlator is not required to
+     fall at every step from t = 1 to t = 5: at m = -0.06 single quenched
+     configurations of this volume rise there (PERF.md).
 
 The last two lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}.
@@ -269,11 +294,13 @@ def kernel_phase(torch, wk, dk, dev):
     return worst, times
 
 
-def wilson_bound(kid, sites):
-    """Bound of one Wilson apply: 64 B/site (4 phases, x read, out
-    written); 52 flops/site for the rank-1 kernels, 100 for the any-w
-    one (8 complex multiplies, 4 x (4 multiplies + 8 adds), alpha x)."""
-    return bound(64 * sites, (100 if kid == "K2" else 52) * sites)
+def wilson_bound(kid, sites, nrhs=1):
+    """Bound of one Wilson apply to ``nrhs`` fields: 32 B/site of phases
+    read once and 32 B/site a field (x read, out written); 52 flops/site a
+    field for the rank-1 kernels, 100 for the any-w one (8 complex
+    multiplies, 4 x (4 multiplies + 8 adds), alpha x)."""
+    return bound((32 + 32 * nrhs) * sites,
+                 (100 if kid == "K2" else 52) * sites * nrhs)
 
 
 def bound(bytes_moved, flops):
@@ -792,6 +819,278 @@ def dslash_chains(torch, dev):
     return launches["wilson_split"], launches["small-split"]
 
 
+NRHS = 8
+# (Y, Xh) of phase 14: K1 at the batched solve's fine level and at 2048^2,
+# K6 at its two small levels (nc 8).
+RHS_K1_SHAPES = ((512, 256), (2048, 1024))
+RHS_K6_SHAPES = ((32, 16), (8, 4))
+# Phase 16: the stream's lattice and (configurations, thermalization
+# updates, updates between configurations). 200 updates from the cold start
+# settle the gauge modes of wavelengths up to ~2 pi sqrt(200) ~ 90 lattice
+# units, far beyond the pion's correlation length of ~10.
+STREAM_L = 512
+STREAM_COUNTS = (3, 200, 5)
+# The correlator of the stream's first configuration against the one that
+# plain applies and sequential solves give on the same configuration:
+# timeslices 0..STREAM_REF_T - 1 within STREAM_REF_RTOL (the CPU test's
+# tolerance against qmg_tpu's stream).
+STREAM_REF_T = 16
+STREAM_REF_RTOL = 1e-3
+# K1's device-alone times (us) recorded before the kernel took an rhs axis
+# (PERF.md section 6; NVIDIA H100 80GB HBM3, 700.00 W), against which the
+# single-field entry, now the nrhs = 1 case of the rhs kernel, is printed.
+K1_BEFORE_RHS_DEVICE_US = {512: 4.01, 2048: 110.35}
+
+
+def lanes_equal(torch, got, single):
+    """Every lane of ``got`` bit for bit ``single(lane)``."""
+    return all(torch.equal(got[b], single(b)) for b in range(got.shape[0]))
+
+
+def rhs_kernel_phase(torch, wk, dk, dev):
+    """Phase 14. Returns ({kernel: worst abs error vs its twin},
+    {kernel: (ms, plain_ms, bound_ms, bound_by, bound-apply ms, device
+    ms)} at the batched solve's shapes: K1 at 512^2, K6 at 32^2 nc8)."""
+    worst = {"K1rhs": 0.0, "K6rhs": 0.0}
+    times = {}
+    alpha = 2.0 - 0.06
+    for y_len, xh in RHS_K1_SHAPES:
+        rng = np.random.default_rng(y_len + 3)
+        phase = torch.as_tensor(
+            0.5 * np.exp(1j * rng.uniform(-np.pi, np.pi,
+                                          (4, 2, y_len, xh))),
+            dtype=torch.complex64, device=dev)
+        x = torch.as_tensor(rng.normal(size=(NRHS, 2, y_len, xh, 2))
+                            + 1j * rng.normal(size=(NRHS, 2, y_len, xh, 2)),
+                            dtype=torch.complex64, device=dev)
+        got = wk.wilson_r1_rhs_apply(phase, x, alpha)
+        rhs_apply = wk.bind_wilson(wk.wilson_r1_rhs_apply, phase, x.shape,
+                                   alpha)
+        single = wk.bind_wilson(wk.wilson_r1_apply, phase, x.shape[1:],
+                                alpha)
+        torch.cuda.synchronize()
+        abs_err, rel = rel_err(got, wk.wilson_r1_apply_plain(phase, x,
+                                                             alpha))
+        worst["K1rhs"] = max(worst["K1rhs"], abs_err)
+        same = lanes_equal(torch, got, lambda b: single(x[b]))
+        check(rel <= KERNEL_TOL and same and torch.equal(rhs_apply(x), got),
+              f"K1's rhs entry at {y_len}^2: rel err {rel:.3e}, lanes equal "
+              f"to the single-field kernel {same}")
+        ms, apply_ms, dev_ms = three_ways(
+            lambda: wk.wilson_r1_rhs_apply(phase, x, alpha),
+            lambda: rhs_apply(x), torch)
+
+        def eight():
+            for b in range(NRHS):
+                single(x[b])
+        eight_ms, eight_dev = time_ms(eight, torch), graph_ms(eight, torch)
+        one_dev = graph_ms(lambda: single(x[0]), torch)
+        plain_ms = time_ms(lambda: wk.wilson_r1_apply_plain(phase, x, alpha),
+                           torch, reps=PLAIN_REPS)
+        b_ms, b_by = wilson_bound("K1", 2 * y_len * xh, NRHS)
+        print(f"K1 rhs {y_len}^2 nrhs {NRHS}: rel err {rel:.3e}, lanes bit "
+              f"for bit the single-field kernel's; us through the wrapper "
+              f"{ms * 1e3:.2f}, through bind_wilson {apply_ms * 1e3:.2f}, on "
+              f"the device alone {dev_ms * 1e3:.2f}, bound {b_ms * 1e3:.2f} "
+              f"({b_by}); 8 single-field launches {eight_ms * 1e3:.2f} "
+              f"bound, {eight_dev * 1e3:.2f} on the device alone; plain "
+              f"{plain_ms * 1e3:.2f}", flush=True)
+        before = K1_BEFORE_RHS_DEVICE_US.get(y_len, float("nan"))
+        print(f"K1 nrhs 1 (the single-field entry) {y_len}^2: "
+              f"{one_dev * 1e3:.2f} us on the device alone, before the rhs "
+              f"axis {before:.2f} "
+              f"({100 * (one_dev * 1e3 / before - 1):+.1f}%)", flush=True)
+        times.setdefault("K1rhs", (ms, plain_ms, b_ms, b_by, apply_ms,
+                                   dev_ms))
+        del phase, x, got
+    for y_len, xh in RHS_K6_SHAPES:
+        nc = 8
+        gen = torch.Generator(device=dev).manual_seed(77 + y_len)
+        ch = torch.randn((5, 2, y_len, xh, nc, nc), dtype=torch.complex64,
+                         device=dev, generator=gen)
+        x = torch.randn((NRHS, 2, y_len, xh, nc), dtype=torch.complex64,
+                        device=dev, generator=gen)
+        ref = dk.dslash_apply_plain(ch, x)
+        single = dk.bind_apply(dk.dslash_small_interleaved_apply, ch,
+                               x.shape[1:])
+        sites = 2 * y_len * xh
+        b_ms, b_by = bound(dk.apply_bytes(nc, sites, nrhs=NRHS),
+                           40 * nc * nc * sites * NRHS)
+        rhs_apply = dk.bind_apply(dk.dslash_small_rhs_apply, ch, x.shape)
+        got = dk.dslash_small_rhs_apply(ch, x)
+        torch.cuda.synchronize()
+        abs_err, rel = rel_err(got, ref)
+        worst["K6rhs"] = max(worst["K6rhs"], abs_err)
+        same = lanes_equal(torch, got, lambda b: single(x[b]))
+        check(rel <= KERNEL_TOL and same and torch.equal(rhs_apply(x), got),
+              f"K6's rhs entry at {y_len}^2 nc8: rel err {rel:.3e}, lanes "
+              f"equal to the single-field kernel {same}")
+        blocks, threads, sms = dk.small_grid(nc, y_len, xh, nrhs=NRHS)
+        ms, apply_ms, dev_ms = three_ways(
+            lambda: dk.dslash_small_rhs_apply(ch, x),
+            lambda: rhs_apply(x), torch)
+
+        def eight():
+            for b in range(NRHS):
+                single(x[b])
+        eight_ms, eight_dev = time_ms(eight, torch), graph_ms(eight, torch)
+        plain_ms = time_ms(lambda: dk.dslash_apply_plain(ch, x), torch,
+                           reps=PLAIN_REPS)
+        print(f"K6 rhs {y_len}^2 nc8 nrhs {NRHS}, {NRHS} block rows of "
+              f"{blocks} blocks x {threads} threads ({sms} SMs): rel err "
+              f"{rel:.3e}, lanes bit for bit the single-field kernel's; us "
+              f"through the wrapper {ms * 1e3:.2f}, through bind_apply "
+              f"{apply_ms * 1e3:.2f}, on the device alone {dev_ms * 1e3:.2f}, "
+              f"bound {b_ms * 1e3:.2f} ({b_by}); 8 single-field launches "
+              f"{eight_ms * 1e3:.2f} bound, {eight_dev * 1e3:.2f} on the "
+              f"device alone; plain {plain_ms * 1e3:.2f}", flush=True)
+        times.setdefault("K6rhs", (ms, plain_ms, b_ms, b_by, apply_ms,
+                                   dev_ms))
+    return worst, times
+
+
+def rhs_counts():
+    """The rhs entries' launch counts."""
+    from qmg_tpu_torch.kcycle import launch_counts
+    counts = launch_counts()
+    return {k: counts[k] for k in ("wilson_r1_rhs", "dslash_small_rhs")}
+
+
+def batched_phase(torch, dev):
+    """Phase 15. Returns the rhs kernels' launches over the batched
+    solves."""
+    from qmg_tpu_torch.kcycle import (build_problem, true_residual, TOL,
+                                      MAX_ITER, reset_launch_counts)
+    from qmg_tpu_torch.solve import make_solver, make_batched_solver
+    from qmg_tpu_torch.rng import QMGRandom
+    problem = build_problem(512, dev)
+    lat_shape = tuple(problem["b"].shape)
+    rng = QMGRandom(2024)
+    rhs = [problem["b"]] + [
+        torch.as_tensor(rng.gaussian_cv(problem["op"].lat)).to(
+            device=dev, dtype=torch.complex64) for _ in range(5)]
+    point = torch.zeros(lat_shape, dtype=torch.complex64, device=dev)
+    point[0, 0, 0, 0] = 1.0
+    wall = torch.zeros(lat_shape, dtype=torch.complex64, device=dev)
+    wall[:, 0] = 1.0
+    B = torch.stack(rhs + [point, wall])
+    kw = dict(tol=TOL, max_iter=MAX_ITER, restart_freq=problem["restart"],
+              fine_kernel="wilson-r1", coarse_apply="small")
+    seq = make_solver(problem["mg"], **kw)
+    bat = make_batched_solver(problem["mg"], **kw)
+
+    def run_seq():
+        return [seq(B[k])[0] for k in range(NRHS)]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    run_seq()                     # warm-up of both modes
+    bat(B)
+    reset_launch_counts()
+    times = {"batched": [], "sequential": []}
+    for mode in ("batched", "sequential", "sequential", "batched",
+                 "batched", "sequential"):
+        out, ms = timed((lambda: bat(B)[0]) if mode == "batched"
+                        else run_seq)
+        times[mode].append(ms)
+        if mode == "batched":
+            res_b = out
+        else:
+            res_s = out
+    torch.cuda.synchronize()
+    counts = rhs_counts()
+    its_b = [int(i) for i in res_b.iters]
+    its_s = [int(r.iters) for r in res_s]
+    true_b = [true_residual(problem["op"], B[k], res_b.x[k])
+              for k in range(NRHS)]
+    true_s = [true_residual(problem["op"], B[k], res_s[k].x)
+              for k in range(NRHS)]
+    med = {m: float(np.median(t)) for m, t in times.items()}
+    print(f"--- 512^2 batched solve, nrhs {NRHS} (6 gaussian, a point, a "
+          f"wall), wilson-r1 + small coarse; levels {bat.level_applies}",
+          flush=True)
+    print(f"outer iterations batched {its_b}, sequential {its_s}",
+          flush=True)
+    print("true residuals batched " + ", ".join(f"{r:.3e}" for r in true_b)
+          + "; sequential " + ", ".join(f"{r:.3e}" for r in true_s),
+          flush=True)
+    for m in ("batched", "sequential"):
+        print(f"{m}: ms for the {NRHS} rhs in turns "
+              + ", ".join(f"{t:.1f}" for t in times[m])
+              + f"; median {med[m]:.1f} ms = {med[m] / NRHS:.2f} ms per rhs",
+              flush=True)
+    print(f"batched / sequential per rhs: {med['batched'] / med['sequential']:.3f}"
+          f"; rhs-kernel launches over 3 batched solves: {counts}",
+          flush=True)
+    check(all(abs(a - b) <= 1 for a, b in zip(its_b, its_s)),
+          f"batched lanes' outer iterations {its_b} vs sequential {its_s}")
+    check(max(true_b + true_s) <= TRUE_RES_BOUND,
+          f"a true residual exceeds {TRUE_RES_BOUND}: {true_b} {true_s}")
+    check(bool(torch.isfinite(torch.view_as_real(res_b.x)).all()),
+          "batched solution not finite")
+    check(counts["wilson_r1_rhs"] > 0 and counts["dslash_small_rhs"] > 0,
+          f"the batched solve did not launch the rhs kernels: {counts}")
+    return counts
+
+
+def stream_phase(torch, dev):
+    """Phase 16. Returns the rhs kernels' launches over the stream."""
+    from qmg_tpu_torch import stream
+    from qmg_tpu_torch.kcycle import reset_launch_counts
+    n_configs, n_therm, n_update = STREAM_COUNTS
+    kw = dict(L=STREAM_L, n_refine=3, n_therm=n_therm, n_update=n_update,
+              device=dev, verbose=False)
+    log = []
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    mean, _, plaqs, iters, _ = stream.run_stream(
+        n_configs=n_configs, batched=True, log=log, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = rhs_counts()
+    # The first configuration again (the same draws), its two sources
+    # solved one by one through the plain applies.
+    _, _, ref_plaqs, ref_iters, ref_pions = stream.run_stream(
+        n_configs=1, fine_kernel=None, coarse_apply="plain", **kw)
+    ref = ref_pions[0][:STREAM_REF_T]
+    ref_rel = float(np.max(np.abs(log[0]["pion"][:STREAM_REF_T] - ref)
+                           / np.abs(ref)))
+    hb_s = float(np.mean([e["heatbath_s"] for e in log])) / n_update
+    print(f"--- stream {STREAM_L}^2, n_refine 3, batched, {n_configs} "
+          f"configs, {n_therm} thermalization + {n_update} updates between "
+          f"configs: {wall:.1f} s; heatbath {hb_s * 1e3:.1f} ms an update at "
+          f"{STREAM_L}^2", flush=True)
+    for e in log:
+        print(f"config {e['config']}: plaq {e['plaq']:.6f}, outer iterations "
+              f"per source {e['iters']}, heatbath {e['heatbath_s']:.3f} s, "
+              f"setup {e['setup_s']:.3f} s, solves {e['solve_s']:.3f} s, "
+              f"C(0..5) " + " ".join(f"{c:.4e}" for c in e["pion"][:6]),
+              flush=True)
+    print("mean C(0..5) " + " ".join(f"{c:.4e}" for c in mean[:6])
+          + f"; rhs-kernel launches {counts}", flush=True)
+    print(f"config 0 through plain applies and sequential solves: outer "
+          f"iterations {ref_iters}, C(0..5) "
+          + " ".join(f"{c:.4e}" for c in ref[:6])
+          + f"; max rel difference over t < {STREAM_REF_T}: {ref_rel:.3e}",
+          flush=True)
+    check(len(plaqs) == n_configs,
+          f"{n_configs - len(plaqs)} configuration(s) hit max_iter")
+    check(all(0.85 < p < 0.97 for p in plaqs), f"plaquettes {plaqs}")
+    check(ref_plaqs == plaqs[:1] and ref_rel <= STREAM_REF_RTOL,
+          f"config 0's correlator differs from the plain path's: rel "
+          f"{ref_rel:.3e}, plaquettes {plaqs[:1]} vs {ref_plaqs}")
+    check(bool(np.all(mean[:8] > 0)) and mean[1] > mean[5],
+          f"the correlator is not positive and decaying: {mean[:8]}")
+    check(counts["wilson_r1_rhs"] > 0 and counts["dslash_small_rhs"] > 0,
+          f"the stream did not launch the rhs kernels: {counts}")
+    return counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -812,13 +1111,14 @@ def main():
     print(tool_line(["nvidia-smi", "--query-gpu=name,power.limit",
                      "--format=csv,noheader"]), flush=True)
 
-    # --- 2. build: one nvcc per source, started together ---
-    with ThreadPoolExecutor(2) as pool:
-        builds = {"wilson": pool.submit(wk.build_wilson),
-                  "dslash": pool.submit(dk.build_dslash)}
+    # --- 2. build: one compiler per source, started together ---
+    from qmg_tpu_torch import u1
+    with ThreadPoolExecutor(3) as pool:
+        builds = {"wilson (nvcc sm_90a)": pool.submit(wk.build_wilson),
+                  "dslash (nvcc sm_90a)": pool.submit(dk.build_dslash),
+                  "heatbath (host c++)": pool.submit(u1.build_heatbath)}
         for name, fut in builds.items():
-            print(f"build {name} (nvcc sm_90a): {fut.result():.2f} s",
-                  flush=True)
+            print(f"build {name}: {fut.result():.2f} s", flush=True)
 
     # --- 3. kernel vs plain ---
     floor_ms = graph_ms(dk.empty_launch, torch)
@@ -860,6 +1160,12 @@ def main():
     halo_worst, halo_times = halo_phase(torch, wk, dev)
     nccl_phase(torch, dev)
 
+    # --- 14.-16. the rhs-axis kernels, the batched solve, the stream ---
+    rhs_worst, rhs_times = rhs_kernel_phase(torch, wk, dk, dev)
+    rhs_launches = batched_phase(torch, dev)
+    for name, n in stream_phase(torch, dev).items():
+        rhs_launches[name] += n
+
     # Each Wilson kernel at its path's shape: K1 the 512^2 solve, K2 the
     # 2048^2 solve, K3 the 2048^2 chain.
     kernels = []
@@ -897,6 +1203,21 @@ def main():
             "source": "qmg_tpu_torch/csrc/dslash.cu",
             "replaces": f"qmg_tpu/pallas_dslash.py:{line}",
             "launches": path_launches[name], "max_abs_err": worst[kid],
+            "ms": k_ms, "plain_ms": k_plain, "bound_ms": k_bound,
+            "bound_by": k_by, "library_ms": None, "bound_apply_ms": k_apply,
+            "device_ms": k_dev})
+    # The rhs entries of K1 and K6 at the batched solve's shapes (512^2 and
+    # 32^2 nc8, nrhs 8); launches over phases 15 and 16.
+    for name, kid, source, line in (
+            ("wilson_r1_rhs", "K1rhs", "wilson.cu", "pallas_wilson.py:475"),
+            ("dslash_small_rhs", "K6rhs", "dslash.cu",
+             "pallas_dslash.py:548")):
+        k_ms, k_plain, k_bound, k_by, k_apply, k_dev = rhs_times[kid]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"qmg_tpu_torch/csrc/{source}",
+            "replaces": f"qmg_tpu/{line}",
+            "launches": rhs_launches[name], "max_abs_err": rhs_worst[kid],
             "ms": k_ms, "plain_ms": k_plain, "bound_ms": k_bound,
             "bound_by": k_by, "library_ms": None, "bound_apply_ms": k_apply,
             "device_ms": k_dev})

@@ -4,7 +4,7 @@
 //   v = [x(s), x(s + x), x(s + y), x(s - x), x(s - y)],
 //   C = [clover + mass pattern, H_+x, H_+y, H_-x, H_-y]   (nc x nc each)
 //
-// Four entries, each with its own C launcher:
+// Five entries, each with its own C launcher:
 //
 //   dslash_launch        replaces qmg_tpu/pallas_dslash.py::_dslash_kernel
 //                        (K4), the interleaved layout;
@@ -14,7 +14,11 @@
 //                        replace ::_dslash_small_kernel (K6), the kernel
 //                        of the lattices too small to stream, in the
 //                        split layout (the TPU kernel's) and in the
-//                        interleaved one (the solve's own).
+//                        interleaved one (the solve's own);
+//   dslash_small_rhs_launch
+//                        K6 in the interleaved layout on nrhs fields at
+//                        once (the batched solve's coarse levels), one
+//                        block row of the grid a field.
 //
 // Layouts (complex64 fields, channels built by dslash_kernel.py):
 //   interleaved  x, out (2p, Y, Xh, nc);       C (5, 2p, Y, Xh, nc, nc)
@@ -76,7 +80,15 @@
 //     saves are L1 broadcasts. PERF.md has the numbers;
 //   * the row map is a template parameter, so the solve applies its
 //     coarse levels in the interleaved layout its fields already have,
-//     without the two layout copies that the split entry needs.
+//     without the two layout copies that the split entry needs;
+//   * with an rhs axis (the batched solve) block row b of the grid
+//     applies field b: the first field's block rows bring a level's
+//     coefficients (2.6 MB at 32^2 nc8) into L2 and the others read them
+//     there, all fields side by side. Reading them once instead, in
+//     threads that keep them in registers and loop over the fields,
+//     chains nrhs rounds of loads in each thread: on an H100 at nrhs 8
+//     that is slower on the device alone at 32^2 and 8^2 nc8 (PERF.md
+//     has the numbers);
 // nc = 1 keeps 8-byte (4-byte in bf16) loads, nc = 2 in bf16 8-byte ones.
 
 #include <cuda_runtime.h>
@@ -237,6 +249,12 @@ __device__ __forceinline__ void load_x(const float2* __restrict__ p,
 // sums its V columns of the five terms, the row's lanes join their sums by
 // shuffles and lane 0 writes. No thread leaves before the shuffles: one
 // past the last row works on row 0 and does not write.
+//
+// The rhs axis: x and out hold gridDim.y fields one after another, and
+// block row b = blockIdx.y applies field b with the same loads and the
+// same sums in the same order as every other, so field b of the output is
+// bit for bit the single-field kernel on field b. One field is a grid of
+// one block row.
 template <int NC, typename CT, bool SPLIT>
 __global__ void __launch_bounds__(kThreads)
 dslash_small_kernel(const CT* __restrict__ ch, const float2* __restrict__ x,
@@ -256,6 +274,10 @@ dslash_small_kernel(const CT* __restrict__ ch, const float2* __restrict__ x,
   const int xh = rem - row * xh_len;
   int src[5];
   stencil_sources<SPLIT>(q, row, xh, y_len, xh_len, src);
+
+  const size_t field = static_cast<size_t>(blockIdx.y) * 2 * half * NC;
+  x += field;
+  out += field;
 
   float2 c[5][V], v[5][V];
 #pragma unroll
@@ -313,14 +335,17 @@ int sm_count(int* sms) {
   return 0;
 }
 
-// K6's grid for ``threads_total`` threads: blocks of 256 threads, halved
-// down to one warp until there are at least as many blocks as SMs.
-int small_grid(int threads_total, int* blocks, int* threads) {
+// K6's grid for ``threads_total`` threads of one field and ``nrhs`` block
+// rows: blocks of 256 threads, halved down to one warp until the grid has
+// at least as many blocks as SMs; ``blocks`` is its width.
+int small_grid(int threads_total, int nrhs, int* blocks, int* threads) {
   int sms = 0;
   const int err = sm_count(&sms);
   if (err != 0) return err;
   int t = kThreads;
-  while (t > 32 && (threads_total + t - 1) / t < sms) t >>= 1;
+  while (t > 32 && nrhs * ((threads_total + t - 1) / t) < sms) {
+    t >>= 1;
+  }
   *threads = t;
   *blocks = (threads_total + t - 1) / t;
   return 0;
@@ -328,14 +353,18 @@ int small_grid(int threads_total, int* blocks, int* threads) {
 
 template <int NC, typename CT, bool SPLIT>
 int launch_small(const void* ch, const void* x, void* out, int y_len,
-                 int xh_len, cudaStream_t stream) {
+                 int xh_len, int nrhs, cudaStream_t stream) {
+  if (nrhs < 1 || nrhs > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   int blocks = 0, threads = 0;
-  const int err = small_grid(
-      2 * y_len * xh_len * NC * SmallShape<NC, CT>::L, &blocks, &threads);
+  const int err = small_grid(2 * y_len * xh_len * NC * SmallShape<NC, CT>::L,
+                             nrhs, &blocks, &threads);
   if (err != 0) return err;
-  dslash_small_kernel<NC, CT, SPLIT><<<blocks, threads, 0, stream>>>(
-      static_cast<const CT*>(ch), static_cast<const float2*>(x),
-      static_cast<float2*>(out), y_len, xh_len);
+  dslash_small_kernel<NC, CT, SPLIT>
+      <<<dim3(blocks, nrhs), threads, 0, stream>>>(
+          static_cast<const CT*>(ch), static_cast<const float2*>(x),
+          static_cast<float2*>(out), y_len, xh_len);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -354,26 +383,31 @@ int dispatch_dslash(int nc, const void* ch, const void* x, void* out,
 
 template <typename CT, bool SPLIT>
 int dispatch_small(int nc, const void* ch, const void* x, void* out,
-                   int y_len, int xh_len, cudaStream_t s) {
+                   int y_len, int xh_len, int nrhs, cudaStream_t s) {
   switch (nc) {
-    case 1: return launch_small<1, CT, SPLIT>(ch, x, out, y_len, xh_len, s);
-    case 2: return launch_small<2, CT, SPLIT>(ch, x, out, y_len, xh_len, s);
-    case 4: return launch_small<4, CT, SPLIT>(ch, x, out, y_len, xh_len, s);
-    case 8: return launch_small<8, CT, SPLIT>(ch, x, out, y_len, xh_len, s);
-    case 16: return launch_small<16, CT, SPLIT>(ch, x, out, y_len, xh_len, s);
+    case 1: return launch_small<1, CT, SPLIT>(ch, x, out, y_len, xh_len,
+                                              nrhs, s);
+    case 2: return launch_small<2, CT, SPLIT>(ch, x, out, y_len, xh_len,
+                                              nrhs, s);
+    case 4: return launch_small<4, CT, SPLIT>(ch, x, out, y_len, xh_len,
+                                              nrhs, s);
+    case 8: return launch_small<8, CT, SPLIT>(ch, x, out, y_len, xh_len,
+                                              nrhs, s);
+    case 16: return launch_small<16, CT, SPLIT>(ch, x, out, y_len, xh_len,
+                                                nrhs, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 template <bool SPLIT>
 int small_entry(const void* ch, int coeff_bf16, const void* x, void* out,
-                int nc, int y_len, int xh_len, void* stream) {
+                int nc, int y_len, int xh_len, int nrhs, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return coeff_bf16
              ? dispatch_small<__nv_bfloat162, SPLIT>(nc, ch, x, out, y_len,
-                                                     xh_len, s)
+                                                     xh_len, nrhs, s)
              : dispatch_small<float2, SPLIT>(nc, ch, x, out, y_len, xh_len,
-                                             s);
+                                             nrhs, s);
 }
 
 }  // namespace
@@ -411,7 +445,7 @@ extern "C" int dslash_small_launch(const void* ch, int coeff_bf16,
                                    const void* x, void* out, int nc,
                                    int yh_len, int xh_len, void* stream) {
   return small_entry<true>(ch, coeff_bf16, x, out, nc, 2 * yh_len, xh_len,
-                           stream);
+                           1, stream);
 }
 
 // K6 in the layouts of K4; ch, x and out 16-byte aligned.
@@ -419,13 +453,26 @@ extern "C" int dslash_small_interleaved_launch(const void* ch,
                                                int coeff_bf16, const void* x,
                                                void* out, int nc, int y_len,
                                                int xh_len, void* stream) {
-  return small_entry<false>(ch, coeff_bf16, x, out, nc, y_len, xh_len,
+  return small_entry<false>(ch, coeff_bf16, x, out, nc, y_len, xh_len, 1,
+                            stream);
+}
+
+// K6 in the layouts of K4 with an rhs axis: x, out (nrhs, 2, Y, Xh, nc)
+// with 1 <= nrhs <= 65535; ch (5, 2, Y, Xh, nc, nc), one set for all
+// fields, read by every field's block row (from L2 after the first).
+// 16-byte aligned.
+extern "C" int dslash_small_rhs_launch(const void* ch, int coeff_bf16,
+                                       const void* x, void* out, int nc,
+                                       int y_len, int xh_len, int nrhs,
+                                       void* stream) {
+  return small_entry<false>(ch, coeff_bf16, x, out, nc, y_len, xh_len, nrhs,
                             stream);
 }
 
 // The grid K6 launches on the current device for a lattice of
-// ``sites`` = 2 Y Xh sites: its blocks, their threads and the card's SMs.
-extern "C" int dslash_small_grid(int coeff_bf16, int nc, int sites,
+// ``sites`` = 2 Y Xh sites and ``nrhs`` fields (block rows): its width in
+// blocks, their threads and the card's SMs.
+extern "C" int dslash_small_grid(int coeff_bf16, int nc, int sites, int nrhs,
                                  int* blocks, int* threads, int* sms) {
   if (nc != 1 && nc != 2 && nc != 4 && nc != 8 && nc != 16) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -433,7 +480,8 @@ extern "C" int dslash_small_grid(int coeff_bf16, int nc, int sites,
   const int lanes = small_lanes(
       nc, coeff_bf16 ? sizeof(__nv_bfloat162) : sizeof(float2));
   const int err = sm_count(sms);
-  return err != 0 ? err : small_grid(sites * nc * lanes, blocks, threads);
+  return err != 0 ? err
+                  : small_grid(sites * nc * lanes, nrhs, blocks, threads);
 }
 
 // A kernel that does nothing, on ``stream``: the card's launch floor, for

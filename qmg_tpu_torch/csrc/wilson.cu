@@ -1,6 +1,8 @@
 // The Wilson Dslash kernels on U(1) x spin-2, one thread per site.
 //
-//   wilson_r1_kernel<false>  rank-1 apply at w = 1, interleaved layout;
+//   wilson_r1_kernel<false>  rank-1 apply at w = 1, interleaved layout, on
+//                            one field or on nrhs fields with one set of
+//                            phases (the batched solve's level 0);
 //                            replaces qmg_tpu/pallas_wilson.py::
 //                            _wilson_rank1_kernel
 //   wilson_r1_kernel<true>   the same arithmetic in the row-parity-split
@@ -48,7 +50,8 @@
 // What bounds them on an H100: bytes. Per site each reads 32 B of phases
 // and 16 B of its own spinor, writes 16 B, and reads four neighbour
 // spinors that neighbouring threads also read (cache hits) - 64 B/site of
-// compulsory traffic for 52 flops (rank-1) or about 100 (any w). At 512^2
+// compulsory traffic for 52 flops (rank-1) or about 100 (any w); with nrhs
+// fields the phases are read once, 32 + 32 nrhs B/site. At 512^2
 // one apply's 16.8 MB sits in the 50 MB L2, so launch latency dominates; at
 // 2048^2 it streams from HBM. These are simple coalesced thread-per-site
 // kernels: consecutive threads take consecutive xh, so every load and the
@@ -150,22 +153,19 @@ __device__ __forceinline__ float4 rank1_site(
   return o;
 }
 
+// ``nrhs`` fields of x and out lie one after another; the thread loads its
+// site's four phases once and applies them to each field in turn, with the
+// same loads and the same ``rank1_site`` arithmetic, so field b of the
+// output is bit for bit the kernel on field b alone (nrhs = 1).
 template <bool SPLIT>
 __global__ void __launch_bounds__(kThreads)
 wilson_r1_kernel(const float2* __restrict__ phase,
                  const float4* __restrict__ x,
                  float4* __restrict__ out, int y_len, int xh_len,
-                 float alpha) {
+                 float alpha, int nrhs) {
   Site st;
   if (!locate<SPLIT>(y_len, xh_len, st)) return;
   const int half = y_len * xh_len;
-  const float4* src = x + (1 - st.q) * half;     // neighbours: other parity
-
-  const float4 vxp = src[st.xp];
-  const float4 vxm = src[st.xm];
-  const float4 vyp = src[st.yp];
-  const float4 vym = src[st.ym];
-  const float4 s = x[st.idx];
 
   // phase[(d * 2 + q) * half + rem], d in {+x, +y, -x, -y}
   const float2 p_xp = phase[(0 * 2 + st.q) * half + st.rem];
@@ -173,8 +173,18 @@ wilson_r1_kernel(const float2* __restrict__ phase,
   const float2 p_xm = phase[(2 * 2 + st.q) * half + st.rem];
   const float2 p_ym = phase[(3 * 2 + st.q) * half + st.rem];
 
-  out[st.idx] = rank1_site(vxp, vxm, vyp, vym, s, p_xp, p_yp, p_xm, p_ym,
-                           alpha);
+  const size_t field = 2 * static_cast<size_t>(half);
+  for (int b = 0; b < nrhs; ++b) {
+    const float4* xb = x + b * field;
+    const float4* src = xb + (1 - st.q) * half;  // neighbours: other parity
+    const float4 vxp = src[st.xp];
+    const float4 vxm = src[st.xm];
+    const float4 vyp = src[st.yp];
+    const float4 vym = src[st.ym];
+    const float4 s = xb[st.idx];
+    out[b * field + st.idx] = rank1_site(vxp, vxm, vyp, vym, s, p_xp, p_yp,
+                                         p_xm, p_ym, alpha);
+  }
 }
 
 // One thread per site of the slab (2 parity, y_len rows, xh_len). The
@@ -282,14 +292,23 @@ inline int blocks_for(int rows, int xh_len) {
 
 // Each launches on ``stream`` and returns cudaGetLastError() (0 on success).
 
-extern "C" int wilson_r1_launch(const void* phase, const void* x, void* out,
-                                int y_len, int xh_len, float alpha,
-                                void* stream) {
+// x, out (nrhs, 2, Y, Xh, 2) and phase (4, 2, Y, Xh): the rank-1 apply on
+// nrhs fields with one set of phases.
+extern "C" int wilson_r1_rhs_launch(const void* phase, const void* x,
+                                    void* out, int nrhs, int y_len,
+                                    int xh_len, float alpha, void* stream) {
+  if (nrhs < 1) return static_cast<int>(cudaErrorInvalidValue);
   wilson_r1_kernel<false><<<blocks_for(y_len, xh_len), kThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float2*>(phase), static_cast<const float4*>(x),
-      static_cast<float4*>(out), y_len, xh_len, alpha);
+      static_cast<float4*>(out), y_len, xh_len, alpha, nrhs);
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int wilson_r1_launch(const void* phase, const void* x, void* out,
+                                int y_len, int xh_len, float alpha,
+                                void* stream) {
+  return wilson_r1_rhs_launch(phase, x, out, 1, y_len, xh_len, alpha, stream);
 }
 
 // x, out (2, 2, Yh, Xh, 2) and phase (4, 2, 2, Yh, Xh) in the split layout.
@@ -299,7 +318,7 @@ extern "C" int wilson_r1_split_launch(const void* phase, const void* x,
   wilson_r1_kernel<true><<<blocks_for(2 * yh_len, xh_len), kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float2*>(phase), static_cast<const float4*>(x),
-      static_cast<float4*>(out), 2 * yh_len, xh_len, alpha);
+      static_cast<float4*>(out), 2 * yh_len, xh_len, alpha, 1);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -20,12 +20,16 @@ rounded real and imaginary parts of the complex64 channels; the kernels
 and the twins widen bf16 to float32 and accumulate in float32.
 
 Each wrapper (``dslash_apply``, ``dslash_split_apply``,
-``dslash_small_apply``, ``dslash_small_interleaved_apply``) launches its
-kernel for CUDA tensors, or raises, and runs its twin for CPU tensors;
-``<wrapper>.launches`` counts kernel launches. K6 has two entries, one per
-layout: ``dslash_small_apply`` takes the split layout of the TPU kernel,
+``dslash_small_apply``, ``dslash_small_interleaved_apply``,
+``dslash_small_rhs_apply``) launches its kernel for CUDA tensors, or
+raises, and runs its twin for CPU tensors; ``<wrapper>.launches`` counts
+kernel launches. K6 has two entries, one per layout: ``dslash_small_apply``
+takes the split layout of the TPU kernel,
 ``dslash_small_interleaved_apply`` the interleaved one that the solve's
-fields have, and both count in ``dslash_small_apply.launches``. The
+fields have, and both count in ``dslash_small_apply.launches``; its third
+entry ``dslash_small_rhs_apply`` takes nrhs interleaved fields
+(nrhs, 2, Y, Xh, nc) with one set of channels (the batched solve's coarse
+levels) and counts in its own ``launches``. The
 kernels take nc in ``SUPPORTED_NC``; the wrappers refuse any other nc on
 every device. ``bind_apply`` makes a wrapper's checks once for fixed
 channels and x shape, for callers that apply one operator many times (the
@@ -38,6 +42,7 @@ the card's memory rate; their bound is the one over the other.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Callable, NamedTuple
 
 import torch
@@ -51,7 +56,8 @@ __all__ = ["SUPPORTED_NC", "HBM_BYTES_S", "stencil_channels",
            "stencil_channels_split", "channels_to_split", "x_to_split",
            "x_from_split", "small_fits", "apply_bytes", "dslash_apply",
            "dslash_split_apply", "dslash_small_apply",
-           "dslash_small_interleaved_apply", "bind_apply",
+           "dslash_small_interleaved_apply", "dslash_small_rhs_apply",
+           "bind_apply",
            "dslash_apply_plain", "dslash_split_apply_plain",
            "dslash_small_apply_plain", "small_grid", "empty_launch",
            "build_dslash"]
@@ -66,12 +72,13 @@ HBM_BYTES_S = 3.35e12
 _LIB = {}
 
 
-def apply_bytes(nc: int, sites: int, coeff_dtype=None) -> int:
-    """Compulsory bytes of one stencil apply over ``sites`` sites: the
-    5 nc^2 channel entries (8 B complex64, 4 B as bf16 pairs) and x read
-    once, out written once (bench.py's byte count)."""
+def apply_bytes(nc: int, sites: int, coeff_dtype=None, nrhs: int = 1) -> int:
+    """Compulsory bytes of one stencil apply over ``sites`` sites and
+    ``nrhs`` fields: the 5 nc^2 channel entries (8 B complex64, 4 B as
+    bf16 pairs) read once, each field's x read once and out written once
+    (bench.py's byte count at nrhs = 1)."""
     coeff = 4 if coeff_dtype == torch.bfloat16 else 8
-    return (5 * nc * nc * coeff + 2 * nc * 8) * sites
+    return (5 * nc * nc * coeff + nrhs * 2 * nc * 8) * sites
 
 
 def build_dslash() -> float:
@@ -79,16 +86,17 @@ def build_dslash() -> float:
     if "lib" in _LIB:
         return 0.0
     lib, seconds = build_library(SOURCE)
-    for name in ("dslash_launch", "dslash_split_launch",
-                 "dslash_small_launch", "dslash_small_interleaved_launch"):
+    ptr, c_int = ctypes.c_void_p, ctypes.c_int
+    for name, ints in (("dslash_launch", 3), ("dslash_split_launch", 3),
+                       ("dslash_small_launch", 3),
+                       ("dslash_small_interleaved_launch", 3),
+                       ("dslash_small_rhs_launch", 4)):
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        fn.argtypes = [ptr, c_int, ptr, ptr] + [c_int] * ints + [ptr]
+        fn.restype = c_int
         _LIB[name] = fn
     int_p = ctypes.POINTER(ctypes.c_int)
-    lib.dslash_small_grid.argtypes = [ctypes.c_int] * 3 + [int_p] * 3
+    lib.dslash_small_grid.argtypes = [ctypes.c_int] * 4 + [int_p] * 3
     lib.dslash_small_grid.restype = ctypes.c_int
     lib.empty_launch.argtypes = [ctypes.c_void_p]
     lib.empty_launch.restype = ctypes.c_int
@@ -188,8 +196,10 @@ def _widen(ch):
 
 def dslash_apply_plain(ch, x):
     """The K4 kernel's arithmetic in PyTorch: the four neighbours through
-    ``cshift_pull`` and one stacked matvec."""
-    nbrs = torch.stack([x] + [cshift_pull(x, d) for d in ALL_DIRS])
+    ``cshift_pull`` and one stacked matvec; x may carry leading batch axes
+    (``(*batch, 2, Y, Xh, nc)``), the channels broadcast over them."""
+    nb = x.ndim - 4
+    nbrs = torch.stack([x] + [cshift_pull(x, d, nb) for d in ALL_DIRS])
     return stacked_site_matvec(_widen(ch), nbrs)
 
 
@@ -224,22 +234,27 @@ dslash_small_apply_plain = dslash_split_apply_plain
 # Wrappers.
 # ---------------------------------------------------------------------------
 
-def _check(name, ch, x, x_ndim):
+def _check(name, ch, x, layout):
+    """The checks of x and the channels for x's ``layout``: "interleaved"
+    (2, Y, Xh, nc), "split" (2, 2, Yh, Xh, nc) or "rhs" (nrhs, 2, Y, Xh,
+    nc), the channels of one field (5, *field, nc)."""
     if x.dtype != torch.complex64:
         raise TypeError(f"{name} needs complex64 x, got {x.dtype}")
     if ch.dtype not in (torch.complex64, torch.bfloat16):
         raise TypeError(f"{name} needs complex64 or bf16 channels, got "
                         f"{ch.dtype}")
-    if x.ndim != x_ndim or x.shape[0] != 2 or (x_ndim == 5
-                                               and x.shape[1] != 2):
+    field_ndim = 5 if layout == "split" else 4
+    field = tuple(x.shape[1:] if layout == "rhs" else x.shape)
+    if (x.ndim != field_ndim + (layout == "rhs")
+            or (layout == "rhs" and x.shape[0] < 1)
+            or field[0] != 2 or (layout == "split" and field[1] != 2)):
         raise ValueError(f"{name}: x of shape {tuple(x.shape)} is not in "
-                         f"the {'split' if x_ndim == 5 else 'interleaved'} "
-                         "layout")
+                         f"the {layout} layout")
     nc = x.shape[-1]
     if nc not in SUPPORTED_NC:
         raise ValueError(f"{name}: nc={nc} is not supported (the kernels "
                          f"are built for nc in {SUPPORTED_NC})")
-    expect = (5,) + tuple(x.shape) + (nc,)
+    expect = (5,) + field + (nc,)
     if ch.dtype == torch.bfloat16:
         expect += (2,)
     if tuple(ch.shape) != expect:
@@ -252,8 +267,9 @@ def _check(name, ch, x, x_ndim):
     if x.is_conj() or ch.is_conj():
         raise ValueError(f"{name} needs resolved (non-lazy-conj) tensors")
     # The kernels' largest index is the channels', < 5 * 2 * sites * nc^2
-    # = 5 nc x.numel(), in 32-bit ints.
-    if 5 * nc * x.numel() >= 2 ** 31:
+    # = 5 nc x.numel() of one field, in 32-bit ints (fields are offset in
+    # 64 bits).
+    if 5 * nc * math.prod(field) >= 2 ** 31:
         raise ValueError(f"{name}: lattice {tuple(x.shape)} too large for "
                          f"the kernels' 32-bit indices")
 
@@ -280,15 +296,16 @@ def _alignment(wrapper, ch):
     return 8, (4 if ch.dtype == torch.bfloat16 else 8)
 
 
-def _run(wrapper, fn, ch, x, rows: int, xh_len: int):
+def _run(wrapper, fn, ch, x, dims):
     """Launch ``fn`` on x's device and its current stream, unchecked, and
-    count the launch on the wrapper's counter."""
+    count the launch on the wrapper's counter; ``dims`` are the C entry's
+    integers after nc."""
     if x.device.index != torch.cuda.current_device():
         with torch.cuda.device(x.device):
-            return _run(wrapper, fn, ch, x, rows, xh_len)
+            return _run(wrapper, fn, ch, x, dims)
     out = torch.empty_like(x)
     err = fn(ch.data_ptr(), int(ch.dtype == torch.bfloat16), x.data_ptr(),
-             out.data_ptr(), x.shape[-1], rows, xh_len,
+             out.data_ptr(), x.shape[-1], *dims,
              torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{wrapper.__name__}'s launch failed: CUDA "
@@ -300,13 +317,13 @@ def _run(wrapper, fn, ch, x, rows: int, xh_len: int):
 def _launch(wrapper, ch, x):
     binding = _BINDINGS[wrapper]
     return _run(wrapper, _launcher(wrapper, binding.launcher, ch, x), ch, x,
-                *binding.dims(x.shape))
+                binding.dims(x.shape))
 
 
 def dslash_apply(ch, x):
     """K4: the stencil apply in the interleaved layout; the CUDA kernel
     for CUDA tensors, the plain twin for CPU tensors."""
-    _check("dslash_apply", ch, x, 4)
+    _check("dslash_apply", ch, x, "interleaved")
     if x.device.type == "cpu":
         return dslash_apply_plain(ch, x)
     return _launch(dslash_apply, ch, x)
@@ -314,15 +331,15 @@ def dslash_apply(ch, x):
 
 def dslash_split_apply(ch, xs):
     """K5: the stencil apply in the split layout."""
-    _check("dslash_split_apply", ch, xs, 5)
+    _check("dslash_split_apply", ch, xs, "split")
     if xs.device.type == "cpu":
         return dslash_split_apply_plain(ch, xs)
     return _launch(dslash_split_apply, ch, xs)
 
 
-def _check_small(name, ch, x):
+def _check_small(name, ch, x, layout):
     nc, xh_len = x.shape[-1], x.shape[-2]
-    y_len = x.shape[1] if x.ndim == 4 else 2 * x.shape[2]
+    y_len = 2 * x.shape[2] if layout == "split" else x.shape[-3]
     if not small_fits(nc, y_len, xh_len, ch.dtype):
         raise ValueError(f"{name}: Y={y_len} is odd, or the operands of "
                          f"Y={y_len}, Xh={xh_len}, nc={nc} exceed the small "
@@ -332,8 +349,8 @@ def _check_small(name, ch, x):
 def dslash_small_apply(ch, xs):
     """K6 in the split layout: the stencil apply for lattices that
     ``small_fits`` accepts."""
-    _check("dslash_small_apply", ch, xs, 5)
-    _check_small("dslash_small_apply", ch, xs)
+    _check("dslash_small_apply", ch, xs, "split")
+    _check_small("dslash_small_apply", ch, xs, "split")
     if xs.device.type == "cpu":
         return dslash_small_apply_plain(ch, xs)
     return _launch(dslash_small_apply, ch, xs)
@@ -343,23 +360,39 @@ def dslash_small_interleaved_apply(ch, x):
     """K6 in the interleaved layout (K4's, the solve's own): the same
     kernel with the other row map, the same refusals; its twin is K4's.
     Its launches count in ``dslash_small_apply.launches``."""
-    _check("dslash_small_interleaved_apply", ch, x, 4)
-    _check_small("dslash_small_interleaved_apply", ch, x)
+    _check("dslash_small_interleaved_apply", ch, x, "interleaved")
+    _check_small("dslash_small_interleaved_apply", ch, x, "interleaved")
     if x.device.type == "cpu":
         return dslash_apply_plain(ch, x)
     return _launch(dslash_small_interleaved_apply, ch, x)
 
 
+def dslash_small_rhs_apply(ch, x):
+    """K6 on nrhs interleaved fields x (nrhs, 2, Y, Xh, nc) with one set of
+    channels (5, 2, Y, Xh, nc, nc), in one launch whose block row b applies
+    field b (each field's block rows read the channels, from L2 after the
+    first); field b of the output is bit for bit
+    ``dslash_small_interleaved_apply`` on field b. Its twin is K4's over
+    the leading axis."""
+    _check("dslash_small_rhs_apply", ch, x, "rhs")
+    _check_small("dslash_small_rhs_apply", ch, x, "rhs")
+    if x.device.type == "cpu":
+        return dslash_apply_plain(ch, x)
+    return _launch(dslash_small_rhs_apply, ch, x)
+
+
 dslash_apply.launches = 0
 dslash_split_apply.launches = 0
 dslash_small_apply.launches = 0
+dslash_small_rhs_apply.launches = 0
 
 
 class _Binding(NamedTuple):
     """What ``bind_apply`` and the wrappers' launches know of a wrapper.
-    ``dims`` maps x's shape to (rows, Xh) as the C entry takes them: Y of
-    the interleaved layout, Yh of the split one."""
-    x_ndim: int
+    ``dims`` maps x's shape to the C entry's integers after nc: (rows,
+    Xh), rows being Y of the interleaved layout and Yh of the split one;
+    then nrhs for the rhs entry."""
+    layout: str            # x's layout, as ``_check`` takes it
     launcher: str          # the C entry
     twin: Callable
     dims: Callable
@@ -368,17 +401,22 @@ class _Binding(NamedTuple):
 
 
 _BINDINGS = {
-    dslash_apply: _Binding(4, "dslash_launch", dslash_apply_plain,
+    dslash_apply: _Binding("interleaved", "dslash_launch",
+                           dslash_apply_plain,
                            lambda shape: (shape[1], shape[2]), dslash_apply),
     dslash_split_apply: _Binding(
-        5, "dslash_split_launch", dslash_split_apply_plain,
+        "split", "dslash_split_launch", dslash_split_apply_plain,
         lambda shape: (shape[2], shape[3]), dslash_split_apply),
     dslash_small_apply: _Binding(
-        5, "dslash_small_launch", dslash_small_apply_plain,
+        "split", "dslash_small_launch", dslash_small_apply_plain,
         lambda shape: (shape[2], shape[3]), dslash_small_apply, small=True),
     dslash_small_interleaved_apply: _Binding(
-        4, "dslash_small_interleaved_launch", dslash_apply_plain,
-        lambda shape: (shape[1], shape[2]), dslash_small_apply, small=True)}
+        "interleaved", "dslash_small_interleaved_launch", dslash_apply_plain,
+        lambda shape: (shape[1], shape[2]), dslash_small_apply, small=True),
+    dslash_small_rhs_apply: _Binding(
+        "rhs", "dslash_small_rhs_launch", dslash_apply_plain,
+        lambda shape: (shape[2], shape[3], shape[0]),
+        dslash_small_rhs_apply, small=True)}
 
 
 def bind_apply(wrapper, ch, x_shape):
@@ -391,9 +429,9 @@ def bind_apply(wrapper, ch, x_shape):
     binding = _BINDINGS[wrapper]
     x_shape = torch.Size(x_shape)
     probe = torch.empty(x_shape, dtype=torch.complex64, device=ch.device)
-    _check(wrapper.__name__, ch, probe, binding.x_ndim)
+    _check(wrapper.__name__, ch, probe, binding.layout)
     if binding.small:
-        _check_small(wrapper.__name__, ch, probe)
+        _check_small(wrapper.__name__, ch, probe, binding.layout)
     device = ch.device
     x_align = _alignment(wrapper, ch)[0] if device.type == "cuda" else 1
 
@@ -414,24 +452,26 @@ def bind_apply(wrapper, ch, x_shape):
             check(x)
             return twin(ch, x)
         return apply
-    rows, xh_len = binding.dims(x_shape)
+    dims = binding.dims(x_shape)
     fn = _launcher(wrapper, binding.launcher, ch, probe)
 
     def apply(x):
         check(x)
-        return _run(wrapper, fn, ch, x, rows, xh_len)
+        return _run(wrapper, fn, ch, x, dims)
     return apply
 
 
-def small_grid(nc: int, y_len: int, xh_len: int, coeff_dtype=None):
-    """(blocks, threads per block, the card's SMs) of the grid that K6
-    launches on the current CUDA device for a (2, Y, Xh, nc) lattice, as
-    its launcher sizes it."""
+def small_grid(nc: int, y_len: int, xh_len: int, coeff_dtype=None,
+               nrhs: int = 1):
+    """(blocks in a block row, threads per block, the card's SMs) of the
+    grid that K6 launches on the current CUDA device for ``nrhs`` (2, Y,
+    Xh, nc) fields, one block row each, as its launcher sizes it."""
     build_dslash()
     blocks, threads, sms = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     err = _LIB["lib"].dslash_small_grid(
         int(coeff_dtype == torch.bfloat16), nc, 2 * y_len * xh_len,
-        ctypes.byref(blocks), ctypes.byref(threads), ctypes.byref(sms))
+        nrhs, ctypes.byref(blocks), ctypes.byref(threads),
+        ctypes.byref(sms))
     if err != 0:
         raise RuntimeError(f"small_grid failed: CUDA error {err}")
     return blocks.value, threads.value, sms.value

@@ -54,10 +54,11 @@ from .linalg import norm2sq, reductions
 from .rng import QMGRandom
 from .parallel import Mesh
 from .shard_dslash import make_sharded_dslash
-from .wilson_kernel import (wilson_r1_apply, wilson_r1_halo_apply,
-                            wilson_phase_apply, wilson_split_apply)
+from .wilson_kernel import (wilson_r1_apply, wilson_r1_rhs_apply,
+                            wilson_r1_halo_apply, wilson_phase_apply,
+                            wilson_split_apply)
 from .dslash_kernel import (dslash_apply, dslash_split_apply,
-                            dslash_small_apply)
+                            dslash_small_apply, dslash_small_rhs_apply)
 from . import u1
 
 MASS = -0.06
@@ -67,11 +68,13 @@ TOL = 1e-5
 MAX_ITER = 200
 # The CUDA kernels' wrappers by the names the reports use.
 KERNELS = {"wilson_r1": wilson_r1_apply,
+           "wilson_r1_rhs": wilson_r1_rhs_apply,
            "wilson_r1_halo": wilson_r1_halo_apply,
            "wilson_phase": wilson_phase_apply,
            "wilson_split": wilson_split_apply, "dslash": dslash_apply,
            "dslash_split": dslash_split_apply,
-           "dslash_small": dslash_small_apply}
+           "dslash_small": dslash_small_apply,
+           "dslash_small_rhs": dslash_small_rhs_apply}
 
 
 def launch_counts() -> dict:

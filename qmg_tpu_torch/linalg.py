@@ -3,14 +3,17 @@
 Fields are complex tensors of any shape; "cv" fields are (2, Y, Xh, nc)
 and "cm" fields (2, Y, Xh, nc, nc) with [..., row, col]. Reductions
 return 0-dim tensors on the field's device, so solver loops sync with the
-host only where they test convergence.
+host only where they test convergence. The ``*_lanes`` reductions are the
+batched solvers': over every axis but a leading rhs axis, one result per
+lane, ``(B,)``.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["vdot", "norm2sq", "reductions", "norm", "normalize",
+__all__ = ["vdot", "norm2sq", "vdot_lanes", "norm2sq_lanes", "reductions",
+           "norm", "normalize",
            "orthogonal",
            "site_matvec", "stacked_site_matvec", "identity_like"]
 
@@ -23,6 +26,17 @@ def vdot(a, b):
 def norm2sq(a):
     """||a||^2 as a real 0-dim tensor."""
     return vdot(a, a).real
+
+
+def vdot_lanes(a, b):
+    """<a[k], b[k]> per lane k of a leading rhs axis -> (B,) complex."""
+    return torch.linalg.vecdot(a.reshape(a.shape[0], -1),
+                               b.reshape(b.shape[0], -1))
+
+
+def norm2sq_lanes(a):
+    """||a[k]||^2 per lane k of a leading rhs axis -> (B,) real."""
+    return vdot_lanes(a, a).real
 
 
 def reductions(reduce=None):

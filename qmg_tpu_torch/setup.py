@@ -4,7 +4,8 @@ qmg_tpu/setup.py, ORIGINAL path).
   * ``generate_null_vectors``: gaussian -> orthogonalize -> residual
     equation M e = -M g with BiCGstab(l) -> v = g + e -> re-orthogonalize.
     The gaussians are drawn on the host from the shared ``QMGRandom``
-    stream and moved to the operator's device and dtype.
+    stream, or given (``setup_planes.gauss_seed_planes`` draws them ahead
+    in the same order), and moved to the operator's device and dtype.
   * ``chiral_double``: split each vector into +-chirality halves and
     normalize (ups first, then downs).
   * ``build_kcycle_hierarchy``: per refinement level, generate vectors on
@@ -39,19 +40,29 @@ def _coeff_ref(stencil: Stencil2D):
     return c.clover if c.clover is not None else c.hopping
 
 
-def generate_null_vectors(stencil: Stencil2D, n_vec: int, rng,
-                          max_iter: int = 500, tol: float = 5e-5):
+def generate_null_vectors(stencil: Stencil2D, n_vec: int, rng=None,
+                          max_iter: int = 500, tol: float = 5e-5, *,
+                          gaussians=None):
     """Algebraic near-null vectors via the residual equation, solved with
-    BiCGstab(6). Returns (vectors (n_vec, *cv_shape), total operator
+    BiCGstab(6), from gaussians drawn from ``rng`` or the given
+    ``gaussians`` (n_vec, *cv_shape) (an array or a tensor; exactly one of
+    the two). Returns (vectors (n_vec, *cv_shape), total operator
     applications)."""
+    if (rng is None) == (gaussians is None):
+        raise ValueError("give exactly one of rng and gaussians")
     lat = stencil.lat
     ref = _coeff_ref(stencil)
+    if gaussians is not None and tuple(gaussians.shape) != (
+            (n_vec,) + lat.cv_shape()):
+        raise ValueError(f"gaussians must be {(n_vec,) + lat.cv_shape()}, "
+                         f"got {tuple(gaussians.shape)}")
     matvec = stencil.get_apply_function(StencilType.ORIGINAL)
     vecs = []
     total_ops = 0
-    for _ in range(n_vec):
-        g = torch.as_tensor(rng.gaussian_cv(lat)).to(device=ref.device,
-                                                      dtype=ref.dtype)
+    for i in range(n_vec):
+        g = torch.as_tensor(rng.gaussian_cv(lat) if gaussians is None
+                            else gaussians[i]).to(device=ref.device,
+                                                  dtype=ref.dtype)
         for v in vecs:
             g = orthogonal(g, v)
         rhs = -matvec(g)
@@ -102,14 +113,22 @@ class KCycleConfig:
     nullvec_tol: float = 5e-5
     # solve the coarsest level with a dense inverse
     coarsest_direct: bool = False
+    # if > 0, every intermediate K-cycle Krylov solve runs exactly this
+    # many GCR iterations instead of stopping at inner_tol (flexible GCR
+    # tolerates any inner variation); with a direct coarsest no loop below
+    # the outer one has a stopping test
+    inner_fixed_iters: int = 0
 
     def level_solve(self) -> LevelSolveMG:
+        fixed = self.inner_fixed_iters > 0
         return LevelSolveMG(
             intermediate_tol=self.inner_tol,
-            intermediate_iters=self.inner_max_iter,
+            intermediate_iters=(self.inner_fixed_iters if fixed
+                                else self.inner_max_iter),
             intermediate_restart_freq=self.inner_restart_freq,
             pre_tol=self.pre_smooth_tol, pre_iters=self.n_pre_smooth,
-            post_tol=self.post_smooth_tol, post_iters=self.n_post_smooth)
+            post_tol=self.post_smooth_tol, post_iters=self.n_post_smooth,
+            fixed_trips=fixed)
 
     def coarsest_solve(self) -> CoarsestSolveMG:
         return CoarsestSolveMG(coarsest_tol=self.coarsest_tol,
@@ -127,8 +146,17 @@ class KCycleConfig:
 
 
 def build_kcycle_hierarchy(lat0: Lattice2D, fine_op: Stencil2D,
-                           cfg: KCycleConfig, rng) -> StatefulMultigridMG:
-    """Construct the full n13 hierarchy on the fine operator's device."""
+                           cfg: KCycleConfig, rng=None, *, seeds=None
+                           ) -> StatefulMultigridMG:
+    """Construct the full n13 hierarchy on the fine operator's device. The
+    null vectors' gaussians come from ``rng`` (drawn level by level as the
+    build goes) or from ``seeds``, one (coarse_dof / 2, *cv_shape) stack
+    per refinement level (``setup_planes.gauss_seed_planes``)."""
+    if (rng is None) == (seeds is None):
+        raise ValueError("give exactly one of rng and seeds")
+    if seeds is not None and len(seeds) != cfg.n_refine:
+        raise ValueError(f"need {cfg.n_refine} gauss seed stacks, got "
+                         f"{len(seeds)}")
     pin_full_precision()
     mg = StatefulMultigridMG(lat0, fine_op, cfg.coarsest_solve())
     lat_prev = lat0
@@ -136,7 +164,8 @@ def build_kcycle_hierarchy(lat0: Lattice2D, fine_op: Stencil2D,
         stencil = mg.get_stencil(i - 1)
         vecs, ops = generate_null_vectors(
             stencil, cfg.coarse_dof // 2, rng,
-            max_iter=cfg.nullvec_max_iter, tol=cfg.nullvec_tol)
+            max_iter=cfg.nullvec_max_iter, tol=cfg.nullvec_tol,
+            gaussians=None if seeds is None else seeds[i - 1])
         mg.add_tracker_count(DSLASH_NULLVEC, ops, i - 1)
         raw = chiral_double(stencil, vecs)
         transfer = TransferMG(lat_prev, lat_i, raw,

@@ -1,0 +1,94 @@
+"""The per-configuration setup from explicit gaussian seeds (port of the
+interface of qmg_tpu/setup_planes.py).
+
+A measurement stream rebuilds the hierarchy for every gauge configuration.
+qmg_tpu traces that setup into jitted stages with float32 "planes" at
+their boundaries, because its TPU backend has no eager complex arithmetic;
+in PyTorch the eager setup (``setup.build_kcycle_hierarchy``) already runs
+on the device, so what is ported here is the interface:
+
+  * ``gauss_seed_planes(lat, cfg, rng)`` draws the null-vector gaussians on
+    the host ahead of the setup, in the reference's order (per level, per
+    vector), as complex128 stacks;
+  * ``make_kcycle_setup_planes(lat, cfg, mass, w, device=...)`` returns
+    ``setup_fn(gauge, *seeds)``, which builds the Wilson operator and the
+    hierarchy (with the dense coarsest inverse when ``cfg.coarsest_direct``)
+    on the device from those seeds and returns it.
+
+Drawn ahead, the seeds are the numbers that ``build_kcycle_hierarchy(...,
+rng)`` would draw level by level from the same stream, so both builds give
+the same hierarchy. The TPU-only options (``per_level_jit``,
+``channels_first``, ``matmul_precision``) have no counterpart and are
+refused; the sharded setup (``mesh``) and the deflation stage
+(``deflate_low`` / ``deflate_high``) are later slices and are refused too.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .lattice import Lattice2D
+from .operators.wilson import Wilson2D
+from .setup import KCycleConfig, build_kcycle_hierarchy
+
+__all__ = ["gauss_seed_planes", "make_kcycle_setup_planes"]
+
+TPU_ONLY = ("per_level_jit", "channels_first", "matmul_precision")
+# The largest coarsest level whose dense inverse a setup builds, qmg_tpu's
+# limit: the inverse is probed, densified and inverted on the host, and
+# the dimension grows 16x for each level the hierarchy stops short.
+MAX_DIRECT_DIM = 4096
+LATER = {"mesh": "ROADMAP Queue 1 item 14 (the sharded setup)",
+         "deflate_low": "ROADMAP Queue 1 item 12 (coarsest deflation)",
+         "deflate_high": "ROADMAP Queue 1 item 12 (coarsest deflation)"}
+
+
+def gauss_seed_planes(lat0: Lattice2D, cfg: KCycleConfig, rng):
+    """The null-vector gaussians of every refinement level, drawn from
+    ``rng`` per level and per vector: a list of ``cfg.n_refine``
+    complex128 arrays (coarse_dof / 2, *cv_shape of the level's fine
+    lattice)."""
+    lats = [lat0] + cfg.coarse_lattices(lat0)
+    n_half = cfg.coarse_dof // 2
+    return [np.stack([rng.gaussian_cv(lats[i - 1]) for _ in range(n_half)])
+            for i in range(1, cfg.n_refine + 1)]
+
+
+def make_kcycle_setup_planes(lat0: Lattice2D, cfg: KCycleConfig, mass,
+                             w: float = 1.0, *, dtype=torch.complex64,
+                             device="cuda", **options):
+    """Returns ``setup_fn(gauge, *seeds) -> StatefulMultigridMG``: the n13
+    setup of a Wilson operator (mass ``mass``, Wilson coefficient ``w``,
+    ``dtype``) on ``device`` from a (2, 2, Y, Xh) U(1) gauge field (an
+    array or a tensor) and one seed stack per level
+    (``gauss_seed_planes``). qmg_tpu's options that this setup has no use
+    for raise ``ValueError``."""
+    for name in options:
+        if name in TPU_ONLY:
+            raise ValueError(f"{name} is a TPU workaround of qmg_tpu's "
+                             "traced setup; the eager setup on the device "
+                             "takes no such option")
+        if name in LATER:
+            raise ValueError(f"{name} is not ported yet: {LATER[name]}")
+        raise TypeError(f"make_kcycle_setup_planes() got an unexpected "
+                        f"keyword argument {name!r}")
+    if lat0.nc != 2:
+        raise ValueError("make_kcycle_setup_planes builds the Wilson n13 "
+                         f"flow; fine nc must be 2, got {lat0.nc}")
+    n_coarsest = int(np.prod(cfg.coarse_lattices(lat0)[-1].cv_shape()))
+    if cfg.coarsest_direct and n_coarsest > MAX_DIRECT_DIM:
+        raise ValueError(
+            f"coarsest dimension {n_coarsest} too large for the dense "
+            f"direct inverse (at most {MAX_DIRECT_DIM}, qmg_tpu's limit) - "
+            "use a deeper hierarchy (larger n_refine) or "
+            "coarsest_direct=False")
+
+    def setup_fn(gauge, *seeds):
+        if len(seeds) != cfg.n_refine:
+            raise ValueError(f"need {cfg.n_refine} gauss seed arrays, got "
+                             f"{len(seeds)}")
+        op = Wilson2D(lat0, mass, gauge, w, dtype=dtype, device=device)
+        return build_kcycle_hierarchy(lat0, op, cfg, seeds=list(seeds))
+
+    return setup_fn

@@ -8,6 +8,14 @@ apply) are installed only as the levels' ``apply_override`` inside the
 preconditioner, where flexible GCR absorbs their float32 (or bf16
 coefficient) rounding.
 
+``make_batched_solver``, ``make_fixed_batched_solver`` and
+``make_calibrated_batched_solver`` (the counterparts of qmg_tpu's
+``make_batched_planes_solver`` family) solve nrhs right-hand sides in one
+batched K-cycle: every field carries a leading rhs axis, each lane follows
+its own sequential trajectory (``solvers``' batched solvers), and the rhs
+axis goes through the kernels (K1 on level 0, K6 on the small coarse
+levels), one launch for all lanes.
+
 ``state_to_numpy`` / ``state_from_numpy`` carry a hierarchy across the two
 packages in the key format of ``qmg_tpu.tpu_compat.mg_state_planes``:
 ``clover{l}``, ``hopping{l}``, ``shifts{l}`` (shift, eo_shift, dof_shift),
@@ -25,21 +33,24 @@ from .stencil import Stencil2D, make_coeffs, apply_M, build_gather_apply
 from .operators.wilson import Wilson2D
 from .operators.coarse import CoarseOperator2D
 from .transfer import TransferMG, ShardedTransferMG, DoublingType
-from .stateful import StatefulMultigridMG, zero_carry, DSLASH_KRYLOV
+from .stateful import (StatefulMultigridMG, zero_carry, zero_batched_carry,
+                       DSLASH_KRYLOV)
 from .setup import KCycleConfig, pin_full_precision
-from .wilson_kernel import (wilson_r1_apply, wilson_phase_apply,
-                            wilson_phases, bind_wilson)
+from .wilson_kernel import (wilson_r1_apply, wilson_r1_rhs_apply,
+                            wilson_phase_apply, wilson_phases, bind_wilson)
 from .dslash_kernel import (SUPPORTED_NC, stencil_channels,
                             stencil_channels_split, x_to_split, x_from_split,
                             small_fits, bind_apply, dslash_apply,
                             dslash_split_apply,
-                            dslash_small_interleaved_apply)
+                            dslash_small_interleaved_apply,
+                            dslash_small_rhs_apply)
 from .parallel import Mesh, validate_mg_sharding
 from .shard_dslash import make_sharded_dslash, make_sharded_wilson
 from . import solvers
 
-__all__ = ["make_solver", "state_to_numpy", "state_from_numpy",
-           "shard_state"]
+__all__ = ["make_solver", "make_batched_solver", "make_fixed_batched_solver",
+           "make_calibrated_batched_solver", "state_to_numpy",
+           "state_from_numpy", "shard_state"]
 
 
 FINE_KERNELS = ("wilson-r1", "wilson-phase", "matrix", "matrix-split",
@@ -47,22 +58,22 @@ FINE_KERNELS = ("wilson-r1", "wilson-phase", "matrix", "matrix-split",
 WILSON_KERNELS = ("wilson-r1", "wilson-phase")
 MATRIX_KERNELS = ("matrix", "matrix-split", "small")
 COARSE_APPLIES = ("plain", "gather", "small")
+# What the batched solvers take; the other kinds have no rhs axis yet.
+BATCHED_FINE_KERNELS = ("wilson-r1", None)
+BATCHED_COARSE_APPLIES = ("plain", "small")
 
 
-def _wilson_apply(fine: Stencil2D, kind: str, mesh: Mesh | None = None):
+def _wilson_apply(fine: Stencil2D, kind: str, mesh: Mesh | None = None,
+                  nrhs: int | None = None):
     """Level 0's apply through a Wilson kernel: "wilson-r1" (rank-1, w = 1
     only; on a mesh the slab kernel of ``make_sharded_wilson``) or
     "wilson-phase" (any w), its checks made here, once
     (``wilson_kernel.bind_wilson``). The kernels ignore the clover array
-    and assume 2w I, so anything but a Wilson operator is refused."""
-    if not isinstance(fine, Wilson2D) or fine.lat.nc != 2:
-        raise ValueError(f"fine_kernel={kind!r} needs the fine operator to "
-                         "be Wilson2D (nc=2)")
+    and assume 2w I, so anything but a Wilson operator is refused. With
+    ``nrhs`` the apply takes (nrhs, *cv_shape) fields through the rank-1
+    kernel's rhs entry."""
+    _check_wilson(fine, kind)
     w = fine.wilson_coeff
-    if kind == "wilson-r1" and w != 1.0:
-        raise ValueError("fine_kernel='wilson-r1' needs the fine operator "
-                         f"to be Wilson2D with wilson_coeff=1, got {w}: use "
-                         "'wilson-phase'")
     mass = float(np.real(fine.coeffs.shift))
     if mesh is not None:
         kernel = make_sharded_wilson(fine.coeffs, mesh, mass, w)
@@ -70,7 +81,10 @@ def _wilson_apply(fine: Stencil2D, kind: str, mesh: Mesh | None = None):
             v.dtype)
     phase = wilson_phases(fine.coeffs.hopping, w)
     alpha = 2.0 * w + mass
-    if kind == "wilson-r1":
+    if nrhs is not None:
+        kernel = bind_wilson(wilson_r1_rhs_apply, phase,
+                             (nrhs,) + fine.lat.cv_shape(), alpha)
+    elif kind == "wilson-r1":
         kernel = bind_wilson(wilson_r1_apply, phase, fine.lat.cv_shape(),
                              alpha)
     else:
@@ -79,12 +93,26 @@ def _wilson_apply(fine: Stencil2D, kind: str, mesh: Mesh | None = None):
     return lambda v: kernel(v.to(torch.complex64).contiguous()).to(v.dtype)
 
 
-def _matrix_apply(coeffs, kind: str, coeff_dtype=None):
+def _check_wilson(fine: Stencil2D, kind: str):
+    """The Wilson kernels take a Wilson operator, the rank-1 ones at w = 1
+    only."""
+    if not isinstance(fine, Wilson2D) or fine.lat.nc != 2:
+        raise ValueError(f"fine_kernel={kind!r} needs the fine operator to "
+                         "be Wilson2D (nc=2)")
+    if kind == "wilson-r1" and fine.wilson_coeff != 1.0:
+        raise ValueError("fine_kernel='wilson-r1' needs the fine operator "
+                         "to be Wilson2D with wilson_coeff=1, got "
+                         f"{fine.wilson_coeff}: use 'wilson-phase'")
+
+
+def _matrix_apply(coeffs, kind: str, coeff_dtype=None,
+                  nrhs: int | None = None):
     """An apply through one generic stencil kernel (K4 "matrix", K5
     "matrix-split", K6 "small"), its channels built and its checks made
     here, once. K4 and K6 take the fields as they are (K6 through its
-    interleaved entry); K5 is applied in its own split layout, between
-    two layout copies."""
+    interleaved entry, or with ``nrhs`` its rhs entry on (nrhs, *cv_shape)
+    fields); K5 is applied in its own split layout, between two layout
+    copies."""
     lat = coeffs.lat
     if lat.nc not in SUPPORTED_NC:
         raise ValueError(f"the stencil kernels take nc in {SUPPORTED_NC}, "
@@ -98,6 +126,11 @@ def _matrix_apply(coeffs, kind: str, coeff_dtype=None):
     if kind == "small" and not small_fits(lat.nc, lat.y_len, lat.xh,
                                           coeff_dtype):
         raise ValueError(f"the small-lattice kernel does not take {lat}")
+    if nrhs is not None:
+        fn = bind_apply(dslash_small_rhs_apply,
+                        stencil_channels(coeffs, coeff_dtype),
+                        (nrhs,) + lat.cv_shape())
+        return lambda v: fn(v.to(torch.complex64).contiguous()).to(v.dtype)
     wrapper = (dslash_apply if kind == "matrix"
                else dslash_small_interleaved_apply)
     fn = bind_apply(wrapper, stencil_channels(coeffs, coeff_dtype),
@@ -105,19 +138,24 @@ def _matrix_apply(coeffs, kind: str, coeff_dtype=None):
     return lambda v: fn(v.to(torch.complex64).contiguous()).to(v.dtype)
 
 
-def _coarse_apply(st: Stencil2D, coarse_apply: str):
+def _coarse_apply(st: Stencil2D, coarse_apply: str, nrhs: int | None = None):
     """(apply override or None, its name) for one coarse level. Levels
     without hopping, of volume 1, or that the small kernel does not take
-    keep the plain apply (tpu_compat.py:504-530)."""
+    keep the plain apply (tpu_compat.py:504-530). With ``nrhs`` the
+    override takes (nrhs, *cv_shape) fields (gather has no rhs form)."""
     c = st.coeffs
     if coarse_apply == "gather":
         fn = build_gather_apply(c)
         return fn, ("gather" if fn is not None else "plain")
-    if (coarse_apply == "small" and c.hopping is not None
-            and st.lat.volume > 1
-            and small_fits(st.lat.nc, st.lat.y_len, st.lat.xh)):
-        return _matrix_apply(c, "small"), "small"
+    if coarse_apply == "small" and _takes_small(st):
+        return _matrix_apply(c, "small", nrhs=nrhs), "small"
     return None, "plain"
+
+
+def _takes_small(st: Stencil2D) -> bool:
+    """Whether ``coarse_apply="small"`` installs K6 on this level."""
+    return (st.coeffs.hopping is not None and st.lat.volume > 1
+            and small_fits(st.lat.nc, st.lat.y_len, st.lat.xh))
 
 
 def make_solver(mg: StatefulMultigridMG, tol: float = 1e-8,
@@ -226,6 +264,140 @@ def make_solver(mg: StatefulMultigridMG, tol: float = 1e-8,
 
     solve.level_applies = applies
     return solve
+
+
+def make_batched_solver(mg: StatefulMultigridMG, tol: float = 1e-8,
+                        max_iter: int = 400, restart_freq: int = 32,
+                        fine_kernel: str | None = "wilson-r1",
+                        coarse_apply: str = "plain", mesh: Mesh | None = None,
+                        fixed_outer_iters: int | None = None):
+    """Returns solve(B) -> (BatchedSolveResult, carry) for right-hand sides
+    B (nrhs, 2, Y, Xh, nc): outer FGCR around one K-cycle per iteration,
+    every lane the arithmetic of ``make_solver``'s solve of that field
+    alone (qmg_tpu's vmap of its solve: converged lanes frozen, per-lane
+    iteration and operator counts, the loop running while any lane is
+    active). In complex64 the batch's products may round differently from
+    a single field's, which can move a lane's count where the solve
+    stalls near the precision floor (ROADMAP, Queue 3 F5). ``carry`` holds per-lane counts (nrhs, n_levels, 4) and
+    iterations (nrhs, n_levels), outer ones included; their sum over the
+    lanes goes to ``mg.tracker``.
+
+    The rhs axis goes through the kernels: ``fine_kernel="wilson-r1"``
+    applies level 0 inside the K-cycle with the rank-1 kernel's rhs entry
+    (``wilson_r1_rhs_apply``, one launch for all lanes), and
+    ``coarse_apply="small"`` the coarse levels that fit it with K6's
+    (``dslash_small_rhs_apply``), each bound once per solver and nrhs.
+    ``None`` and "plain" keep the plain apply, which takes the rhs axis as
+    it is; the outer matvec is always the exact plain apply. The other
+    kernels and ``mesh`` are refused. ``fixed_outer_iters`` runs exactly
+    that many outer trips on every lane with no stopping test
+    (``make_fixed_batched_solver``)."""
+    if fine_kernel not in BATCHED_FINE_KERNELS:
+        raise ValueError(
+            f"batched solves take fine_kernel in {BATCHED_FINE_KERNELS}, got "
+            f"{fine_kernel!r}: the other fine kernels have no rhs axis yet "
+            "(ROADMAP Queue 1 item 10: an rhs axis for K2, K4, K5 and K7)")
+    coarse_apply = "plain" if coarse_apply == "jnp" else coarse_apply
+    if coarse_apply not in BATCHED_COARSE_APPLIES:
+        raise ValueError(
+            f"batched solves take coarse_apply in {BATCHED_COARSE_APPLIES}, "
+            f"got {coarse_apply!r}: the gather apply has no rhs axis "
+            "(ROADMAP Queue 1 item 10)")
+    if mesh is not None:
+        raise ValueError("batched solves are single-device: mesh= is not "
+                         "ported for them (ROADMAP Queue 1 items 10 and 14)")
+    pin_full_precision()
+    fine = mg.get_stencil(0)
+    if fine_kernel is not None:
+        _check_wilson(fine, fine_kernel)
+    n_levels = mg.get_num_levels()
+    stencils = [mg.get_stencil(lvl) for lvl in range(n_levels)]
+    bound = {}     # nrhs -> the levels' overrides for that batch shape
+    applies = [fine_kernel or "plain"] + [
+        "small" if coarse_apply == "small" and _takes_small(st) else "plain"
+        for st in stencils[1:]]
+
+    def overrides(nrhs: int):
+        if nrhs not in bound:
+            bound[nrhs] = [
+                _wilson_apply(fine, fine_kernel, nrhs=nrhs)
+                if fine_kernel is not None else None] + [
+                _coarse_apply(st, coarse_apply, nrhs)[0]
+                for st in stencils[1:]]
+        return bound[nrhs]
+
+    def matvec(v):
+        return apply_M(fine.coeffs, v)
+
+    def solve(b):
+        if b.ndim != 5 or tuple(b.shape[1:]) != tuple(fine.lat.cv_shape()):
+            raise ValueError(f"right-hand sides must be (nrhs, "
+                             f"{', '.join(map(str, fine.lat.cv_shape()))}), "
+                             f"got {tuple(b.shape)}")
+        nrhs = b.shape[0]
+        carry = zero_batched_carry(nrhs, n_levels)
+        try:
+            for st, fn in zip(stencils, overrides(nrhs)):
+                st.apply_override = fn
+            precond = mg.make_batched_preconditioner(0)
+            res, carry = solvers.gcr_var_precond_restart_batched(
+                matvec, b, precond,
+                max_iter=(max_iter if fixed_outer_iters is None
+                          else int(fixed_outer_iters)),
+                tol=tol, restart_freq=restart_freq, precond_carry=carry,
+                fixed_trips=fixed_outer_iters is not None)
+        finally:
+            for st in stencils:
+                st.apply_override = None
+        carry["counts"][:, 0, DSLASH_KRYLOV] += res.ops_count
+        carry["iters"][:, 0] += res.iters
+        mg.absorb_carry(carry)
+        return res, carry
+
+    solve.level_applies = applies
+    return solve
+
+
+def make_fixed_batched_solver(mg: StatefulMultigridMG, outer_iters: int,
+                              allow_masked_inner: bool = False, **solver_kw):
+    """``make_batched_solver`` with exactly ``outer_iters`` outer trips on
+    every lane (qmg_tpu's ``make_fixed_batched_planes_solver``). By
+    default the inner schedule must be trip-counted too - a direct
+    coarsest and every intermediate level ``fixed_trips``
+    (``KCycleConfig(inner_fixed_iters=k)``) - so that no loop waits on a
+    stopping test; ``allow_masked_inner=True`` keeps the adaptive inner
+    loops. ``res_sq`` reports the residual each lane reached."""
+    if not allow_masked_inner:
+        if not (mg.coarsest_solve.direct and mg.coarsest_dinv is not None):
+            raise ValueError(
+                "fixed-schedule batched solves need a direct coarsest "
+                "(prepare_direct_coarsest / KCycleConfig("
+                "coarsest_direct=True)): the iterative coarsest keeps a "
+                "tolerance loop that re-introduces per-lane masking; or "
+                "pass allow_masked_inner=True")
+        for lvl in range(1, mg.get_num_levels() - 1):
+            if not mg.get_level_solve(lvl).fixed_trips:
+                raise ValueError(
+                    f"level-{lvl} intermediate solve is not fixed_trips "
+                    "- build the hierarchy with KCycleConfig("
+                    "inner_fixed_iters=k), or pass "
+                    "allow_masked_inner=True")
+    return make_batched_solver(mg, fixed_outer_iters=int(outer_iters),
+                               **solver_kw)
+
+
+def make_calibrated_batched_solver(mg: StatefulMultigridMG, probe_b,
+                                   margin: int = 1, **solver_kw):
+    """A fixed-outer batched solver calibrated by one adaptive solve
+    (qmg_tpu's ``make_calibrated_batched_planes_solver``): ``make_solver``
+    solves the representative right-hand side ``probe_b`` once, and the
+    batched solver runs its outer count + ``margin`` trips with the
+    adaptive inner loops. Returns (solve, outer_iters). Callers check the
+    per-lane ``res_sq`` against the tolerance."""
+    probe, _ = make_solver(mg, **solver_kw)(probe_b)
+    outer = int(probe.iters) + int(margin)
+    return (make_fixed_batched_solver(mg, outer, allow_masked_inner=True,
+                                      **solver_kw), outer)
 
 
 def _planes(t: torch.Tensor, dtype) -> np.ndarray:

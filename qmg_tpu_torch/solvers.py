@@ -18,19 +18,36 @@ Conventions, as in qmg_tpu:
 Scalars (inner products, step lengths) stay 0-dim device tensors; a loop
 reads one back to the host only for its stopping test. The breakdown
 guards are those of qmg_tpu, so both packages follow the same
-trajectories.
+trajectories. ``fixed_trips`` (GCR) runs exactly ``max_iter`` trips with
+no stopping test and no read-back; ``converged`` still reports the
+tolerance test.
+
+The batched solvers (``*_batched``) take fields with a leading rhs axis
+(B, 2, Y, Xh, nc) and give each lane k the trajectory of the same solver
+on field k alone, as qmg_tpu's vmap over its while loops does: a lane that
+has converged is frozen exactly (``torch.where`` on its solution,
+residual and norm), each lane keeps its own iteration and operator count,
+and the loop runs while any lane is active. One read-back per iteration
+brings the lanes' stopping tests to the host together (``Lanes``); the
+per-lane reductions (``linalg.vdot_lanes``) never mix lanes. Active lanes
+started together and never restart, so they share one restart counter. A
+batched preconditioner takes ``precond(r, carry, lanes)`` and counts only
+the lanes that are active.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
-from .linalg import vdot, norm2sq, reductions
+from .linalg import vdot, norm2sq, vdot_lanes, norm2sq_lanes, reductions
 
 __all__ = ["SolveResult", "gcr_restart", "gcr_var_precond_restart",
-           "bicgstab_l", "minres"]
+           "bicgstab_l", "minres", "Lanes", "BatchedSolveResult",
+           "all_lanes", "gcr_restart_batched",
+           "gcr_var_precond_restart_batched", "minres_batched"]
 
 
 class SolveResult(NamedTuple):
@@ -56,7 +73,8 @@ def _keep_going(rsq, target) -> bool:
 # ---------------------------------------------------------------------------
 
 def _gcr_impl(matvec, b, x0, max_iter: int, tol, restart_len: int,
-              precond=None, precond_carry=None, reduce=None):
+              precond=None, precond_carry=None, reduce=None,
+              fixed_trips: bool = False):
     vdot, norm2sq, total = reductions(reduce)
     shape = b.shape
     n = b.numel()
@@ -78,7 +96,7 @@ def _gcr_impl(matvec, b, x0, max_iter: int, tol, restart_len: int,
     rsq = norm2sq(r)
     j = k = 0
     carry = precond_carry
-    while k < max_iter and _keep_going(rsq, target):
+    while k < max_iter and (fixed_trips or _keep_going(rsq, target)):
         if j >= R:
             # Restart: recompute the true residual, clear the store.
             r = b - matvec(x)
@@ -123,11 +141,155 @@ def gcr_restart(matvec, b, x0=None, max_iter: int = 1000, tol=1e-8,
 def gcr_var_precond_restart(matvec, b, precond, x0=None,
                             max_iter: int = 1000, tol=1e-8,
                             restart_freq: int = 32, precond_carry=None,
-                            reduce=None):
+                            reduce=None, fixed_trips: bool = False):
     """Restarted flexible GCR: the outer solver of the K-cycle stack."""
     return _gcr_impl(matvec, b, x0, max_iter, tol,
                      restart_len=int(restart_freq), precond=precond,
-                     precond_carry=precond_carry, reduce=reduce)
+                     precond_carry=precond_carry, reduce=reduce,
+                     fixed_trips=fixed_trips)
+
+
+# ---------------------------------------------------------------------------
+# Batched (multi-RHS) GCR and MinRes: a leading rhs axis, per-lane
+# trajectories.
+# ---------------------------------------------------------------------------
+
+class Lanes(NamedTuple):
+    """Which lanes of a batch are active: a (B,) bool tensor on the
+    fields' device and the same mask on the host (NumPy)."""
+    dev: torch.Tensor
+    host: np.ndarray
+
+
+class BatchedSolveResult(NamedTuple):
+    x: torch.Tensor           # (B, ...)
+    iters: np.ndarray         # (B,) int64, per lane
+    res_sq: torch.Tensor      # (B,) real
+    converged: torch.Tensor   # (B,) bool
+    ops_count: np.ndarray     # (B,) int64, operator applications per lane
+
+
+def all_lanes(b) -> Lanes:
+    """Every lane of the batch ``b`` active."""
+    n = b.shape[0]
+    return Lanes(torch.ones(n, dtype=torch.bool, device=b.device),
+                 np.ones(n, dtype=bool))
+
+
+def _lanes(keep) -> Lanes:
+    """A device mask and its one read-back."""
+    return Lanes(keep, keep.cpu().numpy())
+
+
+def _per_lane(mask, like):
+    """A (B,) tensor shaped to broadcast over the fields ``like``."""
+    return mask.reshape(mask.shape + (1,) * (like.ndim - 1))
+
+
+def _masked(lanes, masked: bool, new, old):
+    """``new`` on the active lanes and ``old`` on the others; ``new``
+    alone where nothing is masked or every lane is active."""
+    if not masked or lanes.host.all():
+        return new
+    return torch.where(_per_lane(lanes.dev, new), new, old)
+
+
+def _gcr_batched(matvec, b, max_iter: int, tol, restart_len: int,
+                 precond=None, precond_carry=None, active: Lanes = None,
+                 fixed_trips: bool = False):
+    """``_gcr_impl`` on a leading rhs axis. ``tol`` is a float or a (B,)
+    tensor (the K-cycle's per-lane inner tolerance); ``active`` the lanes
+    that take part (the caller's active lanes; all by default): the
+    others are frozen from the start. With ``fixed_trips`` every lane
+    runs ``max_iter`` trips unmasked, as the trip-counted loop does under
+    qmg_tpu's vmap."""
+    nrhs = b.shape[0]
+    n = b[0].numel()
+    active = all_lanes(b) if active is None else active
+    x = torch.zeros_like(b)
+    bsq = norm2sq_lanes(b)
+    target = _target(tol, bsq)
+    rdt = bsq.dtype
+    R = int(restart_len)
+    tiny = torch.finfo(rdt).tiny
+    if precond is None:
+        def precond(r, carry, lanes):
+            return r, carry
+
+    r = b - matvec(x)
+    ops = np.ones(nrhs, dtype=np.int64)
+    iters = np.zeros(nrhs, dtype=np.int64)
+    ps = torch.zeros((nrhs, R, n), dtype=b.dtype, device=b.device)
+    aps = torch.zeros_like(ps)
+    apsq = torch.ones((nrhs, R), dtype=rdt, device=b.device)
+    rsq = norm2sq_lanes(r)
+    if fixed_trips:
+        lanes = active
+    else:
+        lanes = _lanes(active.dev & torch.isfinite(rsq) & (rsq > target))
+    j = k = 0
+    carry = precond_carry
+    while k < max_iter and (fixed_trips or lanes.host.any()):
+        if j >= R:
+            # Restart: the true residual, a cleared store. Active lanes
+            # started together, so they restart together.
+            r = _masked(lanes, not fixed_trips, b - matvec(x), r)
+            ops += lanes.host
+            ps.zero_()
+            aps.zero_()
+            apsq.fill_(1.0)
+            j = 0
+        z, carry = precond(r, carry, lanes)
+        ap = matvec(z).reshape(nrhs, n)
+        z = z.reshape(nrhs, n)
+        if j > 0:
+            # Orthogonalize each lane's (z, Az) against its stored
+            # directions: (B, j) coefficients from batched products.
+            betas = (aps[:, :j].conj() @ ap.unsqueeze(-1)).squeeze(-1) \
+                / apsq[:, :j]
+            ap = ap - (betas.unsqueeze(1) @ aps[:, :j]).squeeze(1)
+            z = z - (betas.unsqueeze(1) @ ps[:, :j]).squeeze(1)
+        apsq_new = norm2sq_lanes(ap)
+        broke = ~(apsq_new > tiny)
+        alpha = torch.where(
+            broke, 0.0,
+            vdot_lanes(ap, r) / torch.where(broke, 1.0, apsq_new))
+        step = _per_lane(alpha, z)
+        x = _masked(lanes, not fixed_trips,
+                    x + (step * z).reshape(b.shape), x)
+        r = _masked(lanes, not fixed_trips,
+                    r - (step * ap).reshape(b.shape), r)
+        rsq = _masked(lanes, not fixed_trips, norm2sq_lanes(r), rsq)
+        ps[:, j] = z
+        aps[:, j] = ap
+        apsq[:, j] = torch.where(broke, 1.0, apsq_new)
+        j += 1
+        k += 1
+        ops += lanes.host
+        iters += lanes.host
+        if not fixed_trips:
+            lanes = _lanes(lanes.dev & torch.isfinite(rsq) & (rsq > target))
+    return BatchedSolveResult(x, iters, rsq, rsq <= target, ops), carry
+
+
+def gcr_restart_batched(matvec, b, max_iter: int = 1000, tol=1e-8,
+                        restart_freq: int = 32, active: Lanes = None
+                        ) -> BatchedSolveResult:
+    """Restarted GCR on a leading rhs axis (the iterative coarsest)."""
+    res, _ = _gcr_batched(matvec, b, max_iter, tol, int(restart_freq),
+                          active=active)
+    return res
+
+
+def gcr_var_precond_restart_batched(matvec, b, precond, max_iter: int = 1000,
+                                    tol=1e-8, restart_freq: int = 32,
+                                    precond_carry=None, active: Lanes = None,
+                                    fixed_trips: bool = False):
+    """Restarted flexible GCR on a leading rhs axis: the outer and inner
+    solver of the batched K-cycle. ``precond(r, carry, lanes)``."""
+    return _gcr_batched(matvec, b, max_iter, tol, int(restart_freq),
+                        precond=precond, precond_carry=precond_carry,
+                        active=active, fixed_trips=fixed_trips)
 
 
 # ---------------------------------------------------------------------------
@@ -205,6 +367,13 @@ def bicgstab_l(matvec, b, x0=None, max_iter: int = 1000, tol=1e-8,
 # MinRes with relaxation (the K-cycle smoother).
 # ---------------------------------------------------------------------------
 
+def _fixed_minres(max_iter: int, tol) -> bool:
+    """The K-cycle's MinRes(2) with a never-met tolerance runs a fixed
+    number of steps without reading the residual back."""
+    return (max_iter <= 4 and not isinstance(tol, torch.Tensor)
+            and tol <= 1e-14)
+
+
 def minres(matvec, b, x0=None, max_iter: int = 2, tol=1e-15,
            omega: float = 1.0, reduce=None) -> SolveResult:
     vdot, norm2sq, _ = reductions(reduce)
@@ -214,10 +383,7 @@ def minres(matvec, b, x0=None, max_iter: int = 2, tol=1e-15,
     r = b - matvec(x)
     rsq = norm2sq(r)
     k, ops = 0, 1
-    # The K-cycle's MinRes(2) with a never-met tolerance runs a fixed
-    # number of steps without reading the residual back.
-    fixed = (max_iter <= 4 and not isinstance(tol, torch.Tensor)
-             and tol <= 1e-14)
+    fixed = _fixed_minres(max_iter, tol)
     while k < max_iter and (fixed or bool(rsq > target)):
         ar = matvec(r)
         arsq = norm2sq(ar)
@@ -230,3 +396,40 @@ def minres(matvec, b, x0=None, max_iter: int = 2, tol=1e-15,
         k += 1
         ops += 1
     return SolveResult(x, k, rsq, rsq <= target, ops)
+
+
+def minres_batched(matvec, b, max_iter: int = 2, tol=1e-15,
+                   omega: float = 1.0, active: Lanes = None
+                   ) -> BatchedSolveResult:
+    """``minres`` on a leading rhs axis. The fixed smoother (max_iter <= 4
+    and a never-met float tolerance) runs its steps on every lane
+    unmasked, as the sequential one runs them without a test (the caller
+    drops what inactive lanes compute); otherwise converged lanes freeze
+    as in ``_gcr_batched``."""
+    nrhs = b.shape[0]
+    active = all_lanes(b) if active is None else active
+    x = torch.zeros_like(b)
+    target = _target(tol, norm2sq_lanes(b))
+    r = b - matvec(x)
+    rsq = norm2sq_lanes(r)
+    ops = np.ones(nrhs, dtype=np.int64)
+    iters = np.zeros(nrhs, dtype=np.int64)
+    fixed = _fixed_minres(max_iter, tol)
+    lanes = active if fixed else _lanes(active.dev & (rsq > target))
+    k = 0
+    while k < max_iter and (fixed or lanes.host.any()):
+        ar = matvec(r)
+        arsq = norm2sq_lanes(ar)
+        pos = arsq > 0
+        alpha = torch.where(pos, vdot_lanes(ar, r)
+                            / torch.where(pos, arsq, 1.0), 0.0)
+        step = _per_lane(omega * alpha, r)
+        x = _masked(lanes, not fixed, x + step * r, x)
+        r = _masked(lanes, not fixed, r - step * ar, r)
+        rsq = _masked(lanes, not fixed, norm2sq_lanes(r), rsq)
+        k += 1
+        ops += lanes.host
+        iters += lanes.host
+        if not fixed:
+            lanes = _lanes(lanes.dev & (rsq > target))
+    return BatchedSolveResult(x, iters, rsq, rsq <= target, ops)

@@ -6,6 +6,11 @@ qmg_tpu/stateful.py, ORIGINAL stencil path).
 The carry holds the per-level operator counters as host integers:
 ``counts`` (n_levels, 4) by {NULLVEC, KRYLOV, PRESMOOTH, POSTSMOOTH} and
 Krylov iteration counts ``iters`` (n_levels,).
+
+``make_batched_preconditioner(level)`` is the same K-cycle on fields with
+a leading rhs axis (B, 2, Y, Xh, nc): precond(rhs, carry, lanes), each
+lane with its own carry (``zero_batched_carry``: counts (B, n_levels, 4),
+iters (B, n_levels)), only the active ``lanes`` counted.
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ from .lattice import Lattice2D
 from .stencil import Stencil2D
 from .multigrid import MultigridMG
 from . import solvers
-from .linalg import norm2sq
+from .linalg import norm2sq, norm2sq_lanes
 from . import eig
 
 DSLASH_NULLVEC = 0
@@ -38,6 +43,10 @@ class LevelSolveMG:
     pre_iters: int = 2
     post_tol: float = 1e-20
     post_iters: int = 2
+    # Fixed-schedule mode: the intermediate Krylov solve runs exactly
+    # intermediate_iters trips (its tolerance reported, not tested), so
+    # no loop of the level waits on a read-back of a stopping test.
+    fixed_trips: bool = False
 
 
 @dataclasses.dataclass
@@ -54,6 +63,13 @@ class CoarsestSolveMG:
 def zero_carry(n_levels: int):
     return {"counts": np.zeros((n_levels, 4), dtype=np.int64),
             "iters": np.zeros((n_levels,), dtype=np.int64)}
+
+
+def zero_batched_carry(nrhs: int, n_levels: int):
+    """One carry per lane: counts (nrhs, n_levels, 4), iters (nrhs,
+    n_levels)."""
+    return {"counts": np.zeros((nrhs, n_levels, 4), dtype=np.int64),
+            "iters": np.zeros((nrhs, n_levels), dtype=np.int64)}
 
 
 class StatefulMultigridMG(MultigridMG):
@@ -87,8 +103,13 @@ class StatefulMultigridMG(MultigridMG):
         self.tracker["counts"][level, dtype] += int(accum)
 
     def absorb_carry(self, carry):
-        self.tracker["counts"] += carry["counts"]
-        self.tracker["iters"] += carry["iters"]
+        """Add a carry (or a batched one, summed over its lanes) to the
+        trackers."""
+        counts, iters = carry["counts"], carry["iters"]
+        if counts.ndim == 3:
+            counts, iters = counts.sum(axis=0), iters.sum(axis=0)
+        self.tracker["counts"] += counts
+        self.tracker["iters"] += iters
 
     # --- direct coarsest solve ---
     def prepare_direct_coarsest(self):
@@ -150,6 +171,7 @@ class StatefulMultigridMG(MultigridMG):
             coarse_max_iter = nxt.intermediate_iters
             coarse_tol = nxt.intermediate_tol
             coarse_restart = nxt.intermediate_restart_freq
+            coarse_fixed = nxt.fixed_trips
             inner_precond = self.make_preconditioner(level + 1)
         else:
             cs = self.coarsest_solve
@@ -199,7 +221,8 @@ class StatefulMultigridMG(MultigridMG):
                 res, carry = solvers.gcr_var_precond_restart(
                     apply_coarse, r_coarse_prep, inner_precond,
                     max_iter=coarse_max_iter, tol=inner_tol,
-                    restart_freq=coarse_restart, precond_carry=carry)
+                    restart_freq=coarse_restart, precond_carry=carry,
+                    fixed_trips=coarse_fixed)
                 e_coarse = res.x
                 sub_iters, sub_ops = res.iters, res.ops_count
             carry["counts"][level + 1, DSLASH_KRYLOV] += sub_ops
@@ -217,6 +240,110 @@ class StatefulMultigridMG(MultigridMG):
                                      DSLASH_POSTSMOOTH, carry)
                 lhs = lhs + z3
                 carry["counts"][level, DSLASH_POSTSMOOTH] += 1
+            return lhs, carry
+
+        return precond
+
+    def make_batched_preconditioner(self, level: int = 0):
+        """``make_preconditioner`` on a leading rhs axis: precond(rhs,
+        carry, lanes) -> (lhs, carry) with rhs (B, ...), ``carry`` from
+        ``zero_batched_carry`` and ``lanes`` (``solvers.Lanes``) the lanes
+        that the calling solve still iterates. Every operation is the
+        sequential K-cycle's, lane by lane: the smoothers and Krylov
+        solves are ``solvers``' batched ones (a per-lane inner tolerance,
+        converged lanes frozen), the direct coarsest is one product of the
+        dense inverse with the B columns, and only active lanes are
+        counted."""
+        n_levels = self.get_num_levels()
+        if n_levels == 1:
+            return lambda rhs, carry, lanes: (rhs, carry)
+
+        coarse_stencil = self.get_stencil(level + 1)
+        transfer = self.get_transfer(level)
+        level_solve = self.get_level_solve(level)
+        apply_fine = self.get_stencil(level).apply_M
+        apply_coarse = coarse_stencil.apply_M
+
+        coarsest = level == n_levels - 2
+        coarse_fixed = False
+        if not coarsest:
+            nxt = self.get_level_solve(level + 1)
+            coarse_max_iter = nxt.intermediate_iters
+            coarse_tol = nxt.intermediate_tol
+            coarse_restart = nxt.intermediate_restart_freq
+            coarse_fixed = nxt.fixed_trips
+            inner_precond = self.make_batched_preconditioner(level + 1)
+        else:
+            cs = self.coarsest_solve
+            coarse_max_iter = cs.coarsest_iters
+            coarse_tol = cs.coarsest_tol
+            coarse_restart = cs.coarsest_restart_freq
+
+        def smoother(rhs, n_iters, s_tol, dslash_type, carry, lanes):
+            res = solvers.minres_batched(apply_fine, rhs, max_iter=n_iters,
+                                         tol=s_tol, omega=0.85,
+                                         active=lanes)
+            live = lanes.host
+            carry["counts"][live, level, dslash_type] += res.ops_count[live]
+            return res.x, carry
+
+        def precond(rhs, carry, lanes):
+            live = lanes.host
+            # --- presmooth ---
+            if level_solve.pre_iters > 0:
+                z1, carry = smoother(rhs, level_solve.pre_iters,
+                                     level_solve.pre_tol, DSLASH_PRESMOOTH,
+                                     carry, lanes)
+                r1 = rhs - apply_fine(z1)
+                carry["counts"][live, level, DSLASH_PRESMOOTH] += 1
+            else:
+                z1 = rhs
+                r1 = rhs
+
+            # --- restrict + prepare: a tolerance per lane ---
+            r_coarse = transfer.restrict_f2c(r1)
+            rnorm = torch.sqrt(norm2sq_lanes(r_coarse))
+            r_coarse_prep = coarse_stencil.prepare_M(r_coarse)
+            rnorm_prep = torch.sqrt(norm2sq_lanes(r_coarse_prep))
+            inner_tol = coarse_tol * rnorm / rnorm_prep
+
+            # --- coarse solve ---
+            if (coarsest and self.coarsest_solve.direct
+                    and self.coarsest_dinv is not None):
+                dinv = self.coarsest_dinv.to(r_coarse_prep.dtype)
+                cols = r_coarse_prep.reshape(r_coarse_prep.shape[0], -1)
+                e_coarse = (dinv @ cols.T).T.reshape(r_coarse_prep.shape)
+                sub_iters = sub_ops = np.ones(len(live), dtype=np.int64)
+            elif coarsest:
+                res = solvers.gcr_restart_batched(
+                    apply_coarse, r_coarse_prep, max_iter=coarse_max_iter,
+                    tol=inner_tol, restart_freq=coarse_restart,
+                    active=lanes)
+                e_coarse = res.x
+                sub_iters, sub_ops = res.iters, res.ops_count
+            else:
+                res, carry = solvers.gcr_var_precond_restart_batched(
+                    apply_coarse, r_coarse_prep, inner_precond,
+                    max_iter=coarse_max_iter, tol=inner_tol,
+                    restart_freq=coarse_restart, precond_carry=carry,
+                    active=lanes, fixed_trips=coarse_fixed)
+                e_coarse = res.x
+                sub_iters, sub_ops = res.iters, res.ops_count
+            carry["counts"][live, level + 1, DSLASH_KRYLOV] += sub_ops[live]
+            carry["iters"][live, level + 1] += sub_iters[live]
+
+            # --- reconstruct + prolong ---
+            e_rec = coarse_stencil.reconstruct_M(e_coarse, r_coarse)
+            lhs = z1 + transfer.prolong_c2f(e_rec)
+
+            # --- postsmooth ---
+            if level_solve.post_iters > 0:
+                r2 = rhs - apply_fine(lhs)
+                z3, carry = smoother(r2, level_solve.post_iters,
+                                     level_solve.post_tol,
+                                     DSLASH_POSTSMOOTH, carry, lanes)
+                lhs = lhs + z3
+                carry["counts"][live, level, DSLASH_POSTSMOOTH] += 1
             return lhs, carry
 
         return precond

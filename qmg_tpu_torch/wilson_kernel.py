@@ -7,6 +7,10 @@ operator (``wilson_phases``), complex64:
   * ``wilson_r1_apply(phase_half, x, alpha)``: the operator at w = 1 with
     rank-1 projectors (``_wilson_rank1_kernel``); x (2, Y, Xh, 2), phases
     (4, 2, Y, Xh), alpha = 2 + mass;
+  * ``wilson_r1_rhs_apply(phase_half, x, alpha)``: the same kernel on an
+    rhs axis, x (nrhs, 2, Y, Xh, 2) with one set of phases (the batched
+    solve's level 0); field b of the output is bit for bit
+    ``wilson_r1_apply`` on field b;
   * ``wilson_phase_apply(phase_half, x, w, alpha)``: the operator at any
     Wilson coefficient w (``_wilson_kernel``); the same layouts,
     alpha = 2w + mass;
@@ -46,7 +50,8 @@ from .lattice import DIR_XP1, DIR_YP1, DIR_XM1, DIR_YM1
 from .cuda_build import build_library
 from .dslash_kernel import _rows_to_split, _split_pulls
 
-__all__ = ["wilson_r1_apply", "wilson_r1_apply_plain", "wilson_phase_apply",
+__all__ = ["wilson_r1_apply", "wilson_r1_apply_plain", "wilson_r1_rhs_apply",
+           "wilson_phase_apply",
            "wilson_phase_apply_plain", "wilson_split_apply",
            "wilson_split_apply_plain", "wilson_r1_halo_apply",
            "wilson_r1_halo_apply_plain", "bind_wilson", "bind_halo",
@@ -70,6 +75,10 @@ def build_wilson() -> float:
         fn.argtypes = [ptr, ptr, ptr, c_int, c_int, *scalars, ptr]
         fn.restype = c_int
         _LIB[name] = fn
+    fn = lib.wilson_r1_rhs_launch
+    fn.argtypes = [ptr, ptr, ptr, c_int, c_int, c_int, c_float, ptr]
+    fn.restype = c_int
+    _LIB["wilson_r1_rhs_launch"] = fn
     fn = lib.wilson_r1_halo_launch
     fn.argtypes = [ptr] * 5 + [c_int] * 6 + [c_float, ptr]
     fn.restype = c_int
@@ -112,8 +121,11 @@ def _rank1(phase, x, pulls, alpha: float):
 
 
 def wilson_r1_apply_plain(phase_half, x, alpha: float):
-    """The rank-1 kernel's arithmetic in PyTorch."""
-    return _rank1(phase_half, x, [cshift_pull(x, d) for d in ALL_DIRS],
+    """The rank-1 kernel's arithmetic in PyTorch; x may carry leading
+    batch axes (``(*batch, 2, Y, Xh, 2)``), the phases broadcast over
+    them."""
+    nb = x.ndim - 4
+    return _rank1(phase_half, x, [cshift_pull(x, d, nb) for d in ALL_DIRS],
                   alpha)
 
 
@@ -158,22 +170,30 @@ def wilson_phase_apply_plain(phase_half, x, w: float, alpha: float):
 # Wrappers.
 # ---------------------------------------------------------------------------
 
-def _check(name: str, phase, x, split: bool = False):
-    """The kernels' input checks; returns (Y, or Yh of the split layout,
-    and Xh) as the launch functions take them."""
+# x's layout per kind: "interleaved" (2, Y, Xh, 2), "split" (2, 2, Yh, Xh,
+# 2), "rhs" (nrhs, 2, Y, Xh, 2).
+_LAYOUTS = {"interleaved": "(2, Y, Xh, 2)", "split": "(2, 2, Yh, Xh, 2)",
+            "rhs": "(nrhs, 2, Y, Xh, 2)"}
+
+
+def _check(name: str, phase, x, layout: str = "interleaved"):
+    """The kernels' input checks; returns the integers the launch function
+    takes before its scalars: (Y, Xh), (Yh, Xh) in the split layout,
+    (nrhs, Y, Xh) with an rhs axis."""
     if x.dtype != torch.complex64 or phase.dtype != torch.complex64:
         raise TypeError(f"{name} needs complex64 phase and x, got "
                         f"{phase.dtype} and {x.dtype}")
-    lead = (2, 2) if split else (2,)
-    if (x.ndim != len(lead) + 3 or tuple(x.shape[:len(lead)]) != lead
-            or x.shape[-1] != 2):
-        raise ValueError(f"{name}: x must be "
-                         f"{'(2, 2, Yh, Xh, 2)' if split else '(2, Y, Xh, 2)'}"
-                         f", got {tuple(x.shape)}")
+    lead = {"interleaved": (2,), "split": (2, 2), "rhs": (2,)}[layout]
+    skip = 1 if layout == "rhs" else 0           # the rhs axis
+    if (x.ndim != skip + len(lead) + 3
+            or tuple(x.shape[skip:skip + len(lead)]) != lead
+            or x.shape[-1] != 2 or (skip and x.shape[0] < 1)):
+        raise ValueError(f"{name}: x must be {_LAYOUTS[layout]}, got "
+                         f"{tuple(x.shape)}")
     rows, xh_len = x.shape[-3], x.shape[-2]
-    if tuple(phase.shape) != (4,) + tuple(x.shape[:-1]):
+    if tuple(phase.shape) != (4,) + tuple(x.shape[skip:-1]):
         raise ValueError(f"{name}: phases must be "
-                         f"{(4,) + tuple(x.shape[:-1])}, got "
+                         f"{(4,) + tuple(x.shape[skip:-1])}, got "
                          f"{tuple(phase.shape)}")
     if phase.device != x.device:
         raise ValueError(f"{name}: phases on {phase.device}, x on "
@@ -182,17 +202,18 @@ def _check(name: str, phase, x, split: bool = False):
         raise ValueError(f"{name} needs contiguous phase and x")
     if x.is_conj() or phase.is_conj():
         raise ValueError(f"{name} needs resolved (non-lazy-conj) tensors")
-    # The kernels' largest index is the phase's, (3 * 2 + 1) * half + rem
-    # < 8 * Y * Xh = 2 x.numel(), in 32-bit ints.
-    if 2 * x.numel() > 2 ** 31:
+    # The kernels' largest index within a field is the phase's,
+    # (3 * 2 + 1) * half + rem < 8 * Y * Xh = 2 x.numel() of one field, in
+    # 32-bit ints (the rhs kernel offsets fields in 64 bits).
+    if 2 * (x[0].numel() if skip else x.numel()) > 2 ** 31:
         raise ValueError(f"{name}: lattice {tuple(x.shape)} too large for "
                          f"the kernel's 32-bit indices")
-    return rows, xh_len
+    return (x.shape[0], rows, xh_len) if skip else (rows, xh_len)
 
 
-def _launch(wrapper, launcher: str, phase, x, rows: int, xh_len: int,
-            *scalars):
-    """Launch one kernel on x's device and its current stream."""
+def _launch(wrapper, launcher: str, phase, x, dims, *scalars):
+    """Launch one kernel on x's device and its current stream; ``dims``
+    are ``_check``'s integers."""
     name = wrapper.__name__
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
@@ -204,7 +225,7 @@ def _launch(wrapper, launcher: str, phase, x, rows: int, xh_len: int,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _LIB[launcher](phase.data_ptr(), x.data_ptr(), out.data_ptr(),
-                             rows, xh_len, *map(float, scalars), stream)
+                             *dims, *map(float, scalars), stream)
     if err != 0:
         raise RuntimeError(f"{name}'s launch failed: CUDA error {err}")
     wrapper.launches += 1
@@ -214,53 +235,68 @@ def _launch(wrapper, launcher: str, phase, x, rows: int, xh_len: int,
 def wilson_r1_apply(phase_half, x, alpha: float):
     """Rank-1 Wilson apply (w = 1); the CUDA kernel for CUDA tensors, the
     plain twin for CPU tensors."""
-    rows, xh_len = _check("wilson_r1_apply", phase_half, x)
+    dims = _check("wilson_r1_apply", phase_half, x)
     if x.device.type == "cpu":
         return wilson_r1_apply_plain(phase_half, x, alpha)
-    return _launch(wilson_r1_apply, "wilson_r1_launch", phase_half, x, rows,
-                   xh_len, alpha)
+    return _launch(wilson_r1_apply, "wilson_r1_launch", phase_half, x, dims,
+                   alpha)
+
+
+def wilson_r1_rhs_apply(phase_half, x, alpha: float):
+    """Rank-1 Wilson apply (w = 1) on nrhs fields x (nrhs, 2, Y, Xh, 2)
+    with one set of phases (4, 2, Y, Xh), each field's result bit for bit
+    ``wilson_r1_apply``'s; the CUDA kernel for CUDA tensors, the plain twin
+    (``wilson_r1_apply_plain`` over the leading axis) for CPU tensors."""
+    dims = _check("wilson_r1_rhs_apply", phase_half, x, "rhs")
+    if x.device.type == "cpu":
+        return wilson_r1_apply_plain(phase_half, x, alpha)
+    return _launch(wilson_r1_rhs_apply, "wilson_r1_rhs_launch", phase_half,
+                   x, dims, alpha)
 
 
 def wilson_phase_apply(phase_half, x, w: float, alpha: float):
     """Wilson apply at any Wilson coefficient w, alpha = 2w + mass; the
     CUDA kernel for CUDA tensors, the plain twin for CPU tensors."""
-    rows, xh_len = _check("wilson_phase_apply", phase_half, x)
+    dims = _check("wilson_phase_apply", phase_half, x)
     if x.device.type == "cpu":
         return wilson_phase_apply_plain(phase_half, x, w, alpha)
     return _launch(wilson_phase_apply, "wilson_phase_launch", phase_half, x,
-                   rows, xh_len, w, alpha)
+                   dims, w, alpha)
 
 
 def wilson_split_apply(phase_split, x_split, alpha: float):
     """Rank-1 Wilson apply (w = 1) in the split layout; the CUDA kernel for
     CUDA tensors, the plain twin for CPU tensors."""
-    yh_len, xh_len = _check("wilson_split_apply", phase_split, x_split,
-                            split=True)
+    dims = _check("wilson_split_apply", phase_split, x_split, "split")
     if x_split.device.type == "cpu":
         return wilson_split_apply_plain(phase_split, x_split, alpha)
     return _launch(wilson_split_apply, "wilson_r1_split_launch", phase_split,
-                   x_split, yh_len, xh_len, alpha)
+                   x_split, dims, alpha)
 
 
-# wrapper: (C launcher, twin, split layout)
+# wrapper: (C launcher, twin, x's layout)
 _BINDINGS = {
-    wilson_r1_apply: ("wilson_r1_launch", wilson_r1_apply_plain, False),
+    wilson_r1_apply: ("wilson_r1_launch", wilson_r1_apply_plain,
+                      "interleaved"),
+    wilson_r1_rhs_apply: ("wilson_r1_rhs_launch", wilson_r1_apply_plain,
+                          "rhs"),
     wilson_phase_apply: ("wilson_phase_launch", wilson_phase_apply_plain,
-                         False),
+                         "interleaved"),
     wilson_split_apply: ("wilson_r1_split_launch", wilson_split_apply_plain,
-                         True)}
+                         "split")}
 
 
 def bind_wilson(wrapper, phase, x_shape, *scalars):
-    """``wrapper``'s apply (``wilson_r1_apply``, ``wilson_phase_apply`` or
-    ``wilson_split_apply``) for the fixed phases ``phase``, x of shape
+    """``wrapper``'s apply (``wilson_r1_apply``, ``wilson_r1_rhs_apply``,
+    ``wilson_phase_apply`` or ``wilson_split_apply``) for the fixed phases
+    ``phase``, x of shape
     ``x_shape`` and the wrapper's scalar arguments (alpha; w and alpha for
     ``wilson_phase_apply``), with the wrapper's checks made here, once. The
     returned function takes a contiguous, 16-byte aligned complex64 x of
     that shape on ``phase``'s device (checked in one expression): the
     kernel on the current stream (counted in ``wrapper.launches``) for
     CUDA phases, the twin for CPU ones."""
-    launcher, twin, split = _BINDINGS[wrapper]
+    launcher, twin, layout = _BINDINGS[wrapper]
     name = wrapper.__name__
     takes = "w and alpha" if wrapper is wilson_phase_apply else "alpha"
     if len(scalars) != len(takes.split(" and ")):
@@ -269,7 +305,7 @@ def bind_wilson(wrapper, phase, x_shape, *scalars):
     scalars = tuple(map(float, scalars))
     x_shape, device = torch.Size(x_shape), phase.device
     probe = torch.empty(x_shape, dtype=torch.complex64, device=device)
-    rows, xh_len = _check(name, phase, probe, split)
+    dims = _check(name, phase, probe, layout)
 
     align = 16 if device.type == "cuda" else 1   # the kernels' float4 loads
 
@@ -301,8 +337,8 @@ def bind_wilson(wrapper, phase, x_shape, *scalars):
                 return apply(x)
         out = torch.empty_like(x)
         # phase.data_ptr() per call: the closure keeps the phases alive
-        err = fn(phase.data_ptr(), x.data_ptr(), out.data_ptr(), rows,
-                 xh_len, *scalars, torch.cuda.current_stream().cuda_stream)
+        err = fn(phase.data_ptr(), x.data_ptr(), out.data_ptr(), *dims,
+                 *scalars, torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"{name}'s launch failed: CUDA error {err}")
         wrapper.launches += 1
@@ -557,6 +593,7 @@ def bind_halo_slabs(phase, ny: int, alpha: float):
 
 
 wilson_r1_apply.launches = 0
+wilson_r1_rhs_apply.launches = 0
 wilson_r1_halo_apply.launches = 0
 wilson_phase_apply.launches = 0
 wilson_split_apply.launches = 0
