@@ -105,6 +105,20 @@ fallback). Phases, any failure exits non-zero:
      fall at every step from t = 1 to t = 5: at m = -0.06 single quenched
      configurations of this volume rise there (PERF.md).
 
+ 17. the n19 Schur path (no kernel applies it, in either package):
+     ``kcycle.build_problem(512, outer="schur")`` (setup timed; inside
+     it the per-site QR inverse, timed again per level beside
+     ``torch.linalg.qr`` on 16384 blocks of 2x2), a warm-up solve and the
+     median of 3 timed solves, one more under torch.profiler. It must
+     converge, reach a true relative residual <= 1e-4 (complex128, the
+     reconstructed full x against the exact ORIGINAL operator), take
+     qmg_tpu's outer count +-1, build each fused Schur set once and no
+     other derived set after the setup, and launch no kernel. The fused
+     Schur apply at 512^2 against the two half applies
+     (``apply_rbj_schur``, max relative error <= 1e-5), both timed with
+     CUDA events. Beside it, the standard solve of phase 4 and the
+     standard solve on the same 512^2 problem with plain applies.
+
 The last two lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}.
 """
@@ -139,6 +153,15 @@ JAX_ITERS_512_MATRIX_SMALL = 9
 # would move it towards critical): qmg_tpu converges there in 8 iterations.
 W_OTHER = 1.3
 JAX_ITERS_512_W_OTHER = 8
+# The same with bench.py's --outer schur configuration (the n19 path:
+# rbjacobi null vectors by restarted GCR, rbjacobi coarsening, RIGHT_SCHUR
+# on every level) through make_planes_solver(outer_type=RIGHT_SCHUR) on
+# the CPU backend with x64 off, from
+# ``python tests/test_torch_schur_kcycle.py --size 512`` (the port's own
+# setup and solve on the CPU took 6 too).
+JAX_ITERS_512_SCHUR = 6
+SCHUR_APPLY_TOL = 1e-5
+SCHUR_SIZE = 512          # phase 17's lattice
 KERNEL_TOL = 1e-5
 HALO_TWIN_TOL = 5e-7      # K7 against its twin
 HALO_K1_TOL = 2e-7        # K7's slabs together against K1's kernel
@@ -1091,6 +1114,115 @@ def stream_phase(torch, dev):
     return counts
 
 
+def schur_phase(torch, dev, standard):
+    """Phase 17: the 512^2 n19 Schur solve beside ``standard`` (phase 4's
+    result) and a standard solve with plain applies on one problem."""
+    from qmg_tpu_torch.kcycle import (build_problem, run_solver,
+                                      print_report, reset_launch_counts,
+                                      launch_counts)
+    from qmg_tpu_torch import stencil, linalg
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    # torch.linalg.qr forms Q one matrix at a time on the card; the port's
+    # site_inv_qr (one batched geqrf and n reflector products) does not.
+    blocks = (torch.randn(16384, 2, 2, dtype=torch.complex64, device=dev)
+              + 3 * torch.eye(2, device=dev))
+    linalg.site_inv_qr(blocks)
+    _, qr_ms = synced(lambda: torch.linalg.qr(blocks))
+    inv, inv_ms = synced(lambda: linalg.site_inv_qr(blocks))
+    check(float((inv @ blocks - torch.eye(2, device=dev)).abs().max())
+          <= 1e-5, "site_inv_qr: B B^-1 != 1 on the card")
+    print(f"16384 blocks of 2x2 c64: torch.linalg.qr {qr_ms:.2f} ms, "
+          f"site_inv_qr (the whole inverse) {inv_ms:.2f} ms", flush=True)
+
+    builds0 = dict(stencil.DERIVED_BUILDS)
+    problem = build_problem(SCHUR_SIZE, dev, outer="schur")
+    mg = problem["mg"]
+    n_levels = mg.get_num_levels()
+    for lvl in range(n_levels):
+        st = mg.get_stencil(lvl)
+        b_mat = stencil.mass_pattern(st.coeffs) + st.coeffs.clover
+        _, qr_lvl = synced(lambda: linalg.site_inv_qr(b_mat))
+        rbj, rbj_ms = synced(lambda: stencil.build_rbjacobi(st.coeffs))
+        _, fused_ms = synced(lambda: stencil.build_rbj_schur_fused(rbj))
+        print(f"level {lvl} {st.lat.x_len}x{st.lat.y_len} nc{st.lat.nc}: "
+              f"site_inv_qr {qr_lvl:.2f} ms, build_rbjacobi {rbj_ms:.2f} "
+              f"ms, build_rbj_schur_fused {fused_ms:.2f} ms", flush=True)
+    builds1 = dict(stencil.DERIVED_BUILDS)
+    # The fused sets the solver's make still has to build (the direct
+    # coarsest's densification built the coarsest one in the setup).
+    unbuilt = sum(not mg.get_stencil(lvl).built_rbj_schur_fused
+                  for lvl in range(n_levels))
+    reset_launch_counts()
+    r = run_solver(problem, fine_kernel=None, profile=True, repeats=3)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    builds2 = dict(stencil.DERIVED_BUILDS)
+    print(f"--- {SCHUR_SIZE}^2 n19 Schur (outer schur)", flush=True)
+    print_report(r)
+    check_solve(r, "512^2 schur")
+    check(abs(r["iters"] - JAX_ITERS_512_SCHUR) <= 1,
+          f"Schur outer iterations {r['iters']} vs qmg_tpu's "
+          f"{JAX_ITERS_512_SCHUR}")
+    check(not any(counts.values()),
+          f"the Schur solves launched kernels: {counts}")
+    setup_builds = {k: builds1.get(k, 0) - builds0.get(k, 0)
+                    for k in builds1}
+    solve_builds = {k: n - builds1.get(k, 0) for k, n in builds2.items()
+                    if n != builds1.get(k, 0)}
+    check(solve_builds == ({"schur_fused": unbuilt} if unbuilt else {}),
+          f"derived sets built over the solver's make and 5 solves: "
+          f"{solve_builds}, expected the {unbuilt} unbuilt fused Schur sets "
+          "once")
+    print(f"derived sets built in the setup {setup_builds}, by the solver "
+          f"{solve_builds} (once, before its 5 solves); kernel launches "
+          f"{counts}", flush=True)
+
+    # --- the fused apply against the two half applies at 512^2 ---
+    op = problem["op"]
+    rbj, fused = op.rbjacobi, op._rbj_schur_fused
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(op.solve_size_shape(stencil.StencilType.RIGHT_SCHUR),
+                    dtype=torch.complex64, device=dev, generator=gen)
+    got = stencil.apply_rbj_schur_fused(fused, x)
+    ref = stencil.apply_rbj_schur(rbj, x)
+    abs_err, rel = rel_err(got, ref)
+    fused_ms = time_ms(lambda: stencil.apply_rbj_schur_fused(fused, x),
+                       torch)
+    halves_ms = time_ms(lambda: stencil.apply_rbj_schur(rbj, x), torch)
+    print(f"{SCHUR_SIZE}^2 Schur apply: fused {fused_ms * 1e3:.2f} us, two "
+          f"half applies {halves_ms * 1e3:.2f} us (CUDA events, 100 calls); "
+          f"max abs err {abs_err:.3e}, relative {rel:.3e}", flush=True)
+    check(rel <= SCHUR_APPLY_TOL,
+          f"fused Schur apply vs apply_rbj_schur: {rel:.3e}")
+
+    # --- the standard formulation on one problem, plain applies ---
+    plain = run_solver(build_problem(SCHUR_SIZE, dev), fine_kernel=None,
+                       repeats=3)
+    print(f"--- {SCHUR_SIZE}^2 standard (outer original), plain applies",
+          flush=True)
+    print_report(plain)
+    check_solve(plain, "512^2 standard, plain applies")
+    print(f"{SCHUR_SIZE}^2 Schur against standard: setup s, solve ms, ms "
+          "per outer iteration, outer iterations", flush=True)
+    for label, res in (("schur, plain applies", r),
+                       ("standard, plain applies", plain),
+                       ("standard, wilson-r1 (phase 4)", standard)):
+        print(f"  {label}: {res['setup_s']:.3f} s, {res['solve_ms']:.3f} "
+              f"ms, {res['ms_per_iter']:.3f} ms, {res['iters']}",
+              flush=True)
+    print(f"  schur profiled solve: {r['device_kernels']} device kernels, "
+          f"device busy {r['device_busy_ms']:.3f} ms = "
+          f"{100 * r['device_busy_ms'] / r['solve_ms']:.1f}% of the median "
+          f"solve", flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1165,6 +1297,9 @@ def main():
     rhs_launches = batched_phase(torch, dev)
     for name, n in stream_phase(torch, dev).items():
         rhs_launches[name] += n
+
+    # --- 17. the n19 Schur path ---
+    schur_phase(torch, dev, r)
 
     # Each Wilson kernel at its path's shape: K1 the 512^2 solve, K2 the
     # 2048^2 solve, K3 the 2048^2 chain.

@@ -21,6 +21,16 @@ solves and reports the median; ``--profile`` adds one solve under
 torch.profiler (device busy share and the kernels with the most device
 time).
 
+``--outer schur`` solves the n19 configuration instead (bench.py
+``--mode kcycle --outer schur``): null vectors on the right-block-Jacobi
+operator by restarted GCR, rbjacobi coarsening, and on every level the
+even-half Schur complement of the rbjacobi operator (RIGHT_SCHUR), b
+prepared and x reconstructed inside the solve. No kernel applies a
+Schur operator, so ``--fine-kernel`` defaults to ``none`` and
+``--coarse-apply`` to ``plain`` there, and other values, ``--shards`` and
+``--distributed`` are refused. The true residual is that of the
+reconstructed full x against the exact ORIGINAL operator.
+
 Level 0 can be cut into y-slabs (``parallel.Mesh``; fine kernel
 ``wilson-r1``, the slab kernel, or ``none``):
 
@@ -46,10 +56,10 @@ import torch
 
 from .lattice import Lattice2D
 from .operators.wilson import Wilson2D
-from .setup import KCycleConfig, build_kcycle_hierarchy
+from .setup import KCycleConfig, build_kcycle_hierarchy, SCHUR_CONFIG
 from .solve import (make_solver, FINE_KERNELS, state_to_numpy,
                     state_from_numpy, shard_state)
-from .stencil import apply_M, make_coeffs
+from .stencil import apply_M, make_coeffs, StencilType
 from .linalg import norm2sq, reductions
 from .rng import QMGRandom
 from .parallel import Mesh
@@ -86,17 +96,24 @@ def reset_launch_counts():
         fn.launches = 0
 
 
-def kcycle_config(size: int):
-    """bench.py's kcycle configuration at lattice size ``size``: returns
-    (KCycleConfig, outer restart)."""
+OUTERS = {"original": StencilType.ORIGINAL,
+          "schur": StencilType.RIGHT_SCHUR}
+
+
+def kcycle_config(size: int, outer: str = "original"):
+    """bench.py's kcycle configuration at lattice size ``size`` (with
+    ``outer="schur"`` its ``--outer schur`` one, the n19 configuration):
+    returns (KCycleConfig, outer restart)."""
     n_refine = 2 if size <= 256 else (3 if size <= 1024 else 4)
     restart = 16 if size >= 2048 else 32
     inner_restart = 8 if size >= 2048 else 32
     cfg = KCycleConfig(n_refine=n_refine, coarse_dof=8, nullvec_tol=5e-4,
                        nullvec_max_iter=200,
                        inner_restart_freq=inner_restart,
-                       coarsest_restart_freq=restart, coarsest_direct=True)
+                       coarsest_restart_freq=restart, coarsest_direct=True,
+                       **(SCHUR_CONFIG if outer == "schur" else {}))
     return cfg, restart
+
 
 
 def _sync(device):
@@ -154,18 +171,24 @@ def profile_solve(solve, b, solve_ms: float, top: int = 12):
 
 
 def build_problem(size: int = 512, device="cuda",
-                  wilson_coeff: float = 1.0, mesh: Mesh | None = None) -> dict:
+                  wilson_coeff: float = 1.0, mesh: Mesh | None = None,
+                  outer: str = "original") -> dict:
     """The gauge field, the fine operator (Wilson coefficient
-    ``wilson_coeff``), the hierarchy (setup timed) and the right-hand side
-    (drawn after the setup, as bench.py does). ``mesh`` is the mesh the
-    solvers will cut level 0 over; a distributed one makes this rank's
-    cut of the problem (``_cut_for_rank``)."""
+    ``wilson_coeff``), the hierarchy of the ``outer`` formulation (setup
+    timed) and the right-hand side (drawn after the setup, as bench.py
+    does). ``mesh`` is the mesh the solvers will cut level 0 over; a
+    distributed one makes this rank's cut of the problem
+    (``_cut_for_rank``)."""
+    if outer not in OUTERS:
+        raise ValueError(f"unknown outer formulation {outer!r}")
+    if mesh is not None and outer != "original":
+        raise ValueError("a mesh takes the original formulation only")
     if mesh is not None and mesh.distributed:
         return _cut_for_rank(size, device, wilson_coeff, mesh)
     lat = Lattice2D(size, size, 2)
     rng = QMGRandom(SEED)
     gauge = u1.gauss_gauge_u1(lat, rng, BETA)
-    cfg, restart = kcycle_config(size)
+    cfg, restart = kcycle_config(size, outer)
 
     _sync(device)
     t0 = time.perf_counter()
@@ -177,7 +200,8 @@ def build_problem(size: int = 512, device="cuda",
     b = torch.as_tensor(rng.gaussian_cv(lat)).to(device=device,
                                                   dtype=torch.complex64)
     return {"size": size, "device": device, "op": op, "mg": mg, "b": b,
-            "restart": restart, "setup_s": setup_s, "mesh": mesh}
+            "restart": restart, "setup_s": setup_s, "mesh": mesh,
+            "outer": outer}
 
 
 def _cut_for_rank(size: int, device, wilson_coeff: float, mesh: Mesh) -> dict:
@@ -202,24 +226,26 @@ def _cut_for_rank(size: int, device, wilson_coeff: float, mesh: Mesh) -> dict:
     b_loc = torch.as_tensor(b_loc).to(device=device, dtype=torch.complex64)
     return {"size": size, "device": device, "op": mg.get_stencil(0),
             "mg": mg, "b": b_loc.contiguous(), "restart": restart,
-            "setup_s": setup_s, "mesh": mesh}
+            "setup_s": setup_s, "mesh": mesh, "outer": "original"}
 
 
 def run_solver(problem: dict, fine_kernel: str | None = "wilson-r1",
                coarse_apply: str = "plain", coeff_dtype=None,
                profile: bool = False, repeats: int = 1) -> dict:
-    """One solver on ``problem``'s hierarchy: a warm-up solve and
-    ``repeats`` timed solves (the median is reported); ``profile`` adds
-    one profiled solve after the timed ones (CUDA only; its device time
-    and kernel count are reported too). ``launches`` are
+    """One solver on ``problem``'s hierarchy, in its outer formulation: a
+    warm-up solve and ``repeats`` timed solves (the median is reported);
+    ``profile`` adds one profiled solve after the timed ones (CUDA only;
+    its device time and kernel count are reported too). ``launches`` are
     the kernel launches per timed solve. Level 0 is cut over
-    ``problem["mesh"]`` when there is one."""
+    ``problem["mesh"]`` when there is one. The Schur formulation takes
+    ``fine_kernel=None``."""
     device, mg, b = problem["device"], problem["mg"], problem["b"]
-    mesh = problem["mesh"]
+    mesh, outer = problem["mesh"], problem["outer"]
     solve = make_solver(mg, tol=TOL, max_iter=MAX_ITER,
                         restart_freq=problem["restart"],
                         fine_kernel=fine_kernel, coarse_apply=coarse_apply,
-                        coeff_dtype=coeff_dtype, mesh=mesh)
+                        coeff_dtype=coeff_dtype, mesh=mesh,
+                        outer_type=OUTERS[outer])
     solve(b)  # warm-up
     _sync(device)
     launches0 = launch_counts()
@@ -236,9 +262,12 @@ def run_solver(problem: dict, fine_kernel: str | None = "wilson-r1",
                           else (None, None))
     _, norm2sq_all, _ = reductions(
         mesh.all_sum if mesh is not None and mesh.distributed else None)
-    rel_rec = float(torch.sqrt(res.res_sq / norm2sq_all(b)))
+    # The recursive residual is the solved (prepared) system's.
+    rhs = problem["op"].prepare_M(b, OUTERS[outer])
+    rel_rec = float(torch.sqrt(res.res_sq / norm2sq_all(rhs)))
     return {
         "size": problem["size"],
+        "outer": outer,
         "wilson_coeff": problem["op"].wilson_coeff,
         "device": str(device),
         "levels": [f"{lat.x_len}x{lat.y_len} nc{lat.nc}"
@@ -270,9 +299,10 @@ def run_kcycle(size: int = 512, device="cuda",
                fine_kernel: str | None = "wilson-r1",
                coarse_apply: str = "plain", coeff_dtype=None,
                profile: bool = False, repeats: int = 1,
-               wilson_coeff: float = 1.0, mesh: Mesh | None = None) -> dict:
+               wilson_coeff: float = 1.0, mesh: Mesh | None = None,
+               outer: str = "original") -> dict:
     """Setup + one solver (``build_problem`` then ``run_solver``)."""
-    return run_solver(build_problem(size, device, wilson_coeff, mesh),
+    return run_solver(build_problem(size, device, wilson_coeff, mesh, outer),
                       fine_kernel, coarse_apply, coeff_dtype, profile=profile,
                       repeats=repeats)
 
@@ -295,16 +325,19 @@ def mesh_from_env(device: str):
 def print_report(r: dict):
     if r["mesh"] is not None:
         print(f"level 0 cut over {r['mesh']}")
-    print(f"kcycle {r['size']}^2 w={r['wilson_coeff']:g} on {r['device']}: "
-          f"fine_kernel "
+    print(f"kcycle {r['size']}^2 w={r['wilson_coeff']:g} on {r['device']}, "
+          f"outer {r['outer']} ({OUTERS[r['outer']].name}): fine_kernel "
           f"{r['fine_kernel']}, coarse_apply {r['coarse_apply']}, "
           f"coefficients {r['coeff_dtype']}")
     print("level applies: " + ", ".join(
         f"{lvl} {name}" for lvl, name in zip(r["levels"],
                                              r["level_applies"])))
     print(f"outer iterations: {r['iters']} (converged {r['converged']})")
-    print(f"relative residual: recursive {r['rel_res_recursive']:.3e}, "
-          f"true (c128) {r['rel_res_true']:.3e}")
+    print(f"relative residual: recursive {r['rel_res_recursive']:.3e}"
+          + (" (of the prepared even-half system)" if r["outer"] == "schur"
+             else "")
+          + f", true (c128, full x, ORIGINAL operator) "
+          f"{r['rel_res_true']:.3e}")
     print(f"setup s: {r['setup_s']:.3f}")
     print(f"solve ms: {r['solve_ms']:.3f}, ms/iter: {r['ms_per_iter']:.3f}"
           + (f" (median of {len(r['solve_ms_all'])}: "
@@ -320,13 +353,18 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--size", type=int, default=512)
     p.add_argument("--device", default="cuda")
-    p.add_argument("--fine-kernel", default="wilson-r1",
-                   choices=[*FINE_KERNELS, "none"])
+    p.add_argument("--outer", default="original", choices=list(OUTERS),
+                   help="outer formulation: original (n13) or schur (n19: "
+                        "RIGHT_SCHUR on every level)")
+    p.add_argument("--fine-kernel", default=None,
+                   choices=[*FINE_KERNELS, "none"],
+                   help="default wilson-r1 (none with --outer schur)")
     p.add_argument("--wilson-coeff", type=float, default=1.0,
                    help="Wilson2D's Wilson coefficient w (wilson-r1 needs "
                         "1)")
-    p.add_argument("--coarse-apply", default="plain",
-                   choices=["plain", "gather", "small"])
+    p.add_argument("--coarse-apply", default=None,
+                   choices=["plain", "gather", "small"],
+                   help="default plain")
     p.add_argument("--coeff-dtype", default="float32",
                    choices=["float32", "bfloat16"],
                    help="coefficient stream of the matrix kernels")
@@ -340,6 +378,20 @@ def main(argv=None):
     p.add_argument("--profile", action="store_true",
                    help="also profile one solve (device time by kernel)")
     args = p.parse_args(argv)
+    if args.outer == "schur":
+        if args.fine_kernel not in (None, "none") or \
+                args.coarse_apply not in (None, "plain"):
+            raise SystemExit("--outer schur takes --fine-kernel none and "
+                             "--coarse-apply plain: no kernel applies a "
+                             "Schur operator")
+        if args.shards is not None or args.distributed:
+            raise SystemExit("--outer schur runs on one device: --shards "
+                             "and --distributed take the original "
+                             "formulation")
+    if args.fine_kernel is None:
+        args.fine_kernel = "none" if args.outer == "schur" else "wilson-r1"
+    if args.coarse_apply is None:
+        args.coarse_apply = "plain"
     is_cuda = torch.device(args.device).type == "cuda"
     if is_cuda and not torch.cuda.is_available():
         raise SystemExit("--device cuda requested but no CUDA device")
@@ -366,7 +418,8 @@ def main(argv=None):
                        torch.bfloat16 if args.coeff_dtype == "bfloat16"
                        else None,
                        profile=args.profile, repeats=args.repeats,
-                       wilson_coeff=args.wilson_coeff, mesh=mesh)
+                       wilson_coeff=args.wilson_coeff, mesh=mesh,
+                       outer=args.outer)
     finally:
         if args.distributed:
             import torch.distributed as dist

@@ -12,6 +12,11 @@ from .stencil import Stencil2D
 from .transfer import TransferMG
 from .operators.coarse import CoarseOperator2D
 
+# What a built coarse level coarsens: the fine stencil's original set or its
+# right-block-Jacobi form.
+PRECOND_ORIGINAL = 0
+PRECOND_RIGHT_BLOCK_JACOBI = 1
+
 
 class MultigridMG:
     def __init__(self, lat: Lattice2D, stencil: Stencil2D):
@@ -33,13 +38,20 @@ class MultigridMG:
 
     def push_level(self, new_lat: Lattice2D, new_transfer: TransferMG,
                    build_stencil: bool = False, is_chiral: bool = False,
-                   stencil: Optional[Stencil2D] = None):
+                   stencil: Optional[Stencil2D] = None,
+                   build_stencil_from: int = PRECOND_ORIGINAL,
+                   build_extra: int = CoarseOperator2D.BUILD_ORIGINAL):
         """Append a level. With ``build_stencil`` the Galerkin coarse
-        operator of the current coarsest stencil is built; a prebuilt
+        operator of the current coarsest stencil is built, from its
+        original set or (``PRECOND_RIGHT_BLOCK_JACOBI``) its rbjacobi
+        form, with the ``build_extra`` derived sets; a prebuilt
         ``stencil`` is adopted as is."""
         self.lattice_list.append(new_lat)
         self.transfer_list.append(new_transfer)
         if stencil is None and build_stencil:
-            stencil = CoarseOperator2D(new_lat, self.stencil_list[-1],
-                                       new_transfer, is_chiral=is_chiral)
+            stencil = CoarseOperator2D(
+                new_lat, self.stencil_list[-1], new_transfer,
+                is_chiral=is_chiral,
+                use_rbjacobi=build_stencil_from == PRECOND_RIGHT_BLOCK_JACOBI,
+                build_extra=build_extra)
         self.stencil_list.append(stencil)

@@ -1,6 +1,9 @@
 """Galerkin coarse operator built by probing (port of
 qmg_tpu/operators/coarse.py, chirality/gamma5 part).
 
+The fine set probed is the fine stencil's original one, or with
+``use_rbjacobi`` its right-block-Jacobi form A B^-1 (the n19 Schur path).
+
 For each coarse colour (and parity, and direction) the probe build sets 1 on
 coarse sites, prolongs, applies one fine stencil piece, restricts, and
 scatters the response into the coarse clover (same-parity rows) or the
@@ -22,7 +25,14 @@ from ..transfer import TransferMG, DoublingType
 
 def build_coarse_coeffs(coarse_lat: Lattice2D, fine_coeffs: StencilCoeffs,
                         transfer: TransferMG) -> StencilCoeffs:
-    """Probe-build the coarse clover + hopping from a fine coefficient set."""
+    """Probe-build the coarse clover + hopping from a fine coefficient set
+    (``stencil.coeffs``, or ``stencil.rbjacobi.coeffs`` to coarsen the
+    right-block-Jacobi operator)."""
+    if not fine_coeffs.is_distance1():
+        # The probe responses are sorted into coarse clover and hopping by
+        # fine parity, which is exact only when every coupling flips it.
+        raise ValueError("Galerkin probe build requires a distance-1 "
+                         "fine stencil (twolink/corner pieces present)")
     nc = coarse_lat.nc
     ref = (fine_coeffs.clover if fine_coeffs.clover is not None
            else fine_coeffs.hopping)
@@ -76,27 +86,49 @@ def build_coarse_coeffs(coarse_lat: Lattice2D, fine_coeffs: StencilCoeffs,
 
 
 class CoarseOperator2D(Stencil2D):
-    """The Galerkin coarse operator of ``fine_stencil`` through
-    ``transfer``, with the coarse chirality learned from the transfer's
-    doubling type."""
+    """The Galerkin coarse operator of ``fine_stencil`` (or, with
+    ``use_rbjacobi``, of its rbjacobi form) through ``transfer``, with the
+    coarse chirality learned from the transfer's doubling type.
+    ``build_extra`` (a ``BUILD_*`` constant) builds derived sets of the
+    coarse operator at once."""
+
+    BUILD_ORIGINAL = 0
+    BUILD_DAGGER = 1
+    BUILD_RBJACOBI = 2
+    BUILD_DAGGER_RBJACOBI = 3
+    BUILD_RBJDAGGER = 4
+    BUILD_ALL = 5
 
     def __init__(self, coarse_lat: Lattice2D, fine_stencil: Stencil2D,
-                 transfer: TransferMG, is_chiral: bool = False):
-        coeffs = build_coarse_coeffs(coarse_lat, fine_stencil.coeffs,
-                                     transfer)
-        self._init(coeffs, transfer, is_chiral)
+                 transfer: TransferMG, is_chiral: bool = False,
+                 use_rbjacobi: bool = False,
+                 build_extra: int = BUILD_ORIGINAL):
+        fine_coeffs = (fine_stencil.rbjacobi.coeffs if use_rbjacobi
+                       else fine_stencil.coeffs)
+        coeffs = build_coarse_coeffs(coarse_lat, fine_coeffs, transfer)
+        self._init(coeffs, transfer, is_chiral, use_rbjacobi)
+        if build_extra in (self.BUILD_DAGGER, self.BUILD_DAGGER_RBJACOBI,
+                           self.BUILD_ALL):
+            self.build_dagger_stencil()
+        if build_extra in (self.BUILD_RBJACOBI, self.BUILD_DAGGER_RBJACOBI,
+                           self.BUILD_RBJDAGGER, self.BUILD_ALL):
+            self.build_rbjacobi_stencil()
+        if build_extra in (self.BUILD_RBJDAGGER, self.BUILD_ALL):
+            self.build_rbj_dagger_stencil()
 
     @classmethod
     def from_coeffs(cls, coeffs: StencilCoeffs, transfer: TransferMG,
-                    is_chiral: bool = True) -> "CoarseOperator2D":
+                    is_chiral: bool = True, use_rbjacobi: bool = False
+                    ) -> "CoarseOperator2D":
         """Adopt a coarse coefficient set built elsewhere (a state dict)."""
         op = cls.__new__(cls)
-        op._init(coeffs, transfer, is_chiral)
+        op._init(coeffs, transfer, is_chiral, use_rbjacobi)
         return op
 
-    def _init(self, coeffs, transfer, is_chiral):
+    def _init(self, coeffs, transfer, is_chiral, use_rbjacobi):
         Stencil2D.__init__(self, coeffs)
         self.is_chiral = is_chiral
+        self.use_rbjacobi = use_rbjacobi
         self.in_transfer = transfer
         doubling = transfer.get_doubling()
         if doubling == DoublingType.PROJECTION:

@@ -14,8 +14,6 @@ mass in ``shift``; gamma5 = diag(1, -1); chirality = spin components.
 
 from __future__ import annotations
 
-import dataclasses
-
 import torch
 
 from ..lattice import Lattice2D, DIR_XM1, DIR_YM1
@@ -103,13 +101,13 @@ class Wilson2D(Stencil2D):
     def update_links(self, gauge):
         """Rebuild clover and hopping from a new gauge field at the same
         w, mass, dtype and device. The coefficient record is replaced, so
-        its cached stacked form is rebuilt at the next apply."""
+        its cached stacked form is rebuilt at the next apply, and the
+        derived sets (B^-1 among them) at their next use."""
         c = self.coeffs
         clover, hopping = wilson_coeff_arrays(
             self.lat, gauge, self.wilson_coeff, dtype=c.hopping.dtype,
             device=c.hopping.device)
-        self.coeffs = dataclasses.replace(c, clover=clover, hopping=hopping,
-                                          _stacked=None)
+        self.update_coeffs(clover=clover, hopping=hopping)
 
     @staticmethod
     def get_dof(i: int = 0) -> int:

@@ -1,12 +1,15 @@
 """The MG-preconditioned solve and the state exchange with qmg_tpu (port
-of the ORIGINAL path of qmg_tpu/tpu_compat.py's ``make_planes_solver`` and
-``mg_state_planes``, without their real-plane jit boundaries).
+of qmg_tpu/tpu_compat.py's ``make_planes_solver``, ``mg_state_planes`` and
+``derived_state_planes``, without their real-plane jit boundaries).
 
 ``make_solver`` runs outer restarted flexible GCR around the K-cycle. The
 outer matvec is the exact plain apply; the CUDA kernels (and the gather
-apply) are installed only as the levels' ``apply_override`` inside the
-preconditioner, where flexible GCR absorbs their float32 (or bf16
-coefficient) rounding.
+apply) are installed only as the levels' ORIGINAL ``apply_override``
+inside the preconditioner, where flexible GCR absorbs their float32 (or
+bf16 coefficient) rounding. ``outer_type=StencilType.RIGHT_SCHUR`` solves
+the n19 formulation: the even-half Schur complement of the rbjacobi
+operator, b prepared and x reconstructed inside the solve; no kernel
+takes part, as no Schur apply takes an override.
 
 ``make_batched_solver``, ``make_fixed_batched_solver`` and
 ``make_calibrated_batched_solver`` (the counterparts of qmg_tpu's
@@ -20,7 +23,11 @@ levels), one launch for all lanes.
 packages in the key format of ``qmg_tpu.tpu_compat.mg_state_planes``:
 ``clover{l}``, ``hopping{l}``, ``shifts{l}`` (shift, eo_shift, dof_shift),
 ``nvb{l}`` (blocked null vectors) and ``cdinv`` (dense coarsest inverse),
-each a real (..., 2) = (real, imag) NumPy array.
+and, for the levels that solve with a derived operator, qmg_tpu's
+``derived_state_planes`` keys ``rbjcinv{l}`` (B^-1), ``rbjh{l}`` /
+``rbjt{l}`` / ``rbjc{l}`` (rbjacobi hopping / twolink / corner) and
+``schurf{l}`` (the 9 fused Schur matrices), each a real (..., 2) =
+(real, imag) NumPy array.
 """
 
 from __future__ import annotations
@@ -29,7 +36,9 @@ import numpy as np
 import torch
 
 from .lattice import Lattice2D
-from .stencil import Stencil2D, make_coeffs, apply_M, build_gather_apply
+from .stencil import (Stencil2D, StencilType, RBJacobiSet, SchurFused,
+                      make_coeffs, apply_M, build_gather_apply)
+from . import linalg
 from .operators.wilson import Wilson2D
 from .operators.coarse import CoarseOperator2D
 from .transfer import TransferMG, ShardedTransferMG, DoublingType
@@ -162,11 +171,22 @@ def make_solver(mg: StatefulMultigridMG, tol: float = 1e-8,
                 max_iter: int = 400, restart_freq: int = 32,
                 fine_kernel: str | None = "wilson-r1",
                 coarse_apply: str = "plain", coeff_dtype=None,
-                mesh: Mesh | None = None):
+                mesh: Mesh | None = None,
+                outer_type: StencilType = StencilType.ORIGINAL):
     """Returns solve(b) -> (SolveResult, carry): outer FGCR on the fine
     operator, preconditioned by one K-cycle per iteration. ``carry`` holds
     this solve's per-level operator and iteration counts (outer ones
     included); they are also added to ``mg.tracker``.
+
+    ``outer_type`` is the outer operator, level 0's ``fine_stencil_app``:
+    ORIGINAL, RIGHT_JACOBI or RIGHT_SCHUR (the n19 configuration). The
+    caller passes the full b and gets the full x back in ``res.x``:
+    ``prepare_M`` and ``reconstruct_M`` run inside ``solve``, and
+    ``res.res_sq`` is the residual of the prepared system. The derived
+    sets that the solve applies are built here, once. No kernel and no
+    gather apply replaces a derived apply, so with a derived outer type
+    ``fine_kernel`` must be None and ``mesh`` None, and ``coarse_apply``
+    must be "plain" where a coarse level solves with a derived type.
 
     ``fine_kernel`` routes level 0's apply inside the K-cycle through a
     CUDA kernel: "wilson-r1" (the rank-1 Wilson kernel, w = 1 only),
@@ -208,9 +228,28 @@ def make_solver(mg: StatefulMultigridMG, tol: float = 1e-8,
         raise ValueError("coeff_dtype applies to the matrix kernels "
                          f"{MATRIX_KERNELS}, not fine_kernel="
                          f"{fine_kernel!r}")
-    pin_full_precision()
-    fine = mg.get_stencil(0)
+    outer_type = StencilType(outer_type)
     n_levels = mg.get_num_levels()
+    types = mg.level_types()
+    if n_levels > 1 and outer_type != types[0]:
+        raise ValueError(f"outer_type {outer_type.name} must be level 0's "
+                         f"fine_stencil_app, {types[0].name}")
+    if outer_type != StencilType.ORIGINAL and (fine_kernel is not None
+                                              or mesh is not None):
+        raise ValueError(
+            f"outer_type {outer_type.name} takes fine_kernel=None and no "
+            "mesh: the kernels replace only the ORIGINAL apply, and no "
+            "derived (Schur / rbjacobi) apply takes an override")
+    if coarse_apply != "plain" and any(t != StencilType.ORIGINAL
+                                       for t in types[1:]):
+        raise ValueError(
+            f"coarse_apply={coarse_apply!r} on coarse levels that solve with "
+            f"{sorted({t.name for t in types[1:]})}: the gather apply and "
+            "K6 replace only the ORIGINAL apply, and no derived (Schur / "
+            "rbjacobi) apply takes an override; use 'plain'")
+    pin_full_precision()
+    mg.prebuild_derived_stencils(outer_type)
+    fine = mg.get_stencil(0)
     stencils = [mg.get_stencil(lvl) for lvl in range(n_levels)]
     overrides, applies = [None], ["plain"]
     reduce = None
@@ -237,8 +276,12 @@ def make_solver(mg: StatefulMultigridMG, tol: float = 1e-8,
         fn, name = _coarse_apply(st, coarse_apply)
         overrides.append(fn)
         applies.append(name)
+    applies = [name if t == StencilType.ORIGINAL else t.name.lower()
+               for name, t in zip(applies, types)]
 
-    if mesh is None:
+    if outer_type != StencilType.ORIGINAL:
+        matvec = fine.get_apply_function(outer_type)
+    elif mesh is None:
         def matvec(v):
             return apply_M(fine.coeffs, v)
     else:
@@ -246,12 +289,13 @@ def make_solver(mg: StatefulMultigridMG, tol: float = 1e-8,
 
     def solve(b):
         carry = zero_carry(n_levels)
+        rhs = fine.prepare_M(b, outer_type)
         try:
             for st, fn in zip(stencils, overrides):
                 st.apply_override = fn
             precond = mg.make_preconditioner(0, reduce=reduce)
             res, carry = solvers.gcr_var_precond_restart(
-                matvec, b, precond, max_iter=max_iter, tol=tol,
+                matvec, rhs, precond, max_iter=max_iter, tol=tol,
                 restart_freq=restart_freq, precond_carry=carry,
                 reduce=reduce)
         finally:
@@ -260,6 +304,8 @@ def make_solver(mg: StatefulMultigridMG, tol: float = 1e-8,
         carry["counts"][0, DSLASH_KRYLOV] += res.ops_count
         carry["iters"][0] += res.iters
         mg.absorb_carry(carry)
+        if outer_type != StencilType.ORIGINAL:
+            res = res._replace(x=fine.reconstruct_M(res.x, b, outer_type))
         return res, carry
 
     solve.level_applies = applies
@@ -412,8 +458,31 @@ def _complex(p: np.ndarray, dtype, device) -> torch.Tensor:
                                                         dtype=dtype)
 
 
-def state_to_numpy(mg: StatefulMultigridMG, dtype=np.float32) -> dict:
-    """Every array of the hierarchy as real (..., 2) planes of ``dtype``."""
+_RBJ_TYPES = (StencilType.RIGHT_JACOBI, StencilType.RBJ_DAGGER,
+              StencilType.RBJ_M_MDAGGER, StencilType.RBJ_MDAGGER_M)
+
+
+def _derived_need(mg: StatefulMultigridMG, outer_type=None) -> dict:
+    """level -> {"rbj"[, "fused"]}: the derived sets that the levels'
+    stencil types (and ``outer_type`` on level 0) apply (qmg_tpu's
+    ``tpu_compat._derived_need``)."""
+    need = {}
+    types = list(enumerate(mg.level_types()))
+    if outer_type is not None:
+        types.append((0, StencilType(outer_type)))
+    for lvl, t in types:
+        if t in _RBJ_TYPES:
+            need.setdefault(lvl, set()).add("rbj")
+        elif t == StencilType.RIGHT_SCHUR:
+            need.setdefault(lvl, set()).update(("rbj", "fused"))
+    return need
+
+
+def state_to_numpy(mg: StatefulMultigridMG, dtype=np.float32,
+                   outer_type=None) -> dict:
+    """Every array of the hierarchy as real (..., 2) planes of ``dtype``,
+    with the derived sets that the levels' types (and ``outer_type``)
+    apply, built here where they are not yet."""
     state = {}
     for lvl in range(mg.get_num_levels()):
         c = mg.get_stencil(lvl).coeffs
@@ -428,7 +497,45 @@ def state_to_numpy(mg: StatefulMultigridMG, dtype=np.float32) -> dict:
         state[f"nvb{lvl}"] = _planes(mg.get_transfer(lvl)._nvb, dtype)
     if mg.coarsest_dinv is not None:
         state["cdinv"] = _planes(mg.coarsest_dinv, dtype)
+    for lvl, kinds in _derived_need(mg, outer_type).items():
+        st = mg.get_stencil(lvl)
+        rbj = st.rbjacobi
+        state[f"rbjcinv{lvl}"] = _planes(rbj.cinv, dtype)
+        for name, arr in (("rbjh", rbj.coeffs.hopping),
+                          ("rbjt", rbj.coeffs.twolink),
+                          ("rbjc", rbj.coeffs.corner)):
+            if arr is not None:
+                state[f"{name}{lvl}"] = _planes(arr, dtype)
+        if "fused" in kinds:
+            st.prebuild_derived(StencilType.RIGHT_SCHUR)
+            if st.built_rbj_schur_fused:
+                state[f"schurf{lvl}"] = _planes(st._rbj_schur_fused.mats,
+                                                dtype)
     return state
+
+
+_DERIVED_KEYS = ("rbjcinv", "rbjh", "rbjt", "rbjc", "schurf")
+
+
+def _adopt_derived(st: Stencil2D, state: dict, lvl: int, dtype, device):
+    """Install the derived sets of level ``lvl`` that ``state`` carries
+    (qmg_tpu's ``_patch_hierarchy``), instead of re-deriving them."""
+    if f"rbjcinv{lvl}" not in state:
+        return
+    cinv = _complex(state[f"rbjcinv{lvl}"], dtype, device)
+    pieces = {name: (_complex(state[key], dtype, device) if key in state
+                     else None)
+              for name, key in (("hopping", f"rbjh{lvl}"),
+                                ("twolink", f"rbjt{lvl}"),
+                                ("corner", f"rbjc{lvl}"))}
+    st._rbjacobi = RBJacobiSet(
+        coeffs=st.coeffs.replace(clover=linalg.identity_like(cinv),
+                                 shift=0j, eo_shift=0j, dof_shift=0j,
+                                 **pieces),
+        cinv=cinv)
+    if f"schurf{lvl}" in state:
+        st._rbj_schur_fused = SchurFused(
+            mats=_complex(state[f"schurf{lvl}"], dtype, device))
 
 
 def shard_state(state: dict, mesh: Mesh, b=None):
@@ -477,10 +584,19 @@ def state_from_numpy(state: dict, cfg: KCycleConfig, *, device="cpu",
     With a distributed ``mesh``, ``state`` is the rank's cut from
     ``shard_state``: the hierarchy's lattices are the whole ones, level
     0's operator holds the rank's block of the coefficients (its ``lat``
-    is the block's), and level 0's transfer is a ``ShardedTransferMG``."""
+    is the block's), and level 0's transfer is a ``ShardedTransferMG``.
+
+    The derived sets the state carries (``rbjcinv{l}`` ...) are adopted
+    as they are, so a Schur hierarchy that qmg_tpu built solves on the
+    sets it built; ``cfg`` supplies the levels' stencil types."""
     if mesh is not None and not mesh.distributed:
         raise ValueError("an in-process mesh takes the whole state: load it "
                          "without mesh= and pass the mesh to make_solver")
+    if mesh is not None and any(k.rstrip("0123456789") in _DERIVED_KEYS
+                                for k in state):
+        raise ValueError("a distributed mesh takes ORIGINAL hierarchies: "
+                         "the derived (rbjacobi / Schur) sets are not cut "
+                         "for blocks (ROADMAP Queue 1 item 9)")
     if dtype is None:
         dtype = (torch.complex64 if state["clover0"].dtype == np.float32
                  else torch.complex128)
@@ -497,6 +613,7 @@ def state_from_numpy(state: dict, cfg: KCycleConfig, *, device="cpu",
     ny, nx = mesh.shape if mesh is not None else (1, 1)
     lat0 = Lattice2D(2 * xh * nx, y_len * ny, nc)
     fine = Wilson2D.from_coeffs(coeffs(0, Lattice2D(2 * xh, y_len, nc)))
+    _adopt_derived(fine, state, 0, dtype, device)
     mg = StatefulMultigridMG(lat0, fine, cfg.coarsest_solve())
     lat_prev = lat0
     for lvl, lat in enumerate(cfg.coarse_lattices(lat0), start=1):
@@ -510,8 +627,10 @@ def state_from_numpy(state: dict, cfg: KCycleConfig, *, device="cpu",
         else:
             transfer = TransferMG.from_blocked(
                 lat_prev, lat, nvb, doubling=DoublingType.PROJECTION)
-        coarse = CoarseOperator2D.from_coeffs(coeffs(lvl, lat), transfer,
-                                              is_chiral=True)
+        coarse = CoarseOperator2D.from_coeffs(
+            coeffs(lvl, lat), transfer, is_chiral=True,
+            use_rbjacobi=cfg.precond_coarsen_rbjacobi)
+        _adopt_derived(coarse, state, lvl, dtype, device)
         mg.push_level(lat, transfer, cfg.level_solve(), stencil=coarse)
         lat_prev = lat
     if "cdinv" in state:

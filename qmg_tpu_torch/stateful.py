@@ -1,16 +1,22 @@
 """Stateful multigrid: per-level solve configs, operator counters, the
 direct coarsest solve and the recursive K-cycle preconditioner (port of
-qmg_tpu/stateful.py, ORIGINAL stencil path).
+qmg_tpu/stateful.py).
+
+Each level solves with its ``fine_stencil_app`` (the coarsest with its
+``coarsest_stencil_app``): ORIGINAL, RIGHT_JACOBI or RIGHT_SCHUR. A
+RIGHT_SCHUR level's fields are even halves (Y, Xh, nc): the K-cycle
+restricts [r, 0] and keeps the even half of the prolonged correction.
 
 ``make_preconditioner(level)`` returns precond(rhs, carry) -> (lhs, carry).
 The carry holds the per-level operator counters as host integers:
 ``counts`` (n_levels, 4) by {NULLVEC, KRYLOV, PRESMOOTH, POSTSMOOTH} and
 Krylov iteration counts ``iters`` (n_levels,).
 
-``make_batched_preconditioner(level)`` is the same K-cycle on fields with
-a leading rhs axis (B, 2, Y, Xh, nc): precond(rhs, carry, lanes), each
-lane with its own carry (``zero_batched_carry``: counts (B, n_levels, 4),
-iters (B, n_levels)), only the active ``lanes`` counted.
+``make_batched_preconditioner(level)`` is the same K-cycle (ORIGINAL
+levels only) on fields with a leading rhs axis (B, 2, Y, Xh, nc):
+precond(rhs, carry, lanes), each lane with its own carry
+(``zero_batched_carry``: counts (B, n_levels, 4), iters (B, n_levels)),
+only the active ``lanes`` counted.
 """
 
 from __future__ import annotations
@@ -21,7 +27,7 @@ import numpy as np
 import torch
 
 from .lattice import Lattice2D
-from .stencil import Stencil2D
+from .stencil import Stencil2D, StencilType
 from .multigrid import MultigridMG
 from . import solvers
 from .linalg import norm2sq, norm2sq_lanes
@@ -33,9 +39,19 @@ DSLASH_PRESMOOTH = 2
 DSLASH_POSTSMOOTH = 3
 
 
+# The stencil types a level or the coarsest may solve with here. The
+# normal-operator types (the CGNE smoother, the CG coarsest and its
+# deflation) are not ported.
+LEVEL_TYPES = (StencilType.ORIGINAL, StencilType.RIGHT_JACOBI,
+               StencilType.RIGHT_SCHUR)
+
+
 @dataclasses.dataclass
 class LevelSolveMG:
-    """Solve config for a non-coarsest level (ORIGINAL stencil)."""
+    """Solve config for a non-coarsest level: its smoothers and the
+    intermediate Krylov solve that reaches it from the level above apply
+    ``fine_stencil_app``."""
+    fine_stencil_app: StencilType = StencilType.ORIGINAL
     intermediate_tol: float = 1e-20
     intermediate_iters: int = 1000
     intermediate_restart_freq: int = 32
@@ -43,21 +59,42 @@ class LevelSolveMG:
     pre_iters: int = 2
     post_tol: float = 1e-20
     post_iters: int = 2
+    pre_cgne: bool = False
+    post_cgne: bool = False
     # Fixed-schedule mode: the intermediate Krylov solve runs exactly
     # intermediate_iters trips (its tolerance reported, not tested), so
     # no loop of the level waits on a read-back of a stopping test.
     fixed_trips: bool = False
 
+    def __post_init__(self):
+        if StencilType(self.fine_stencil_app) not in LEVEL_TYPES:
+            raise ValueError(
+                "LevelSolveMG.fine_stencil_app must be original, right "
+                "jacobi, or schur")
+        if self.pre_cgne or self.post_cgne:
+            raise NotImplementedError(
+                "the CGNE smoother (pre_cgne / post_cgne) is not ported: it "
+                "needs the normal-operator solves (ROADMAP Queue 1 item 9)")
+
 
 @dataclasses.dataclass
 class CoarsestSolveMG:
-    """Coarsest-level solve config (restarted GCR on the ORIGINAL
-    stencil); ``direct`` switches to the dense inverse prepared by
-    ``prepare_direct_coarsest``."""
+    """Coarsest-level solve config (restarted GCR on
+    ``coarsest_stencil_app``); ``direct`` switches to the dense inverse
+    prepared by ``prepare_direct_coarsest``."""
+    coarsest_stencil_app: StencilType = StencilType.ORIGINAL
     coarsest_tol: float = 1e-20
     coarsest_iters: int = 1000
     coarsest_restart_freq: int = 32
     direct: bool = False
+
+    def __post_init__(self):
+        if StencilType(self.coarsest_stencil_app) not in LEVEL_TYPES:
+            raise NotImplementedError(
+                f"coarsest_stencil_app "
+                f"{StencilType(self.coarsest_stencil_app).name} is not "
+                "ported: the normal-operator coarsest (CG, deflation) waits "
+                "for the next slice (ROADMAP Queue 1 item 9)")
 
 
 def zero_carry(n_levels: int):
@@ -113,13 +150,17 @@ class StatefulMultigridMG(MultigridMG):
 
     # --- direct coarsest solve ---
     def prepare_direct_coarsest(self):
-        """Materialize and invert the coarsest operator (host complex128),
-        enabling a one-matvec coarsest solve."""
+        """Materialize and invert the coarsest operator of the configured
+        ``coarsest_stencil_app`` (host complex128), enabling a one-matvec
+        coarsest solve."""
         st = self.get_stencil(self.get_num_levels() - 1)
-        ref = st.coeffs.clover if st.coeffs.clover is not None \
-            else st.coeffs.hopping
-        mat = eig.densify(st.get_apply_function(), st.solve_size_shape(),
-                          dtype=ref.dtype, device=ref.device)
+        stype = StencilType(self.coarsest_solve.coarsest_stencil_app)
+        ref = st.coeffs.ref
+        # A RIGHT_SCHUR coarsest is densified on its even half: the
+        # K-cycle applies the inverse to prepare_M's output.
+        mat = eig.densify(st.get_apply_function(stype),
+                          st.solve_size_shape(stype), dtype=ref.dtype,
+                          device=ref.device)
         if not np.isfinite(mat).all():
             raise ValueError(
                 "coarsest operator contains non-finite entries - the "
@@ -162,12 +203,14 @@ class StatefulMultigridMG(MultigridMG):
         coarse_stencil = self.get_stencil(level + 1)
         transfer = self.get_transfer(level)
         level_solve = self.get_level_solve(level)
-        apply_fine = fine_stencil.apply_M
-        apply_coarse = coarse_stencil.apply_M
+        fine_type = StencilType(level_solve.fine_stencil_app)
+        fine_schur = fine_type == StencilType.RIGHT_SCHUR
+        apply_fine = fine_stencil.get_apply_function(fine_type)
 
         coarsest = level == n_levels - 2
         if not coarsest:
             nxt = self.get_level_solve(level + 1)
+            coarse_type = StencilType(nxt.fine_stencil_app)
             coarse_max_iter = nxt.intermediate_iters
             coarse_tol = nxt.intermediate_tol
             coarse_restart = nxt.intermediate_restart_freq
@@ -175,9 +218,11 @@ class StatefulMultigridMG(MultigridMG):
             inner_precond = self.make_preconditioner(level + 1)
         else:
             cs = self.coarsest_solve
+            coarse_type = StencilType(cs.coarsest_stencil_app)
             coarse_max_iter = cs.coarsest_iters
             coarse_tol = cs.coarsest_tol
             coarse_restart = cs.coarsest_restart_freq
+        apply_coarse = coarse_stencil.get_apply_function(coarse_type)
 
         def smoother(rhs, n_iters, s_tol, dslash_type, carry):
             res = solvers.minres(apply_fine, rhs, max_iter=n_iters,
@@ -197,10 +242,13 @@ class StatefulMultigridMG(MultigridMG):
                 z1 = rhs
                 r1 = rhs
 
-            # --- restrict + prepare ---
-            r_coarse = transfer.restrict_f2c(r1)
+            # --- restrict + prepare (a Schur level's field is the even
+            # half: restrict [r1, 0]) ---
+            full = (torch.stack([r1, torch.zeros_like(r1)]) if fine_schur
+                    else r1)
+            r_coarse = transfer.restrict_f2c(full)
             rnorm = torch.sqrt(norm2sq(r_coarse))
-            r_coarse_prep = coarse_stencil.prepare_M(r_coarse)
+            r_coarse_prep = coarse_stencil.prepare_M(r_coarse, coarse_type)
             rnorm_prep = torch.sqrt(norm2sq(r_coarse_prep))
             inner_tol = coarse_tol * rnorm / rnorm_prep
 
@@ -228,9 +276,12 @@ class StatefulMultigridMG(MultigridMG):
             carry["counts"][level + 1, DSLASH_KRYLOV] += sub_ops
             carry["iters"][level + 1] += sub_iters
 
-            # --- reconstruct + prolong ---
-            e_rec = coarse_stencil.reconstruct_M(e_coarse, r_coarse)
-            lhs = z1 + transfer.prolong_c2f(e_rec)
+            # --- reconstruct + prolong (keep the even half on a Schur
+            # level) ---
+            e_rec = coarse_stencil.reconstruct_M(e_coarse, r_coarse,
+                                                 coarse_type)
+            z2 = transfer.prolong_c2f(e_rec)
+            lhs = z1 + (z2[0] if fine_schur else z2)
 
             # --- postsmooth ---
             if level_solve.post_iters > 0:
@@ -244,6 +295,25 @@ class StatefulMultigridMG(MultigridMG):
 
         return precond
 
+    def prebuild_derived_stencils(self,
+                                  outer_type=StencilType.ORIGINAL):
+        """Build now every derived set (rbjacobi B^-1, fused Schur, ...)
+        that a solve with outer operator ``outer_type`` and the configured
+        level types will apply, so that no Krylov step builds one."""
+        n_levels = self.get_num_levels()
+        self.get_stencil(0).prebuild_derived(outer_type)
+        for lvl in range(n_levels - 1):
+            self.get_stencil(lvl).prebuild_derived(
+                self.get_level_solve(lvl).fine_stencil_app)
+        self.get_stencil(n_levels - 1).prebuild_derived(
+            self.coarsest_solve.coarsest_stencil_app)
+
+    def level_types(self):
+        """The stencil type each level solves with, finest first."""
+        return ([StencilType(self.get_level_solve(lvl).fine_stencil_app)
+                 for lvl in range(self.get_num_levels() - 1)]
+                + [StencilType(self.coarsest_solve.coarsest_stencil_app)])
+
     def make_batched_preconditioner(self, level: int = 0):
         """``make_preconditioner`` on a leading rhs axis: precond(rhs,
         carry, lanes) -> (lhs, carry) with rhs (B, ...), ``carry`` from
@@ -255,6 +325,11 @@ class StatefulMultigridMG(MultigridMG):
         dense inverse with the B columns, and only active lanes are
         counted."""
         n_levels = self.get_num_levels()
+        if any(t != StencilType.ORIGINAL for t in self.level_types()):
+            raise NotImplementedError(
+                "batched K-cycles take ORIGINAL levels only: the Schur and "
+                "rbjacobi branches wait for one K-cycle shared by both "
+                "solvers (ROADMAP Queue 1 item 10)")
         if n_levels == 1:
             return lambda rhs, carry, lanes: (rhs, carry)
 
