@@ -23,7 +23,8 @@ fallback). Phases, any failure exits non-zero:
      the port uses it), its twin, and the card's launch floor (an empty
      kernel timed the same way);
   4. the original path: qmg_tpu_torch.kcycle at 512^2 with the rank-1
-     kernel (setup, warm-up solve, timed solve). It must converge, reach
+     kernel (setup, warm-up solve, timed solve, one profiled solve for its
+     device kernels). It must converge, reach
      a true relative residual <= 1e-4 (complex128, exact operator), take
      the kernel (launch count > 0) and match qmg_tpu's outer count +-2;
   5. the generic stencil kernels (K4 matrix, K5 split, K6 small) vs their
@@ -118,6 +119,28 @@ fallback). Phases, any failure exits non-zero:
      (``apply_rbj_schur``, max relative error <= 1e-5), both timed with
      CUDA events. Beside it, the standard solve of phase 4 and the
      standard solve on the same 512^2 problem with plain applies.
+ 18. the deflated normal-operator coarsest (``kcycle --deflate 8``: CG
+     on M^dag M from the projection onto its 8 lowest eigenpairs, which
+     the setup's deflation stage computes; no dense inverse):
+     (a) 512^2 with the rank-1 kernel on level 0 and plain coarse levels,
+     a true residual <= 1e-4, K1 launched, qmg_tpu's outer count +-2;
+     again with ``--coarse-apply small``, which must launch K6 too;
+     (b) each eigenpair of the stage against the card's coarsest
+     operator (||A v - lambda v|| / |lambda| <= 1e-3 in complex64), the
+     stage's time, and the relative gap of the spectrum at the cut;
+     (c) 2048^2 with the rank-1 kernel: converged, K1 launched;
+     (d) a checkpoint round trip of the 512^2 hierarchy (``save_hierarchy``,
+     ``load_hierarchy(device="cuda")``): the same outer count;
+     (e) the refined solve (``make_refined_solver``) of the 512^2 problem
+     to a complex128 true residual <= 1e-10: passes and K-cycle
+     iterations;
+     (f) one 512^2 solve with the CGNE smoother on level 0: a true
+     residual <= 1e-4.
+     For (a) and (c) setup s, solve ms, ms per outer iteration, per-level
+     iterations, coarsest CG iterations per visit and device kernels of
+     one profiled solve, beside the direct-coarsest solve of the same
+     problem sizes (phase 4's profiled 512^2 solve and phase 7's 2048^2
+     one).
 
 The last two lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}.
@@ -160,6 +183,15 @@ JAX_ITERS_512_W_OTHER = 8
 # ``python tests/test_torch_schur_kcycle.py --size 512`` (the port's own
 # setup and solve on the CPU took 6 too).
 JAX_ITERS_512_SCHUR = 6
+# The same with bench.py's --deflate 8 configuration (an MDAGGER_M
+# coarsest solved by CG from the projection onto its 8 lowest eigenpairs,
+# no dense inverse) through make_planes_solver on the CPU backend with x64
+# off, from ``python tests/test_torch_deflation.py --size 512``.
+JAX_ITERS_512_DEFLATE = 9
+DEFLATE_N = 8
+DEFLATE_SIZES = (512, 2048)   # phase 18's lattices
+DEFLATE_EIG_TOL = 1e-3
+REFINE_TOL = 1e-10
 SCHUR_APPLY_TOL = 1e-5
 SCHUR_SIZE = 512          # phase 17's lattice
 KERNEL_TOL = 1e-5
@@ -665,7 +697,8 @@ def check_solve(r, label):
 
 
 def kernel_paths(torch, dev):
-    """Phases 7 and 8. Returns {kernel: launches over its path's run}."""
+    """Phases 7 and 8. Returns {kernel: launches over its path's run} and
+    the 2048^2 rank-1 solve's report."""
     from qmg_tpu_torch import solve as solve_module
     from qmg_tpu_torch.kcycle import (build_problem, run_solver,
                                       print_report, reset_launch_counts,
@@ -793,7 +826,7 @@ def kernel_paths(torch, dev):
     print(f"512^2 w={W_OTHER} outer iterations wilson-phase "
           f"{r_k2['iters']}, plain {r_pl['iters']} (qmg_tpu "
           f"{JAX_ITERS_512_W_OTHER}): ok", flush=True)
-    return launches
+    return launches, r_r1
 
 
 def dslash_chains(torch, dev):
@@ -1223,6 +1256,143 @@ def schur_phase(torch, dev, standard):
           f"solve", flush=True)
 
 
+def deflation_phase(torch, dev, direct, direct_big):
+    """Phase 18: the deflated CG coarsest at 512^2 and 2048^2, its
+    eigenpairs, a checkpoint round trip, the refined solve and the CGNE
+    smoother. ``direct`` is phase 4's 512^2 direct-coarsest solve,
+    ``direct_big`` phase 7's 2048^2 one."""
+    import dataclasses
+    import tempfile
+    from qmg_tpu_torch.kcycle import (build_problem, run_solver,
+                                      print_report, reset_launch_counts,
+                                      launch_counts)
+    from qmg_tpu_torch import checkpoint, eig
+    from qmg_tpu_torch.solve import make_refined_solver
+    from qmg_tpu_torch.stencil import StencilType
+    size, big_size = DEFLATE_SIZES
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def path(problem, label, **kw):
+        print(f"--- {label}", flush=True)
+        reset_launch_counts()
+        r = run_solver(problem, **kw)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        print_report(r)
+        print(f"launches over the path: {counts}", flush=True)
+        check_solve(r, label)
+        return r, counts
+
+    # --- (a) 512^2, plain coarse levels, then K6 on those it takes ---
+    mid = build_problem(size, dev, deflate=DEFLATE_N)
+    r_a, c = path(mid, f"{size}^2 --deflate {DEFLATE_N} wilson-r1 + plain "
+                  "coarse", profile=True)
+    check(c["wilson_r1"] > 0 and r_a["launches"]["wilson_r1"] > 0,
+          f"{size}^2 --deflate: K1 not launched")
+    check(r_a["coarsest"] == f"mdagger_m, deflated by {DEFLATE_N} "
+          "eigenpairs", f"{size}^2 --deflate: coarsest {r_a['coarsest']}")
+    check(abs(r_a["iters"] - JAX_ITERS_512_DEFLATE) <= 2,
+          f"{size}^2 --deflate outer iterations {r_a['iters']} vs "
+          f"qmg_tpu's {JAX_ITERS_512_DEFLATE}")
+    r_s, c = path(mid, f"{size}^2 --deflate {DEFLATE_N} wilson-r1 + small "
+                  "coarse", coarse_apply="small")
+    check(c["dslash_small"] > 0 and r_s["launches"]["dslash_small"] > 0
+          and r_s["launches"]["wilson_r1"] > 0,
+          f"{size}^2 --deflate --coarse-apply small: K1 or K6 not launched")
+    print(f"{size}^2 --deflate {DEFLATE_N} outer iterations: plain coarse "
+          f"{r_a['iters']}, small coarse {r_s['iters']} (qmg_tpu "
+          f"{JAX_ITERS_512_DEFLATE}): ok", flush=True)
+
+    # --- (b) the stage's eigenpairs on the card's coarsest operator ---
+    mg = mid["mg"]
+    st = mg.get_stencil(mg.get_num_levels() - 1)
+    mv = st.get_apply_function(StencilType.MDAGGER_M)
+    worst = 0.0
+    for lam, v in zip(mg.coarsest_evals, mg.coarsest_evecs):
+        worst = max(worst, float(torch.linalg.vector_norm(mv(v) - lam * v)
+                                 / abs(lam)))
+    check(worst <= DEFLATE_EIG_TOL,
+          f"deflation eigenpairs: ||A v - lambda v|| / |lambda| = {worst:.3e}")
+    _, stage_ms = synced(lambda: mg.deflate_coarsest(DEFLATE_N, 0))
+    ref = st.coeffs.ref
+    dense, _ = eig.dense_eigensystem(mv, st.lat.cv_shape(), dtype=ref.dtype,
+                                     device=ref.device)
+    lows = np.sort(dense.real)
+    gap = (lows[DEFLATE_N] - lows[DEFLATE_N - 1]) / lows[DEFLATE_N - 1]
+    print(f"deflation stage ({st.lat.x_len}x{st.lat.y_len} nc{st.lat.nc}, "
+          f"dimension {lows.size}): {stage_ms:.2f} ms; eigenvalues "
+          f"{lows[:DEFLATE_N + 1]}; relative gap at the cut {gap:.3e}; "
+          f"worst ||A v - lambda v|| / |lambda| {worst:.3e}", flush=True)
+
+    # --- (d) checkpoint round trip ---
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "mg.npz")
+        _, save_ms = synced(lambda: checkpoint.save_hierarchy(mg, ckpt))
+        loaded, load_ms = synced(lambda: checkpoint.load_hierarchy(
+            ckpt, mid["op"], device="cuda"))
+    r_d = run_solver(dict(mid, mg=loaded))
+    check_solve(r_d, f"{size}^2 --deflate from a checkpoint")
+    check(r_d["iters"] == r_a["iters"],
+          f"checkpointed hierarchy: {r_d['iters']} outer iterations vs "
+          f"{r_a['iters']}")
+    print(f"checkpoint: save {save_ms:.1f} ms, load {load_ms:.1f} ms, "
+          f"{r_d['iters']} outer iterations as before: ok", flush=True)
+
+    # --- (e) the refined solve to a complex128 1e-10 ---
+    refined = make_refined_solver(mg, tol=REFINE_TOL, inner_tol=1e-5,
+                                  max_iter=200, restart_freq=mid["restart"])
+    res, refine_ms = synced(lambda: refined(mid["b"]))
+    check(res.converged and res.rel_resid <= REFINE_TOL,
+          f"refined solve: {res.rel_resid:.3e} after {res.outer_iters} "
+          f"passes, history {res.history}")
+    print(f"refined solve {size}^2: true complex128 residual "
+          f"{res.rel_resid:.3e} in {res.outer_iters} passes, "
+          f"{res.inner_iters} K-cycle iterations, {refine_ms:.1f} ms; "
+          f"history {[f'{h:.2e}' for h in res.history]}", flush=True)
+
+    # --- (f) the CGNE smoother on level 0 ---
+    saved = mg.level_solve_list[0]
+    mg.level_solve_list[0] = dataclasses.replace(saved, pre_cgne=True,
+                                                 post_cgne=True)
+    try:
+        r_f, _ = path(mid, f"{size}^2 --deflate {DEFLATE_N}, CGNE smoother on "
+                      "level 0")
+    finally:
+        mg.level_solve_list[0] = saved
+    del mid, mg, loaded
+
+    # --- (c) 2048^2 ---
+    big = build_problem(big_size, dev, deflate=DEFLATE_N)
+    r_c, c = path(big, f"{big_size}^2 --deflate {DEFLATE_N} wilson-r1",
+                  profile=True)
+    check(c["wilson_r1"] > 0 and r_c["launches"]["wilson_r1"] > 0,
+          f"{big_size}^2 --deflate: K1 not launched")
+    del big
+
+    print("deflated against direct coarsest: setup s, solve ms, ms per "
+          "outer iteration, outer iterations, per-level iterations, coarsest "
+          "iterations per visit, device kernels in one profiled solve",
+          flush=True)
+    for label, r in ((f"{size}^2 --deflate {DEFLATE_N}", r_a),
+                     (f"{size}^2 --deflate {DEFLATE_N} + small", r_s),
+                     (f"{size}^2 --deflate {DEFLATE_N} CGNE level 0", r_f),
+                     (f"{size}^2 direct (phase 4)", direct),
+                     (f"{big_size}^2 --deflate {DEFLATE_N}", r_c),
+                     (f"{big_size}^2 direct (phase 7)", direct_big)):
+        kernels = r["device_kernels"]
+        print(f"  {label}: {r['setup_s']:.3f} s, {r['solve_ms']:.3f} ms, "
+              f"{r['ms_per_iter']:.3f} ms, {r['iters']}, {r['level_iters']}, "
+              f"{r['coarsest_iters_per_visit']:.2f}, "
+              + (f"{kernels}" if kernels is not None else "not profiled"),
+              flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1262,11 +1432,12 @@ def main():
 
     # --- 4. the original path ---
     wk.wilson_r1_apply.launches = 0
-    r = run_kcycle(512, dev)
+    r = run_kcycle(512, dev, profile=True)
     torch.cuda.synchronize()
     launches = wk.wilson_r1_apply.launches
     print_report(r)
-    print(f"wilson_r1 launches over the main path (setup + 2 solves): "
+    print(f"wilson_r1 launches over the main path (setup + 3 solves, the "
+          f"last profiled): "
           f"{launches}", flush=True)
     check_solve(r, "512^2 wilson-r1")
     check(launches > 0 and r["launches"]["wilson_r1"] > 0,
@@ -1281,7 +1452,7 @@ def main():
     stimes = stencil_timings(torch, dk, dev)
 
     # --- 7. and 8. the kernel paths ---
-    path_launches = kernel_paths(torch, dev)
+    path_launches, direct_big = kernel_paths(torch, dev)
 
     # --- 10. the dslash chains through K3 and K2 ---
     (path_launches["wilson_split"],
@@ -1300,6 +1471,9 @@ def main():
 
     # --- 17. the n19 Schur path ---
     schur_phase(torch, dev, r)
+
+    # --- 18. the deflated normal-operator coarsest ---
+    deflation_phase(torch, dev, r, direct_big)
 
     # Each Wilson kernel at its path's shape: K1 the 512^2 solve, K2 the
     # 2048^2 solve, K3 the 2048^2 chain.

@@ -5,7 +5,12 @@ the same field layout ``(2, Y, X/2, nc)`` (complex tensors), so the two
 packages are compared array for array. The port covers the n13 flagship
 K-cycle solve: U(1) gauge field -> Wilson2D -> BiCGstab(l) null vectors,
 chiral doubling, block-orthonormal transfers, Galerkin coarse operators,
-dense coarsest inverse -> outer flexible GCR around the K-cycle.
+dense coarsest inverse -> outer flexible GCR around the K-cycle. The
+coarsest level can instead be solved by CG on its normal operator,
+deflated by its lowest eigenpairs (``eig``, ``deflate_coarsest``); around
+the solve the port keeps hierarchy checkpoints in qmg_tpu's file format
+(``checkpoint``) and complex128 refinement of a complex64 solve
+(``refine``, ``solve.make_refined_solver``).
 
 Inside the K-cycle the stencil applies run through hand-written CUDA
 kernels: the Wilson Dslash kernels (``csrc/wilson.cu``, wrappers

@@ -31,6 +31,17 @@ Schur operator, so ``--fine-kernel`` defaults to ``none`` and
 ``--distributed`` are refused. The true residual is that of the
 reconstructed full x against the exact ORIGINAL operator.
 
+``--deflate N`` (bench.py ``--mode kcycle --setup device --deflate N``)
+solves the coarsest level with CG on its normal operator M^dag M
+(MDAGGER_M, no dense inverse) from an initial guess that projects the
+right-hand side onto the N lowest eigenpairs of that operator; the timed
+setup ends with the deflation stage that computes them
+(``StatefulMultigridMG.deflate_coarsest``). ``--no-direct`` keeps the
+iterative coarsest (restarted GCR, or CG with ``--deflate``) instead of
+the dense inverse. ``--deflate`` is refused with ``--outer schur``, ``--shards``
+and ``--distributed``. The report adds the coarsest level's Krylov
+iterations per visit.
+
 Level 0 can be cut into y-slabs (``parallel.Mesh``; fine kernel
 ``wilson-r1``, the slab kernel, or ``none``):
 
@@ -59,7 +70,7 @@ from .operators.wilson import Wilson2D
 from .setup import KCycleConfig, build_kcycle_hierarchy, SCHUR_CONFIG
 from .solve import (make_solver, FINE_KERNELS, state_to_numpy,
                     state_from_numpy, shard_state)
-from .stencil import apply_M, make_coeffs, StencilType
+from .stencil import apply_M, StencilType
 from .linalg import norm2sq, reductions
 from .rng import QMGRandom
 from .parallel import Mesh
@@ -100,18 +111,30 @@ OUTERS = {"original": StencilType.ORIGINAL,
           "schur": StencilType.RIGHT_SCHUR}
 
 
-def kcycle_config(size: int, outer: str = "original"):
+# The combinations of --deflate that the port cannot run yet.
+DEFLATE_LATER = ("the deflated coarsest takes the original formulation on "
+                 "one device: with --outer schur it waits for ROADMAP Queue "
+                 "1 item 9, on a mesh for item 14")
+
+
+def kcycle_config(size: int, outer: str = "original", deflate: int = 0,
+                  direct: bool = True):
     """bench.py's kcycle configuration at lattice size ``size`` (with
-    ``outer="schur"`` its ``--outer schur`` one, the n19 configuration):
-    returns (KCycleConfig, outer restart)."""
+    ``outer="schur"`` its ``--outer schur`` one, the n19 configuration;
+    with ``deflate`` its ``--deflate`` one, a CG coarsest on M^dag M;
+    ``direct=False`` its ``--no-direct``): returns (KCycleConfig, outer
+    restart)."""
     n_refine = 2 if size <= 256 else (3 if size <= 1024 else 4)
     restart = 16 if size >= 2048 else 32
     inner_restart = 8 if size >= 2048 else 32
+    extra = dict(SCHUR_CONFIG) if outer == "schur" else {}
+    if deflate:
+        extra["coarsest_stencil_app"] = StencilType.MDAGGER_M
     cfg = KCycleConfig(n_refine=n_refine, coarse_dof=8, nullvec_tol=5e-4,
                        nullvec_max_iter=200,
                        inner_restart_freq=inner_restart,
-                       coarsest_restart_freq=restart, coarsest_direct=True,
-                       **(SCHUR_CONFIG if outer == "schur" else {}))
+                       coarsest_restart_freq=restart,
+                       coarsest_direct=direct and not deflate, **extra)
     return cfg, restart
 
 
@@ -127,11 +150,7 @@ def true_residual(op: Wilson2D, b, x, mesh: Mesh | None = None) -> float:
     On a distributed ``mesh``, ``op``, ``b`` and ``x`` are the rank's
     blocks: the apply exchanges halos and the norms are summed over the
     ranks."""
-    c = op.coeffs
-    c128 = make_coeffs(c.lat, clover=c.clover.to(torch.complex128),
-                       hopping=c.hopping.to(torch.complex128),
-                       shift=c.shift, eo_shift=c.eo_shift,
-                       dof_shift=c.dof_shift, dtype=torch.complex128)
+    c128 = op.coeffs.to(torch.complex128)
     b128, x128 = b.to(torch.complex128), x.to(torch.complex128)
     if mesh is None or not mesh.distributed:
         r = b128 - apply_M(c128, x128)
@@ -172,29 +191,35 @@ def profile_solve(solve, b, solve_ms: float, top: int = 12):
 
 def build_problem(size: int = 512, device="cuda",
                   wilson_coeff: float = 1.0, mesh: Mesh | None = None,
-                  outer: str = "original") -> dict:
+                  outer: str = "original", deflate: int = 0,
+                  direct: bool = True) -> dict:
     """The gauge field, the fine operator (Wilson coefficient
     ``wilson_coeff``), the hierarchy of the ``outer`` formulation (setup
     timed) and the right-hand side (drawn after the setup, as bench.py
     does). ``mesh`` is the mesh the solvers will cut level 0 over; a
     distributed one makes this rank's cut of the problem
-    (``_cut_for_rank``)."""
+    (``_cut_for_rank``). ``deflate`` and ``direct`` as in
+    ``kcycle_config``; a deflated setup ends with the deflation stage."""
     if outer not in OUTERS:
         raise ValueError(f"unknown outer formulation {outer!r}")
     if mesh is not None and outer != "original":
         raise ValueError("a mesh takes the original formulation only")
+    if deflate and (mesh is not None or outer != "original"):
+        raise ValueError(DEFLATE_LATER)
     if mesh is not None and mesh.distributed:
-        return _cut_for_rank(size, device, wilson_coeff, mesh)
+        return _cut_for_rank(size, device, wilson_coeff, mesh, direct)
     lat = Lattice2D(size, size, 2)
     rng = QMGRandom(SEED)
     gauge = u1.gauss_gauge_u1(lat, rng, BETA)
-    cfg, restart = kcycle_config(size, outer)
+    cfg, restart = kcycle_config(size, outer, deflate, direct)
 
     _sync(device)
     t0 = time.perf_counter()
     op = Wilson2D(lat, MASS, gauge, wilson_coeff, dtype=torch.complex64,
                   device=device)
     mg = build_kcycle_hierarchy(lat, op, cfg, rng)
+    if deflate:
+        mg.deflate_coarsest(deflate, 0)
     _sync(device)
     setup_s = time.perf_counter() - t0
     b = torch.as_tensor(rng.gaussian_cv(lat)).to(device=device,
@@ -204,7 +229,8 @@ def build_problem(size: int = 512, device="cuda",
             "outer": outer}
 
 
-def _cut_for_rank(size: int, device, wilson_coeff: float, mesh: Mesh) -> dict:
+def _cut_for_rank(size: int, device, wilson_coeff: float, mesh: Mesh,
+                  direct: bool = True) -> dict:
     """The problem on a distributed mesh: rank 0 runs the whole setup (the
     setup itself is not sharded) and broadcasts the hierarchy's state and
     the right-hand side; every rank loads its cut, so that all ranks hold
@@ -213,7 +239,7 @@ def _cut_for_rank(size: int, device, wilson_coeff: float, mesh: Mesh) -> dict:
     import torch.distributed as dist
     payload = [None]
     if dist.get_rank(mesh.group) == 0:
-        whole = build_problem(size, device, wilson_coeff)
+        whole = build_problem(size, device, wilson_coeff, direct=direct)
         payload = [(state_to_numpy(whole["mg"]), whole["b"].cpu().numpy(),
                     whole["setup_s"])]
         del whole
@@ -221,7 +247,7 @@ def _cut_for_rank(size: int, device, wilson_coeff: float, mesh: Mesh) -> dict:
                                group=mesh.group, device=torch.device(device))
     state, b, setup_s = payload[0]
     (cut,), (b_loc,) = shard_state(state, mesh, b)
-    cfg, restart = kcycle_config(size)
+    cfg, restart = kcycle_config(size, direct=direct)
     mg = state_from_numpy(cut, cfg, device=device, mesh=mesh)
     b_loc = torch.as_tensor(b_loc).to(device=device, dtype=torch.complex64)
     return {"size": size, "device": device, "op": mg.get_stencil(0),
@@ -265,6 +291,7 @@ def run_solver(problem: dict, fine_kernel: str | None = "wilson-r1",
     # The recursive residual is the solved (prepared) system's.
     rhs = problem["op"].prepare_M(b, OUTERS[outer])
     rel_rec = float(torch.sqrt(res.res_sq / norm2sq_all(rhs)))
+    level_iters = carry["iters"].tolist()
     return {
         "size": problem["size"],
         "outer": outer,
@@ -288,7 +315,17 @@ def run_solver(problem: dict, fine_kernel: str | None = "wilson-r1",
         "solve_ms_all": [t * 1e3 for t in times_s],
         "ms_per_iter": solve_s * 1e3 / max(res.iters, 1),
         "counts": carry["counts"].tolist(),
-        "level_iters": carry["iters"].tolist(),
+        "level_iters": level_iters,
+        # Each Krylov iteration of the level above visits the coarsest once.
+        "coarsest_iters_per_visit": (level_iters[-1] / level_iters[-2]
+                                     if len(level_iters) > 1
+                                     and level_iters[-2] else None),
+        "coarsest": mg.level_types()[-1].name.lower()
+        + (" direct" if mg.coarsest_solve.direct
+           and mg.coarsest_dinv is not None else "")
+        + (f", deflated by {mg.coarsest_evecs.shape[0]} eigenpairs"
+           if mg.coarsest_evecs is not None and mg.coarsest_solve.deflate
+           else ""),
         "launches": launches,
         "device_busy_ms": busy_ms,      # of the profiled solve, or None
         "device_kernels": n_kernels,
@@ -300,9 +337,11 @@ def run_kcycle(size: int = 512, device="cuda",
                coarse_apply: str = "plain", coeff_dtype=None,
                profile: bool = False, repeats: int = 1,
                wilson_coeff: float = 1.0, mesh: Mesh | None = None,
-               outer: str = "original") -> dict:
+               outer: str = "original", deflate: int = 0,
+               direct: bool = True) -> dict:
     """Setup + one solver (``build_problem`` then ``run_solver``)."""
-    return run_solver(build_problem(size, device, wilson_coeff, mesh, outer),
+    return run_solver(build_problem(size, device, wilson_coeff, mesh, outer,
+                                    deflate, direct),
                       fine_kernel, coarse_apply, coeff_dtype, profile=profile,
                       repeats=repeats)
 
@@ -332,6 +371,7 @@ def print_report(r: dict):
     print("level applies: " + ", ".join(
         f"{lvl} {name}" for lvl, name in zip(r["levels"],
                                              r["level_applies"])))
+    print(f"coarsest solve: {r['coarsest']}")
     print(f"outer iterations: {r['iters']} (converged {r['converged']})")
     print(f"relative residual: recursive {r['rel_res_recursive']:.3e}"
           + (" (of the prepared even-half system)" if r["outer"] == "schur"
@@ -344,7 +384,10 @@ def print_report(r: dict):
              + ", ".join(f"{t:.3f}" for t in r["solve_ms_all"]) + ")"
              if len(r["solve_ms_all"]) > 1 else ""))
     print("per-level op counts [nullvec, krylov, presmooth, postsmooth]: "
-          f"{r['counts']}; krylov iterations per level {r['level_iters']}")
+          f"{r['counts']}; krylov iterations per level {r['level_iters']}"
+          + (f"; coarsest iterations per visit "
+             f"{r['coarsest_iters_per_visit']:.2f}"
+             if r["coarsest_iters_per_visit"] is not None else ""))
     print("kernel launches per timed solve: " + ", ".join(
         f"{k} {n}" for k, n in r["launches"].items()))
 
@@ -373,6 +416,11 @@ def main(argv=None):
     p.add_argument("--distributed", action="store_true",
                    help="one y-slab per rank of the torch.distributed job "
                         "that torchrun started")
+    p.add_argument("--deflate", type=int, default=0, metavar="N",
+                   help="CG coarsest on M^dag M, deflated by its N lowest "
+                        "eigenpairs (the setup's deflation stage)")
+    p.add_argument("--no-direct", action="store_true",
+                   help="iterative coarsest instead of the dense inverse")
     p.add_argument("--repeats", type=int, default=1,
                    help="timed solves; the median is reported")
     p.add_argument("--profile", action="store_true",
@@ -388,6 +436,11 @@ def main(argv=None):
             raise SystemExit("--outer schur runs on one device: --shards "
                              "and --distributed take the original "
                              "formulation")
+    if args.deflate and (args.outer == "schur" or args.shards is not None
+                         or args.distributed):
+        raise SystemExit(f"--deflate: {DEFLATE_LATER}")
+    if args.deflate < 0:
+        raise SystemExit("--deflate takes a number of eigenpairs >= 0")
     if args.fine_kernel is None:
         args.fine_kernel = "none" if args.outer == "schur" else "wilson-r1"
     if args.coarse_apply is None:
@@ -419,7 +472,8 @@ def main(argv=None):
                        else None,
                        profile=args.profile, repeats=args.repeats,
                        wilson_coeff=args.wilson_coeff, mesh=mesh,
-                       outer=args.outer)
+                       outer=args.outer, deflate=args.deflate,
+                       direct=not args.no_direct)
     finally:
         if args.distributed:
             import torch.distributed as dist

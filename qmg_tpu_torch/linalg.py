@@ -16,7 +16,16 @@ __all__ = ["vdot", "norm2sq", "vdot_lanes", "norm2sq_lanes", "reductions",
            "norm", "normalize",
            "orthogonal",
            "site_matvec", "stacked_site_matvec", "site_matmul",
-           "site_conjtrans", "site_inv_qr", "identity_like"]
+           "site_conjtrans", "site_inv_qr", "identity_like",
+           "pin_full_precision"]
+
+
+def pin_full_precision():
+    """Keep float32 products in full float32 (no TF32) on the card: a
+    reduced-precision pass costs digits the Krylov trajectories and the
+    eigensolves need."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
 
 def vdot(a, b):

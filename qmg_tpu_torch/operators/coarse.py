@@ -138,6 +138,9 @@ class CoarseOperator2D(Stencil2D):
         else:
             self._default_chirality = DefaultChirality.NONE
 
+    def get_default_chirality(self) -> DefaultChirality:
+        return self._default_chirality
+
     def chiral_projection(self, x, is_up: bool):
         """gamma5 chirality: keep the top (up) or bottom (down) dof half."""
         if not self.is_chiral \

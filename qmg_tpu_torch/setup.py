@@ -30,14 +30,7 @@ from .stateful import (StatefulMultigridMG, LevelSolveMG, CoarsestSolveMG,
 from .multigrid import PRECOND_ORIGINAL, PRECOND_RIGHT_BLOCK_JACOBI
 from .operators.coarse import CoarseOperator2D
 from . import solvers
-from .linalg import normalize, orthogonal
-
-
-def pin_full_precision():
-    """Keep float32 products in full float32 (no TF32) on the card: a
-    reduced-precision pass costs digits the Krylov trajectories need."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+from .linalg import normalize, orthogonal, pin_full_precision
 
 
 def generate_null_vectors(stencil: Stencil2D, n_vec: int, rng=None,

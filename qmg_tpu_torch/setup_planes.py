@@ -13,14 +13,17 @@ on the device, so what is ported here is the interface:
   * ``make_kcycle_setup_planes(lat, cfg, mass, w, device=...)`` returns
     ``setup_fn(gauge, *seeds)``, which builds the Wilson operator and the
     hierarchy (with the dense coarsest inverse when ``cfg.coarsest_direct``)
-    on the device from those seeds and returns it.
+    on the device from those seeds and returns it. With ``deflate_low`` /
+    ``deflate_high`` it ends with the deflation stage: the coarsest normal
+    operator densified on the device, its spectrum on the host in
+    complex128, the lowest / highest eigenpairs by real part kept,
+    normalized, on the device (``StatefulMultigridMG.deflate_coarsest``).
 
 Drawn ahead, the seeds are the numbers that ``build_kcycle_hierarchy(...,
 rng)`` would draw level by level from the same stream, so both builds give
 the same hierarchy. The TPU-only options (``per_level_jit``,
 ``channels_first``, ``matmul_precision``) have no counterpart and are
-refused; the sharded setup (``mesh``) and the deflation stage
-(``deflate_low`` / ``deflate_high``) are later slices and are refused too.
+refused; the sharded setup (``mesh``) is a later slice and is refused too.
 """
 
 from __future__ import annotations
@@ -31,6 +34,8 @@ import torch
 from .lattice import Lattice2D
 from .operators.wilson import Wilson2D
 from .setup import KCycleConfig, build_kcycle_hierarchy
+from .stencil import StencilType
+from .stateful import _NORMAL_TYPES
 
 __all__ = ["gauss_seed_planes", "make_kcycle_setup_planes"]
 
@@ -39,9 +44,7 @@ TPU_ONLY = ("per_level_jit", "channels_first", "matmul_precision")
 # limit: the inverse is probed, densified and inverted on the host, and
 # the dimension grows 16x for each level the hierarchy stops short.
 MAX_DIRECT_DIM = 4096
-LATER = {"mesh": "ROADMAP Queue 1 item 14 (the sharded setup)",
-         "deflate_low": "ROADMAP Queue 1 item 12 (coarsest deflation)",
-         "deflate_high": "ROADMAP Queue 1 item 12 (coarsest deflation)"}
+LATER = {"mesh": "ROADMAP Queue 1 item 14 (the sharded setup)"}
 
 
 def gauss_seed_planes(lat0: Lattice2D, cfg: KCycleConfig, rng):
@@ -57,13 +60,17 @@ def gauss_seed_planes(lat0: Lattice2D, cfg: KCycleConfig, rng):
 
 def make_kcycle_setup_planes(lat0: Lattice2D, cfg: KCycleConfig, mass,
                              w: float = 1.0, *, dtype=torch.complex64,
-                             device="cuda", **options):
+                             device="cuda", deflate_low: int = 0,
+                             deflate_high: int = 0, **options):
     """Returns ``setup_fn(gauge, *seeds) -> StatefulMultigridMG``: the n13
     setup of a Wilson operator (mass ``mass``, Wilson coefficient ``w``,
     ``dtype``) on ``device`` from a (2, 2, Y, Xh) U(1) gauge field (an
     array or a tensor) and one seed stack per level
-    (``gauss_seed_planes``). qmg_tpu's options that this setup has no use
-    for raise ``ValueError``."""
+    (``gauss_seed_planes``), then, with ``deflate_low`` / ``deflate_high``,
+    the deflation stage (which needs a normal ``cfg.coarsest_stencil_app``
+    and a coarsest level of at most ``MAX_DIRECT_DIM`` dimensions).
+    qmg_tpu's options that this setup has no use for raise
+    ``ValueError``."""
     for name in options:
         if name in TPU_ONLY:
             raise ValueError(f"{name} is a TPU workaround of qmg_tpu's "
@@ -83,12 +90,25 @@ def make_kcycle_setup_planes(lat0: Lattice2D, cfg: KCycleConfig, mass,
             f"direct inverse (at most {MAX_DIRECT_DIM}, qmg_tpu's limit) - "
             "use a deeper hierarchy (larger n_refine) or "
             "coarsest_direct=False")
+    if deflate_low or deflate_high:
+        if StencilType(cfg.coarsest_stencil_app) not in _NORMAL_TYPES:
+            raise ValueError(
+                "deflation requires a NORMAL coarsest stencil app - set "
+                "coarsest_stencil_app to MDAGGER_M / M_MDAGGER")
+        if n_coarsest > MAX_DIRECT_DIM:
+            raise ValueError(
+                f"coarsest dimension {n_coarsest} too large for the densify-"
+                f"based deflation stage (at most {MAX_DIRECT_DIM}) - deepen "
+                "the hierarchy")
 
     def setup_fn(gauge, *seeds):
         if len(seeds) != cfg.n_refine:
             raise ValueError(f"need {cfg.n_refine} gauss seed arrays, got "
                              f"{len(seeds)}")
         op = Wilson2D(lat0, mass, gauge, w, dtype=dtype, device=device)
-        return build_kcycle_hierarchy(lat0, op, cfg, seeds=list(seeds))
+        mg = build_kcycle_hierarchy(lat0, op, cfg, seeds=list(seeds))
+        if deflate_low or deflate_high:
+            mg.deflate_coarsest(deflate_low, deflate_high)
+        return mg
 
     return setup_fn

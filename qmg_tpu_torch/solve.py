@@ -22,12 +22,17 @@ levels), one launch for all lanes.
 ``state_to_numpy`` / ``state_from_numpy`` carry a hierarchy across the two
 packages in the key format of ``qmg_tpu.tpu_compat.mg_state_planes``:
 ``clover{l}``, ``hopping{l}``, ``shifts{l}`` (shift, eo_shift, dof_shift),
-``nvb{l}`` (blocked null vectors) and ``cdinv`` (dense coarsest inverse),
-and, for the levels that solve with a derived operator, qmg_tpu's
+``nvb{l}`` (blocked null vectors), ``cdinv`` (dense coarsest inverse),
+``cevals`` / ``cevecs`` (the coarsest deflation's eigenpairs), and, for the
+levels that solve with a derived operator, qmg_tpu's
 ``derived_state_planes`` keys ``rbjcinv{l}`` (B^-1), ``rbjh{l}`` /
 ``rbjt{l}`` / ``rbjc{l}`` (rbjacobi hopping / twolink / corner) and
 ``schurf{l}`` (the 9 fused Schur matrices), each a real (..., 2) =
 (real, imag) NumPy array.
+
+``make_refined_solver`` meets a double-precision tolerance with a
+complex64 hierarchy: complex128 defect correction on the device
+(``refine.py``) around ``make_solver``'s solve.
 """
 
 from __future__ import annotations
@@ -43,7 +48,8 @@ from .operators.wilson import Wilson2D
 from .operators.coarse import CoarseOperator2D
 from .transfer import TransferMG, ShardedTransferMG, DoublingType
 from .stateful import (StatefulMultigridMG, zero_carry, zero_batched_carry,
-                       DSLASH_KRYLOV)
+                       DSLASH_KRYLOV, _NORMAL_TYPES)
+from .refine import refine_solve
 from .setup import KCycleConfig, pin_full_precision
 from .wilson_kernel import (wilson_r1_apply, wilson_r1_rhs_apply,
                             wilson_phase_apply, wilson_phases, bind_wilson)
@@ -58,8 +64,8 @@ from .shard_dslash import make_sharded_dslash, make_sharded_wilson
 from . import solvers
 
 __all__ = ["make_solver", "make_batched_solver", "make_fixed_batched_solver",
-           "make_calibrated_batched_solver", "state_to_numpy",
-           "state_from_numpy", "shard_state"]
+           "make_calibrated_batched_solver", "make_refined_solver",
+           "state_to_numpy", "state_from_numpy", "shard_state"]
 
 
 FINE_KERNELS = ("wilson-r1", "wilson-phase", "matrix", "matrix-split",
@@ -195,7 +201,9 @@ def make_solver(mg: StatefulMultigridMG, tol: float = 1e-8,
     ``coeff_dtype=torch.bfloat16`` streams the matrix kernels'
     coefficients in bf16 (refused for the other kinds). ``coarse_apply``
     is the coarse levels' apply: "plain" (alias "jnp"), "gather"
-    (``stencil.build_gather_apply``) or "small" (K6 where it fits).
+    (``stencil.build_gather_apply``) or "small" (K6 where it fits); it
+    replaces only ORIGINAL applies, so a normal-operator coarsest (the CG
+    coarsest, deflated or not) keeps its plain composition.
     ``solve.level_applies`` names the apply each level takes. The
     overrides exist only inside a solve: setup, the Galerkin build and
     the outer matvec keep the exact plain apply.
@@ -240,8 +248,9 @@ def make_solver(mg: StatefulMultigridMG, tol: float = 1e-8,
             f"outer_type {outer_type.name} takes fine_kernel=None and no "
             "mesh: the kernels replace only the ORIGINAL apply, and no "
             "derived (Schur / rbjacobi) apply takes an override")
-    if coarse_apply != "plain" and any(t != StencilType.ORIGINAL
-                                       for t in types[1:]):
+    if coarse_apply != "plain" and (
+            any(t != StencilType.ORIGINAL for t in types[1:-1])
+            or types[-1] not in (StencilType.ORIGINAL,) + _NORMAL_TYPES):
         raise ValueError(
             f"coarse_apply={coarse_apply!r} on coarse levels that solve with "
             f"{sorted({t.name for t in types[1:]})}: the gather apply and "
@@ -446,6 +455,37 @@ def make_calibrated_batched_solver(mg: StatefulMultigridMG, probe_b,
                                       **solver_kw), outer)
 
 
+def make_refined_solver(mg: StatefulMultigridMG, tol: float = 1e-10,
+                        inner_tol: float = 1e-5, max_iter: int = 400,
+                        restart_freq: int = 32, max_outer: int = 12,
+                        **solver_kw):
+    """The double-precision contract with a complex64 hierarchy (qmg_tpu's
+    ``make_refined_planes_solver``): ``make_solver``'s solve to
+    ``inner_tol`` is the correction step of complex128 defect correction
+    (``refine.refine_solve``), whose true residual is taken against level
+    0's coefficients promoted to complex128, on their device, until it is
+    below ``tol``. ``solver_kw`` goes to ``make_solver`` (kernel options,
+    ``outer_type``). Returns solve(b) -> ``refine.RefineResult`` with a
+    complex128 solution on the hierarchy's device; ``b`` is a NumPy array
+    or a tensor."""
+    fine = mg.get_stencil(0)
+    c128 = fine.coeffs.to(torch.complex128)
+    inner_solve = make_solver(mg, tol=inner_tol, max_iter=max_iter,
+                              restart_freq=restart_freq, **solver_kw)
+    ref = fine.coeffs.ref
+
+    def inner(r):
+        res, _ = inner_solve(r.to(ref.dtype))
+        return res.x, res.iters
+
+    def solve(b, tol=tol, max_outer=max_outer):
+        b = torch.as_tensor(b).to(device=ref.device)
+        return refine_solve(lambda x: apply_M(c128, x), inner, b, tol=tol,
+                            max_outer=max_outer)
+
+    return solve
+
+
 def _planes(t: torch.Tensor, dtype) -> np.ndarray:
     a = t.detach().cpu().numpy()
     return np.stack([a.real, a.imag], axis=-1).astype(dtype)
@@ -497,6 +537,9 @@ def state_to_numpy(mg: StatefulMultigridMG, dtype=np.float32,
         state[f"nvb{lvl}"] = _planes(mg.get_transfer(lvl)._nvb, dtype)
     if mg.coarsest_dinv is not None:
         state["cdinv"] = _planes(mg.coarsest_dinv, dtype)
+    if mg.coarsest_evecs is not None:
+        state["cevals"] = _planes(mg.coarsest_evals, dtype)
+        state["cevecs"] = _planes(mg.coarsest_evecs, dtype)
     for lvl, kinds in _derived_need(mg, outer_type).items():
         st = mg.get_stencil(lvl)
         rbj = st.rbjacobi
@@ -570,12 +613,15 @@ def shard_state(state: dict, mesh: Mesh, b=None):
     return states, [cut(b, 1, iy, ix) for iy, ix in mesh.blocks]
 
 
-def state_from_numpy(state: dict, cfg: KCycleConfig, *, device="cpu",
+def state_from_numpy(state: dict, cfg: KCycleConfig, *, device="cuda",
                      dtype=None, mesh: Mesh | None = None
                      ) -> StatefulMultigridMG:
     """Rebuild a hierarchy from a state dict (``state_to_numpy`` or
-    ``qmg_tpu.tpu_compat.mg_state_planes``). ``cfg`` supplies the
-    blocking and the per-level solve parameters. ``dtype`` defaults to
+    ``qmg_tpu.tpu_compat.mg_state_planes``) on ``device`` (the card unless
+    the caller asks for another). ``cfg`` supplies the blocking and the
+    per-level solve parameters; the deflation pairs (``cevals`` /
+    ``cevecs``) are used when ``cfg.coarsest_stencil_app`` is a normal
+    type. ``dtype`` defaults to
     complex64 for float32 planes and complex128 otherwise. Level 0 is
     adopted as a Wilson operator at the Wilson coefficient its clover
     holds (``Wilson2D.from_coeffs``; its structure is checked), so a
@@ -636,4 +682,7 @@ def state_from_numpy(state: dict, cfg: KCycleConfig, *, device="cpu",
     if "cdinv" in state:
         mg.coarsest_dinv = _complex(state["cdinv"], dtype, device)
         mg.coarsest_solve.direct = True
+    if "cevecs" in state:
+        mg.coarsest_evals = _complex(state["cevals"], dtype, device)
+        mg.coarsest_evecs = _complex(state["cevecs"], dtype, device)
     return mg

@@ -1,5 +1,7 @@
-"""Krylov solvers as Python loops on device tensors (port of the solvers
-of qmg_tpu/solvers.py that the n13 path uses).
+"""Krylov solvers as Python loops on device tensors (port of
+qmg_tpu/solvers.py: CG and its restarted form, GCR unrestarted and
+restarted, flexible GCR unrestarted and restarted, BiCGstab, BiCGstab(l),
+MinRes, Richardson and TFQMR).
 
 Conventions, as in qmg_tpu:
 
@@ -44,10 +46,18 @@ import torch
 
 from .linalg import vdot, norm2sq, vdot_lanes, norm2sq_lanes, reductions
 
-__all__ = ["SolveResult", "gcr_restart", "gcr_var_precond_restart",
-           "bicgstab_l", "minres", "Lanes", "BatchedSolveResult",
-           "all_lanes", "gcr_restart_batched",
-           "gcr_var_precond_restart_batched", "minres_batched"]
+__all__ = ["SolveResult", "cg", "cg_restart", "gcr", "gcr_restart",
+           "gcr_var_precond", "gcr_var_precond_restart", "bicgstab",
+           "bicgstab_l", "minres", "richardson", "tfqmr", "Lanes",
+           "BatchedSolveResult", "all_lanes", "gcr_restart_batched",
+           "gcr_var_precond_restart_batched", "minres_batched",
+           "GCR_STORE_LIMIT_BYTES"]
+
+# The largest GCR direction store (2 x R x n values) a solve allocates,
+# qmg_tpu's limit: unrestarted GCR (restart_freq = -1) keeps max_iter
+# directions, which at the default cap of 1000 on a large lattice would be
+# tens of GiB; the guard refuses it before any allocation.
+GCR_STORE_LIMIT_BYTES = 8 * 1024 ** 3
 
 
 class SolveResult(NamedTuple):
@@ -68,9 +78,67 @@ def _keep_going(rsq, target) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# Restarted GCR, plain and flexible (variable preconditioner): one
-# implementation.
+# Conjugate gradient (Hermitian positive definite operators: the normal
+# operators of the deflated coarsest).
 # ---------------------------------------------------------------------------
+
+def cg(matvec, b, x0=None, max_iter: int = 1000, tol=1e-8) -> SolveResult:
+    x = torch.zeros_like(b) if x0 is None else x0
+    target = _target(tol, norm2sq(b))
+    r = b - matvec(x)
+    p = r
+    rsq = norm2sq(r)
+    k = 0
+    while k < max_iter and _keep_going(rsq, target):
+        ap = matvec(p)
+        # Breakdown guard: a stalled solve's <p, Ap> can underflow to 0;
+        # the iteration then becomes a no-op.
+        den = vdot(p, ap).real
+        pos = den > 0
+        alpha = torch.where(pos, rsq / torch.where(pos, den, 1.0), 0.0)
+        x = x + alpha * p
+        r = r - alpha * ap
+        rsq_new = norm2sq(r)
+        p = r + (rsq_new / rsq) * p
+        rsq = rsq_new
+        k += 1
+    return SolveResult(x, k, rsq, rsq <= target, k + 1)
+
+
+def cg_restart(matvec, b, x0=None, max_iter: int = 1000, tol=1e-8,
+               restart_freq: int = 32) -> SolveResult:
+    """CG restarted every ``restart_freq`` iterations from the true
+    residual."""
+    x = torch.zeros_like(b) if x0 is None else x0
+    target = _target(tol, norm2sq(b))
+    rsq = norm2sq(b - matvec(x))
+    k, ops = 0, 1
+    while k < max_iter and bool(rsq > target):
+        res = cg(matvec, b, x0=x, max_iter=restart_freq, tol=tol)
+        x, rsq = res.x, res.res_sq
+        k += res.iters
+        ops += res.ops_count
+    return SolveResult(x, k, rsq, rsq <= target, ops)
+
+
+# ---------------------------------------------------------------------------
+# GCR, plain and flexible (variable preconditioner), unrestarted and
+# restarted: one implementation.
+# ---------------------------------------------------------------------------
+
+def _check_store(R: int, b: torch.Tensor):
+    """Refuse a direction store of ``R`` copies of ``b`` (two stores)
+    above ``GCR_STORE_LIMIT_BYTES``."""
+    n = b.numel()
+    store_bytes = 2 * R * n * b.element_size()
+    if store_bytes > GCR_STORE_LIMIT_BYTES:
+        raise ValueError(
+            f"GCR direction store (2 x {R} x {n} {b.dtype} = "
+            f"{store_bytes / 2**30:.1f} GiB) exceeds the "
+            f"{GCR_STORE_LIMIT_BYTES / 2**30:.1f} GiB limit - use the "
+            "restarted variant (restart_freq > 0) at this problem size, or "
+            "raise solvers.GCR_STORE_LIMIT_BYTES")
+
 
 def _gcr_impl(matvec, b, x0, max_iter: int, tol, restart_len: int,
               precond=None, precond_carry=None, reduce=None,
@@ -78,11 +146,12 @@ def _gcr_impl(matvec, b, x0, max_iter: int, tol, restart_len: int,
     vdot, norm2sq, total = reductions(reduce)
     shape = b.shape
     n = b.numel()
+    R = int(restart_len)
+    _check_store(R, b)
     x = torch.zeros_like(b) if x0 is None else x0
     bsq = norm2sq(b)
     target = _target(tol, bsq)
     rdt = bsq.dtype
-    R = int(restart_len)
     tiny = torch.finfo(rdt).tiny
     if precond is None:
         def precond(r, carry):
@@ -131,11 +200,27 @@ def _gcr_impl(matvec, b, x0, max_iter: int, tol, restart_len: int,
     return SolveResult(x, k, rsq, rsq <= target, ops), carry
 
 
+def gcr(matvec, b, x0=None, max_iter: int = 1000, tol=1e-8
+        ) -> SolveResult:
+    """Unrestarted GCR: keeps up to ``max_iter`` directions."""
+    res, _ = _gcr_impl(matvec, b, x0, max_iter, tol,
+                       restart_len=max(int(max_iter), 1))
+    return res
+
+
 def gcr_restart(matvec, b, x0=None, max_iter: int = 1000, tol=1e-8,
                 restart_freq: int = 32, reduce=None) -> SolveResult:
     res, _ = _gcr_impl(matvec, b, x0, max_iter, tol,
                        restart_len=int(restart_freq), reduce=reduce)
     return res
+
+
+def gcr_var_precond(matvec, b, precond, x0=None, max_iter: int = 1000,
+                    tol=1e-8, precond_carry=None, fixed_trips: bool = False):
+    """Unrestarted flexible GCR (``restart_freq = -1`` in a K-cycle)."""
+    return _gcr_impl(matvec, b, x0, max_iter, tol,
+                     restart_len=max(int(max_iter), 1), precond=precond,
+                     precond_carry=precond_carry, fixed_trips=fixed_trips)
 
 
 def gcr_var_precond_restart(matvec, b, precond, x0=None,
@@ -205,12 +290,13 @@ def _gcr_batched(matvec, b, max_iter: int, tol, restart_len: int,
     qmg_tpu's vmap."""
     nrhs = b.shape[0]
     n = b[0].numel()
+    R = int(restart_len)
+    _check_store(R, b)
     active = all_lanes(b) if active is None else active
     x = torch.zeros_like(b)
     bsq = norm2sq_lanes(b)
     target = _target(tol, bsq)
     rdt = bsq.dtype
-    R = int(restart_len)
     tiny = torch.finfo(rdt).tiny
     if precond is None:
         def precond(r, carry, lanes):
@@ -293,8 +379,39 @@ def gcr_var_precond_restart_batched(matvec, b, precond, max_iter: int = 1000,
 
 
 # ---------------------------------------------------------------------------
-# BiCGstab(l) after Sleijpen-Fokkema (null-vector generation).
+# BiCGstab, and BiCGstab(l) after Sleijpen-Fokkema (null-vector
+# generation).
 # ---------------------------------------------------------------------------
+
+def bicgstab(matvec, b, x0=None, max_iter: int = 1000, tol=1e-8
+             ) -> SolveResult:
+    x = torch.zeros_like(b) if x0 is None else x0
+    target = _target(tol, norm2sq(b))
+    r = b - matvec(x)
+    rtilde = r
+    p = torch.zeros_like(b)
+    v = torch.zeros_like(b)
+    one = torch.ones((), dtype=b.dtype, device=b.device)
+    rho = alpha = omega = one
+    rsq = norm2sq(r)
+    k, ops = 0, 1
+    while k < max_iter and _keep_going(rsq, target):
+        rho_new = vdot(rtilde, r)
+        beta = (rho_new / rho) * (alpha / omega)
+        p = r + beta * (p - omega * v)
+        v = matvec(p)
+        alpha = rho_new / vdot(rtilde, v)
+        s = r - alpha * v
+        t = matvec(s)
+        omega = vdot(t, s) / norm2sq(t)
+        x = x + alpha * p + omega * s
+        r = s - omega * t
+        rho = rho_new
+        rsq = norm2sq(r)
+        k += 1
+        ops += 2
+    return SolveResult(x, k, rsq, rsq <= target, ops)
+
 
 def bicgstab_l(matvec, b, x0=None, max_iter: int = 1000, tol=1e-8,
                l: int = 6) -> SolveResult:
@@ -396,6 +513,72 @@ def minres(matvec, b, x0=None, max_iter: int = 2, tol=1e-15,
         k += 1
         ops += 1
     return SolveResult(x, k, rsq, rsq <= target, ops)
+
+
+def richardson(matvec, b, x0=None, max_iter: int = 10, tol=1e-10,
+               omega: float = 0.33, blocksize: int = 250) -> SolveResult:
+    """Relaxed Richardson x += omega (b - A x), the true residual
+    recomputed every ``blocksize`` iterations."""
+    x = torch.zeros_like(b) if x0 is None else x0
+    target = _target(tol, norm2sq(b))
+    r = b - matvec(x)
+    rsq = norm2sq(r)
+    k = 0
+    while k < max_iter and bool(rsq > target):
+        x = x + omega * r
+        if (k + 1) % blocksize == 0:
+            r = b - matvec(x)
+        else:
+            r = r - omega * matvec(r)
+        rsq = norm2sq(r)
+        k += 1
+    return SolveResult(x, k, rsq, rsq <= target, k + 1)
+
+
+def tfqmr(matvec, b, x0=None, max_iter: int = 1000, tol=1e-8
+          ) -> SolveResult:
+    """TFQMR (Freund; Saad, Algorithm 7.4), two operator applications an
+    iteration. Stops on the quasi-residual tau, which bounds ||r|| up to
+    sqrt(2k + 1); ``res_sq`` is tau^2."""
+    x = torch.zeros_like(b) if x0 is None else x0
+    target = _target(tol, norm2sq(b))
+    r0 = b - matvec(x)
+    rtilde = w = u = r0
+    au = matvec(u)
+    v = au
+    d = torch.zeros_like(b)
+    tau = torch.sqrt(norm2sq(r0))
+    theta = torch.zeros_like(tau)
+    eta = torch.zeros((), dtype=b.dtype, device=b.device)
+    rho = vdot(rtilde, r0)
+
+    def half_step(x, w, u, au, d, tau, theta, eta, alpha):
+        w = w - alpha * au
+        d = u + (theta * theta * eta / alpha) * d
+        theta = torch.sqrt(norm2sq(w)) / tau
+        c = 1.0 / torch.sqrt(1.0 + theta * theta)
+        tau = tau * theta * c
+        eta = c * c * alpha
+        return x + eta * d, w, d, tau, theta, eta
+
+    k, ops = 0, 2
+    while k < max_iter and bool(tau * tau > target):
+        alpha = rho / vdot(rtilde, v)
+        u2 = u - alpha * v
+        x, w, d, tau, theta, eta = half_step(x, w, u, au, d, tau, theta,
+                                             eta, alpha)
+        au2 = matvec(u2)
+        x, w, d, tau, theta, eta = half_step(x, w, u2, au2, d, tau, theta,
+                                             eta, alpha)
+        rho_new = vdot(rtilde, w)
+        beta = rho_new / rho
+        u = w + beta * u2
+        au = matvec(u)
+        v = au + beta * (au2 + beta * v)
+        rho = rho_new
+        k += 1
+        ops += 2
+    return SolveResult(x, k, tau * tau, tau * tau <= target, ops)
 
 
 def minres_batched(matvec, b, max_iter: int = 2, tol=1e-15,

@@ -2,10 +2,19 @@
 direct coarsest solve and the recursive K-cycle preconditioner (port of
 qmg_tpu/stateful.py).
 
-Each level solves with its ``fine_stencil_app`` (the coarsest with its
-``coarsest_stencil_app``): ORIGINAL, RIGHT_JACOBI or RIGHT_SCHUR. A
-RIGHT_SCHUR level's fields are even halves (Y, Xh, nc): the K-cycle
-restricts [r, 0] and keeps the even half of the prolonged correction.
+Each level solves with its ``fine_stencil_app``: ORIGINAL, RIGHT_JACOBI
+or RIGHT_SCHUR. A RIGHT_SCHUR level's fields are even halves (Y, Xh, nc):
+the K-cycle restricts [r, 0] and keeps the even half of the prolonged
+correction. A level's smoothers are MinRes(relax 0.85) on its operator,
+or with ``pre_cgne`` / ``post_cgne`` MinRes on M M^dag followed by M^dag.
+
+The coarsest solves with its ``coarsest_stencil_app``: the dense inverse
+(``prepare_direct_coarsest``), restarted GCR, or on a normal operator
+(M M^dag, M^dag M and their rbjacobi forms) CG from the deflation initial
+guess: the projection of the right-hand side onto the eigenpairs that
+``deflate_coarsest`` keeps, optionally with ``normal_shift`` added to the
+operator. ``restart_freq = -1`` selects the unrestarted solvers (GCR or
+CG at the coarsest, flexible GCR on the intermediate levels).
 
 ``make_preconditioner(level)`` returns precond(rhs, carry) -> (lhs, carry).
 The carry holds the per-level operator counters as host integers:
@@ -39,11 +48,12 @@ DSLASH_PRESMOOTH = 2
 DSLASH_POSTSMOOTH = 3
 
 
-# The stencil types a level or the coarsest may solve with here. The
-# normal-operator types (the CGNE smoother, the CG coarsest and its
-# deflation) are not ported.
+# The stencil types a non-coarsest level may solve with.
 LEVEL_TYPES = (StencilType.ORIGINAL, StencilType.RIGHT_JACOBI,
                StencilType.RIGHT_SCHUR)
+# The coarsest types solved by CG, and the only ones deflation takes.
+_NORMAL_TYPES = (StencilType.M_MDAGGER, StencilType.MDAGGER_M,
+                 StencilType.RBJ_M_MDAGGER, StencilType.RBJ_MDAGGER_M)
 
 
 @dataclasses.dataclass
@@ -71,30 +81,23 @@ class LevelSolveMG:
             raise ValueError(
                 "LevelSolveMG.fine_stencil_app must be original, right "
                 "jacobi, or schur")
-        if self.pre_cgne or self.post_cgne:
-            raise NotImplementedError(
-                "the CGNE smoother (pre_cgne / post_cgne) is not ported: it "
-                "needs the normal-operator solves (ROADMAP Queue 1 item 9)")
 
 
 @dataclasses.dataclass
 class CoarsestSolveMG:
-    """Coarsest-level solve config (restarted GCR on
-    ``coarsest_stencil_app``); ``direct`` switches to the dense inverse
+    """Coarsest-level solve config. The coarsest solves
+    ``coarsest_stencil_app`` by GCR, or a normal one by CG: there, while
+    ``deflate`` is set, from the projection onto the eigenpairs that
+    ``deflate_coarsest`` kept, and with ``normal_shift`` times the identity
+    added to the operator. ``direct`` switches to the dense inverse
     prepared by ``prepare_direct_coarsest``."""
     coarsest_stencil_app: StencilType = StencilType.ORIGINAL
     coarsest_tol: float = 1e-20
     coarsest_iters: int = 1000
     coarsest_restart_freq: int = 32
+    deflate: bool = True
+    normal_shift: float = 0.0
     direct: bool = False
-
-    def __post_init__(self):
-        if StencilType(self.coarsest_stencil_app) not in LEVEL_TYPES:
-            raise NotImplementedError(
-                f"coarsest_stencil_app "
-                f"{StencilType(self.coarsest_stencil_app).name} is not "
-                "ported: the normal-operator coarsest (CG, deflation) waits "
-                "for the next slice (ROADMAP Queue 1 item 9)")
 
 
 def zero_carry(n_levels: int):
@@ -119,6 +122,8 @@ class StatefulMultigridMG(MultigridMG):
         self.level_solve_list = []
         self.tracker = zero_carry(1)
         self.coarsest_dinv = None
+        self.coarsest_evals = None    # (k,) deflation eigenvalues
+        self.coarsest_evecs = None    # (k, *cv_shape), normalized
 
     def push_level(self, new_lat, new_transfer, level_solve=None, **kw):
         super().push_level(new_lat, new_transfer, **kw)
@@ -135,6 +140,9 @@ class StatefulMultigridMG(MultigridMG):
             raise ValueError(f"level solve for level {i} does not exist")
         return ls
 
+    def get_coarsest_solve(self) -> CoarsestSolveMG:
+        return self.coarsest_solve
+
     # --- counters ---
     def add_tracker_count(self, dtype: int, accum: int, level: int):
         self.tracker["counts"][level, dtype] += int(accum)
@@ -147,6 +155,34 @@ class StatefulMultigridMG(MultigridMG):
             counts, iters = counts.sum(axis=0), iters.sum(axis=0)
         self.tracker["counts"] += counts
         self.tracker["iters"] += iters
+
+    # --- coarsest deflation ---
+    def deflate_coarsest(self, num_low: int, num_high: int):
+        """Keep the ``num_low`` lowest and ``num_high`` highest eigenpairs
+        (by real part) of the coarsest normal operator: densified on its
+        device, its spectrum by LAPACK on the host in complex128, the
+        vectors normalized and kept on the device."""
+        cs = self.coarsest_solve
+        if StencilType(cs.coarsest_stencil_app) not in _NORMAL_TYPES:
+            raise ValueError("cannot deflate coarsest operator unless it's "
+                             "a normal op solve")
+        if num_low + num_high == 0:
+            return
+        st = self.get_stencil(self.get_num_levels() - 1)
+        ref = st.coeffs.ref
+        evals, evecs = eig.dense_eigensystem(
+            st.get_apply_function(cs.coarsest_stencil_app),
+            st.lat.cv_shape(), dtype=ref.dtype, device=ref.device)
+        idx = np.argsort(np.real(evals))
+        sel = list(idx[:num_low]) + list(idx[len(idx) - num_high:])
+        vecs = evecs[sel]
+        nrms = np.sqrt(np.sum(np.abs(vecs) ** 2,
+                              axis=tuple(range(1, vecs.ndim)),
+                              keepdims=True))
+        self.coarsest_evals = torch.as_tensor(evals[sel]).to(
+            device=ref.device, dtype=ref.dtype)
+        self.coarsest_evecs = torch.as_tensor(vecs / nrms).to(
+            device=ref.device, dtype=ref.dtype)
 
     # --- direct coarsest solve ---
     def prepare_direct_coarsest(self):
@@ -185,10 +221,9 @@ class StatefulMultigridMG(MultigridMG):
 
     def make_preconditioner(self, level: int = 0, reduce=None):
         """precond(rhs, carry) -> (lhs, carry): one K-cycle at ``level``:
-        MinRes(relax 0.85) presmoothing, restrict, the coarse solve
-        (direct inverse, restarted GCR at the coarsest, or restarted
-        flexible GCR around the next K-cycle), prolong, MinRes
-        postsmoothing.
+        presmoothing, restrict, the coarse solve (direct inverse, GCR or
+        on a normal operator deflated CG at the coarsest, flexible GCR
+        around the next K-cycle above it), prolong, postsmoothing.
 
         ``reduce`` sums inner products over the ranks that share this
         level's fields (``linalg.reductions``). It reaches this level's
@@ -223,18 +258,60 @@ class StatefulMultigridMG(MultigridMG):
             coarse_tol = cs.coarsest_tol
             coarse_restart = cs.coarsest_restart_freq
         apply_coarse = coarse_stencil.get_apply_function(coarse_type)
+        coarsest_normal = coarsest and coarse_type in _NORMAL_TYPES
+        # The CGNE smoother: MinRes on M M^dag, then M^dag.
+        cgne = {StencilType.ORIGINAL: (StencilType.M_MDAGGER,
+                                       StencilType.DAGGER),
+                StencilType.RIGHT_JACOBI: (StencilType.RBJ_M_MDAGGER,
+                                           StencilType.RBJ_DAGGER)
+                }.get(fine_type)
 
-        def smoother(rhs, n_iters, s_tol, dslash_type, carry):
-            res = solvers.minres(apply_fine, rhs, max_iter=n_iters,
-                                 tol=s_tol, omega=0.85, reduce=reduce)
-            carry["counts"][level, dslash_type] += res.ops_count
-            return res.x, carry
+        def smoother(rhs, n_iters, s_tol, use_cgne, dslash_type, carry):
+            if use_cgne and cgne is not None:
+                res = solvers.minres(fine_stencil.get_apply_function(cgne[0]),
+                                     rhs, max_iter=n_iters, tol=s_tol,
+                                     omega=0.85, reduce=reduce)
+                z = fine_stencil.apply_M(res.x, cgne[1])
+                ops = 2 * res.ops_count + 1
+            else:
+                res = solvers.minres(apply_fine, rhs, max_iter=n_iters,
+                                     tol=s_tol, omega=0.85, reduce=reduce)
+                z, ops = res.x, res.ops_count
+            carry["counts"][level, dslash_type] += ops
+            return z, carry
+
+        def coarsest_solve(r_prep, inner_tol):
+            """The iterative coarsest solve, from the deflation guess."""
+            cs = self.coarsest_solve
+            e0 = None
+            if (coarsest_normal and cs.deflate
+                    and self.coarsest_evecs is not None):
+                vecs = self.coarsest_evecs.reshape(
+                    self.coarsest_evecs.shape[0], -1)
+                coef = (vecs.conj() @ r_prep.reshape(-1)) \
+                    / self.coarsest_evals
+                e0 = (coef @ vecs).reshape(r_prep.shape)
+            mv = apply_coarse
+            if coarsest_normal and cs.normal_shift != 0.0:
+                def mv(x):
+                    return apply_coarse(x) + cs.normal_shift * x
+            kw = dict(x0=e0, max_iter=coarse_max_iter, tol=inner_tol)
+            if coarsest_normal:
+                if coarse_restart == -1:
+                    return solvers.cg(mv, r_prep, **kw)
+                return solvers.cg_restart(mv, r_prep,
+                                          restart_freq=coarse_restart, **kw)
+            if coarse_restart == -1:
+                return solvers.gcr(mv, r_prep, **kw)
+            return solvers.gcr_restart(mv, r_prep,
+                                       restart_freq=coarse_restart, **kw)
 
         def precond(rhs, carry):
             # --- presmooth ---
             if level_solve.pre_iters > 0:
                 z1, carry = smoother(rhs, level_solve.pre_iters,
-                                     level_solve.pre_tol, DSLASH_PRESMOOTH,
+                                     level_solve.pre_tol,
+                                     level_solve.pre_cgne, DSLASH_PRESMOOTH,
                                      carry)
                 r1 = rhs - apply_fine(z1)
                 carry["counts"][level, DSLASH_PRESMOOTH] += 1
@@ -260,17 +337,19 @@ class StatefulMultigridMG(MultigridMG):
                     r_coarse_prep.shape)
                 sub_iters, sub_ops = 1, 1
             elif coarsest:
-                res = solvers.gcr_restart(
-                    apply_coarse, r_coarse_prep, max_iter=coarse_max_iter,
-                    tol=inner_tol, restart_freq=coarse_restart)
+                res = coarsest_solve(r_coarse_prep, inner_tol)
                 e_coarse = res.x
                 sub_iters, sub_ops = res.iters, res.ops_count
             else:
-                res, carry = solvers.gcr_var_precond_restart(
-                    apply_coarse, r_coarse_prep, inner_precond,
-                    max_iter=coarse_max_iter, tol=inner_tol,
-                    restart_freq=coarse_restart, precond_carry=carry,
-                    fixed_trips=coarse_fixed)
+                kw = dict(max_iter=coarse_max_iter, tol=inner_tol,
+                          precond_carry=carry, fixed_trips=coarse_fixed)
+                if coarse_restart == -1:
+                    res, carry = solvers.gcr_var_precond(
+                        apply_coarse, r_coarse_prep, inner_precond, **kw)
+                else:
+                    res, carry = solvers.gcr_var_precond_restart(
+                        apply_coarse, r_coarse_prep, inner_precond,
+                        restart_freq=coarse_restart, **kw)
                 e_coarse = res.x
                 sub_iters, sub_ops = res.iters, res.ops_count
             carry["counts"][level + 1, DSLASH_KRYLOV] += sub_ops
@@ -288,6 +367,7 @@ class StatefulMultigridMG(MultigridMG):
                 r2 = rhs - apply_fine(lhs)
                 z3, carry = smoother(r2, level_solve.post_iters,
                                      level_solve.post_tol,
+                                     level_solve.post_cgne,
                                      DSLASH_POSTSMOOTH, carry)
                 lhs = lhs + z3
                 carry["counts"][level, DSLASH_POSTSMOOTH] += 1
@@ -303,8 +383,16 @@ class StatefulMultigridMG(MultigridMG):
         n_levels = self.get_num_levels()
         self.get_stencil(0).prebuild_derived(outer_type)
         for lvl in range(n_levels - 1):
-            self.get_stencil(lvl).prebuild_derived(
-                self.get_level_solve(lvl).fine_stencil_app)
+            ls = self.get_level_solve(lvl)
+            st = self.get_stencil(lvl)
+            st.prebuild_derived(ls.fine_stencil_app)
+            if ls.pre_cgne or ls.post_cgne:
+                # The CGNE smoother's M M^dag.
+                ft = StencilType(ls.fine_stencil_app)
+                if ft == StencilType.ORIGINAL:
+                    st.prebuild_derived(StencilType.M_MDAGGER)
+                elif ft == StencilType.RIGHT_JACOBI:
+                    st.prebuild_derived(StencilType.RBJ_M_MDAGGER)
         self.get_stencil(n_levels - 1).prebuild_derived(
             self.coarsest_solve.coarsest_stencil_app)
 
@@ -327,9 +415,17 @@ class StatefulMultigridMG(MultigridMG):
         n_levels = self.get_num_levels()
         if any(t != StencilType.ORIGINAL for t in self.level_types()):
             raise NotImplementedError(
-                "batched K-cycles take ORIGINAL levels only: the Schur and "
-                "rbjacobi branches wait for one K-cycle shared by both "
-                "solvers (ROADMAP Queue 1 item 10)")
+                "batched K-cycles take ORIGINAL levels only: the Schur, "
+                "rbjacobi and normal-operator (CG, deflated) branches wait "
+                "for one K-cycle shared by both solvers (ROADMAP Queue 1 "
+                "item 10)")
+        if any(self.get_level_solve(lvl).pre_cgne
+               or self.get_level_solve(lvl).post_cgne
+               for lvl in range(n_levels - 1)):
+            raise NotImplementedError(
+                "batched K-cycles take the MinRes smoother only: the CGNE "
+                "smoother waits for one K-cycle shared by both solvers "
+                "(ROADMAP Queue 1 item 10)")
         if n_levels == 1:
             return lambda rhs, carry, lanes: (rhs, carry)
 
@@ -353,6 +449,9 @@ class StatefulMultigridMG(MultigridMG):
             coarse_max_iter = cs.coarsest_iters
             coarse_tol = cs.coarsest_tol
             coarse_restart = cs.coarsest_restart_freq
+        if coarse_restart == -1:
+            # Unrestarted: the store holds every direction.
+            coarse_restart = max(int(coarse_max_iter), 1)
 
         def smoother(rhs, n_iters, s_tol, dslash_type, carry, lanes):
             res = solvers.minres_batched(apply_fine, rhs, max_iter=n_iters,

@@ -120,6 +120,16 @@ class StencilCoeffs:
             self._stacked = torch.cat(parts)
         return self._stacked
 
+    def to(self, dtype) -> "StencilCoeffs":
+        """A copy with every coefficient tensor cast to ``dtype`` on its
+        device; the shifts keep their values."""
+        def cast(t):
+            return None if t is None else t.to(dtype)
+        return self.replace(clover=cast(self.clover),
+                            hopping=cast(self.hopping),
+                            twolink=cast(self.twolink),
+                            corner=cast(self.corner))
+
     @property
     def ref(self) -> torch.Tensor:
         """A coefficient tensor, for the set's dtype and device."""

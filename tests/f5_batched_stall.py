@@ -79,7 +79,7 @@ def main():
     B = torch.stack([src, src])
     kw = dict(tol=TOL, max_iter=200, restart_freq=32)
 
-    tmg = state_from_numpy(state, cfg)
+    tmg = state_from_numpy(state, cfg, device="cpu")
     op = tmg.get_stencil(0)
     # The plain applies (qmg_tpu's jnp route), and the stream's routes:
     # the rank-1 Wilson kernel and K6 (their plain twins on the CPU).

@@ -74,7 +74,7 @@ def problem():
 
 def _load(problem, **cfg):
     mg = state_from_numpy(problem["state"], KCycleConfig(**CFG, **cfg),
-                          dtype=torch.complex128)
+                          device="cpu", dtype=torch.complex128)
     return mg, torch.as_tensor(problem["rhs"]).to(torch.complex128)
 
 
@@ -127,6 +127,20 @@ def test_kernel_routes_match_sequential(problem):
     # the overrides exist only inside a solve
     assert all(mg.get_stencil(lvl).apply_override is None
                for lvl in range(mg.get_num_levels()))
+
+
+def test_unrestarted_intermediate_matches_sequential(problem):
+    """``intermediate_restart_freq = -1`` (unrestarted flexible GCR on level
+    1, as in qmg_tpu): each lane follows its sequential solve."""
+    mg, B = _load(problem, inner_restart_freq=-1)
+    kw = dict(tol=TOL, max_iter=200, restart_freq=32, fine_kernel=None)
+    res, carry = make_batched_solver(mg, **kw)(B)
+    seq = make_solver(mg, **kw)
+    for k in range(NRHS):
+        r, c = seq(B[k])
+        assert int(res.iters[k]) == int(r.iters), k
+        assert np.array_equal(carry["counts"][k], c["counts"]), k
+        assert np.array_equal(carry["iters"][k], c["iters"]), k
 
 
 def test_tracker_absorbs_the_lanes(problem):

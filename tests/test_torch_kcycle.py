@@ -110,7 +110,7 @@ def test_solver_on_jax_state_c128(jax_bench_32, coarsest):
                              tol=1e-8)
     finally:
         mg.coarsest_solve.direct = True
-    tmg = state_from_numpy(state, cfg)
+    tmg = state_from_numpy(state, cfg, device="cpu")
     assert tmg.coarsest_solve.direct == (coarsest == "direct")
     assert tmg.get_stencil(0).coeffs.hopping.dtype == torch.complex128
     res, carry = make_solver(tmg, tol=1e-8, max_iter=200, restart_freq=32,
@@ -128,7 +128,7 @@ def test_solver_on_jax_state_c64_kernel(jax_bench_32):
     it_j, _ = _jax_iters(mg, state, host_to_planes(b), tol=1e-5,
                          use_pallas_fine=True, pallas_kind="wilson-r1",
                          pallas_interpret=True, pallas_tile=8)
-    tmg = state_from_numpy(state, cfg)
+    tmg = state_from_numpy(state, cfg, device="cpu")
     bt = torch.as_tensor(b).to(torch.complex64)
     res, _ = make_solver(tmg, tol=1e-5, max_iter=200, restart_freq=32,
                          fine_kernel="wilson-r1")(bt)

@@ -63,7 +63,7 @@ def jax_state_32():
 
 
 def _port_solve(state, cfg, b, **kw):
-    tmg = state_from_numpy(state, cfg)
+    tmg = state_from_numpy(state, cfg, device="cpu")
     bt = torch.as_tensor(b).to(torch.complex64)
     solve = make_solver(tmg, tol=TOL, max_iter=200, restart_freq=32, **kw)
     res, _ = solve(bt)

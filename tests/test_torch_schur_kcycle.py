@@ -261,7 +261,7 @@ def test_qmg_tpu_state_drives_port_c64(jax_bench_32):
     mg, cfg, restart, b = jax_bench_32
     state = _jax_state(mg)
     it_j, _ = _jax_planes_count(mg, state, b, restart, TOL)
-    tmg = state_from_numpy(state, cfg)
+    tmg = state_from_numpy(state, cfg, device="cpu")
     before = sum(DERIVED_BUILDS.values())
     bt = torch.as_tensor(b).to(torch.complex64)
     solve = make_solver(tmg, tol=TOL, max_iter=200, restart_freq=restart,
@@ -277,7 +277,7 @@ def test_qmg_tpu_state_drives_port_c128(jax_bench_32):
     mg, cfg, restart, b = jax_bench_32
     state = _jax_state(mg, np.float64)
     it_j, xj = _jax_planes_count(mg, state, b, restart, 1e-8, np.float64)
-    tmg = state_from_numpy(state, cfg)
+    tmg = state_from_numpy(state, cfg, device="cpu")
     res, _ = make_solver(tmg, tol=1e-8, max_iter=200, restart_freq=restart,
                          fine_kernel=None, outer_type=SCHUR)(
                              torch.as_tensor(b))
@@ -293,7 +293,7 @@ def test_port_derives_qmg_tpu_sets(jax_bench_32):
     mg, cfg, _, _ = jax_bench_32
     base = mg_state_planes(mg, dtype=np.float64)
     derived = derived_state_planes(mg, JSCHUR, dtype=np.float64)
-    tmg = state_from_numpy(base, cfg)
+    tmg = state_from_numpy(base, cfg, device="cpu")
     ts = state_to_numpy(tmg, dtype=np.float64, outer_type=SCHUR)
     assert set(ts) == set(base) | set(derived)
     for k in derived:
@@ -323,7 +323,8 @@ def test_port_state_drives_qmg_tpu(jax_bench_32):
 
 def test_derived_sets_built_once(jax_bench_32):
     _, cfg, restart, b = jax_bench_32
-    tmg = state_from_numpy(mg_state_planes(jax_bench_32[0]), cfg)
+    tmg = state_from_numpy(mg_state_planes(jax_bench_32[0]), cfg,
+                           device="cpu")
     before = DERIVED_BUILDS.copy()
     solve = make_solver(tmg, tol=TOL, max_iter=200, restart_freq=restart,
                         fine_kernel=None, outer_type=SCHUR)
@@ -341,7 +342,7 @@ def test_derived_sets_built_once(jax_bench_32):
 
 def test_schur_solver_refusals(jax_bench_32):
     mg, cfg, restart, b = jax_bench_32
-    tmg = state_from_numpy(mg_state_planes(mg), cfg)
+    tmg = state_from_numpy(mg_state_planes(mg), cfg, device="cpu")
     for kw in (dict(fine_kernel="wilson-r1"), dict(fine_kernel="matrix"),
                dict(fine_kernel=None, coarse_apply="small"),
                dict(fine_kernel=None, coarse_apply="gather"),
@@ -357,20 +358,21 @@ def test_schur_solver_refusals(jax_bench_32):
 
 
 def test_unported_types_refused():
-    """The CGNE smoother and the normal-operator coarsest are refused with
-    a message; a level type outside qmg_tpu's three is a ValueError, as
-    there; an unknown null-vector solver too."""
+    """A level type outside qmg_tpu's three is a ValueError, as there; an
+    unknown null-vector solver too. The CGNE smoother and the
+    normal-operator coarsest, refused before they were ported, are
+    accepted (their solves: tests/test_torch_cgne.py and
+    test_torch_deflation.py)."""
     from qmg_tpu_torch.stateful import LevelSolveMG, CoarsestSolveMG
     from qmg_tpu_torch.setup import generate_null_vectors
     for kw in (dict(pre_cgne=True), dict(post_cgne=True)):
-        with pytest.raises(NotImplementedError, match="CGNE"):
-            LevelSolveMG(**kw)
+        assert LevelSolveMG(**kw).pre_cgne == kw.get("pre_cgne", False)
     with pytest.raises(ValueError, match="fine_stencil_app"):
         LevelSolveMG(fine_stencil_app=StencilType.DAGGER)
     for t in (StencilType.M_MDAGGER, StencilType.MDAGGER_M,
               StencilType.RBJ_MDAGGER_M):
-        with pytest.raises(NotImplementedError, match="normal-operator"):
-            CoarsestSolveMG(coarsest_stencil_app=t)
+        cs = CoarsestSolveMG(coarsest_stencil_app=t)
+        assert cs.deflate and cs.normal_shift == 0.0
     op = TWilson2D(TLattice2D(8, 8, 2), MASS,
                    ju1.gauss_gauge_u1(Lattice2D(8, 8, 2), JQMGRandom(1), 6.))
     with pytest.raises(ValueError, match="null-vector solver"):

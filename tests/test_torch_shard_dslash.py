@@ -398,7 +398,8 @@ def test_make_solver_mesh_refusals(small_mg, kw, message):
 def test_state_from_numpy_refuses_in_process_mesh(small_mg):
     mg, cfg = small_mg
     with pytest.raises(ValueError, match="in-process mesh takes the whole"):
-        state_from_numpy(state_to_numpy(mg), cfg, mesh=Mesh(2, 1))
+        state_from_numpy(state_to_numpy(mg), cfg, device="cpu",
+                         mesh=Mesh(2, 1))
 
 
 # ---------------------------------------------------------------------------

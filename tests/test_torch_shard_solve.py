@@ -99,8 +99,8 @@ def _solve(mg, b, tol, fine_kernel, mesh=None):
 def unsharded(jax_problem):
     """The port's unsharded solves on qmg_tpu's state: complex64 with the
     rank-1 twin and with the plain fine apply, complex128 plain."""
-    mg32 = state_from_numpy(jax_problem["s32"], CFG)
-    mg64 = state_from_numpy(jax_problem["s64"], CFG)
+    mg32 = state_from_numpy(jax_problem["s32"], CFG, device="cpu")
+    mg64 = state_from_numpy(jax_problem["s64"], CFG, device="cpu")
     b64 = torch.as_tensor(jax_problem["b"])
     b32 = b64.to(torch.complex64)
     return {"mg32": mg32, "mg64": mg64, "b32": b32, "b64": b64,
@@ -191,7 +191,7 @@ def _gloo_pieces(mesh: Mesh, workdir: str) -> dict:
     # --- complex128: plain sharded apply, transfer, solve ---
     (cut,), (b_loc,) = shard_state(states["s64_"], mesh, data["b"])
     (x_loc,) = shard_state({}, mesh, data["x"])[1]
-    mg = state_from_numpy(cut, CFG, mesh=mesh)
+    mg = state_from_numpy(cut, CFG, device="cpu", mesh=mesh)
     fine, transfer = mg.get_stencil(0), mg.get_transfer(0)
     x_loc, b_loc = torch.as_tensor(x_loc), torch.as_tensor(b_loc)
     before = dict(mesh.sent)
@@ -210,7 +210,7 @@ def _gloo_pieces(mesh: Mesh, workdir: str) -> dict:
 
     # --- complex64: the slab kernel's twin and the solves ---
     (cut,), (b_loc,) = shard_state(states["s32_"], mesh, data["b"])
-    mg = state_from_numpy(cut, CFG, mesh=mesh)
+    mg = state_from_numpy(cut, CFG, device="cpu", mesh=mesh)
     fine = mg.get_stencil(0)
     b_loc = torch.as_tensor(b_loc).to(torch.complex64)
     kernels = [None] + (["wilson-r1"] if mesh.nx == 1 else [])

@@ -116,8 +116,11 @@ def test_setup_planes_refusals():
     for name in ("per_level_jit", "channels_first", "matmul_precision"):
         with pytest.raises(ValueError, match="TPU"):
             make_kcycle_setup_planes(lat, cfg, -0.06, **{name: True})
-    for name in ("mesh", "deflate_low", "deflate_high"):
-        with pytest.raises(ValueError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="ROADMAP"):
+        make_kcycle_setup_planes(lat, cfg, -0.06, mesh=1)
+    # The deflation stage is ported; it needs a normal coarsest.
+    for name in ("deflate_low", "deflate_high"):
+        with pytest.raises(ValueError, match="NORMAL"):
             make_kcycle_setup_planes(lat, cfg, -0.06, **{name: 1})
     with pytest.raises(TypeError, match="bogus"):
         make_kcycle_setup_planes(lat, cfg, -0.06, bogus=1)

@@ -84,7 +84,7 @@ def jax_state(request):
 
 def test_state_load_recovers_wilson_coeff(jax_state):
     w, _, state, cfg, _, _ = jax_state
-    fine = state_from_numpy(state, cfg).get_stencil(0)
+    fine = state_from_numpy(state, cfg, device="cpu").get_stencil(0)
     assert isinstance(fine, TWilson2D)
     assert abs(fine.wilson_coeff - w) <= 1e-6
     if w == 1.0:
@@ -94,7 +94,7 @@ def test_state_load_recovers_wilson_coeff(jax_state):
 def test_wilson_phase_solve_matches_qmg_tpu(jax_state):
     w, mg, state, cfg, restart, b = jax_state
     it_j = jax_outer_count(mg, state, b, restart, pallas=True)
-    tmg = state_from_numpy(state, cfg)
+    tmg = state_from_numpy(state, cfg, device="cpu")
     bt = torch.as_tensor(b).to(torch.complex64)
     solve = make_solver(tmg, tol=TOL, max_iter=200, restart_freq=restart,
                         fine_kernel="wilson-phase")
@@ -113,7 +113,7 @@ def test_wilson_phase_equals_plain_fine_apply_count(jax_state):
     bt = torch.as_tensor(b).to(torch.complex64)
     iters = []
     for fine_kernel in ("wilson-phase", None):
-        tmg = state_from_numpy(state, cfg)
+        tmg = state_from_numpy(state, cfg, device="cpu")
         res, _ = make_solver(tmg, tol=TOL, max_iter=200,
                              restart_freq=restart,
                              fine_kernel=fine_kernel)(bt)
@@ -123,7 +123,7 @@ def test_wilson_phase_equals_plain_fine_apply_count(jax_state):
 
 def test_wilson_r1_refuses_other_w(jax_state):
     w, _, state, cfg, _, _ = jax_state
-    tmg = state_from_numpy(state, cfg)
+    tmg = state_from_numpy(state, cfg, device="cpu")
     if w == 1.0:
         make_solver(tmg, fine_kernel="wilson-r1")
     else:
@@ -303,7 +303,7 @@ def test_only_level_0_is_adopted_as_wilson(jax_state):
     """A coarse level stays a CoarseOperator2D in a loaded hierarchy, and
     the adopted level 0 applies its coefficients as they came."""
     _, _, state, cfg, _, b = jax_state
-    tmg = state_from_numpy(state, cfg)
+    tmg = state_from_numpy(state, cfg, device="cpu")
     assert isinstance(tmg.get_stencil(0), TWilson2D)
     assert isinstance(tmg.get_stencil(1), CoarseOperator2D)
     x = torch.as_tensor(b).to(torch.complex64)
