@@ -142,6 +142,22 @@ fallback). Phases, any failure exits non-zero:
      problem sizes (phase 4's profiled 512^2 solve and phase 7's 2048^2
      one).
 
+ 19. the n22 adaptive setup (``kcycle --setup adaptive``) on phase 4's
+     problem (its gauge field, mass and right-hand side; the setup's
+     gaussians drawn from the stream after it): ``AdaptiveConfig(n_refine=3,
+     coarse_dof=8, n_setup=1)`` with the dense coarsest inverse, each stage
+     timed and every array of the hierarchy finite; the Richardson-only
+     hierarchy (``n_setup=0``, the same seeds) solved once with K1; the
+     adapted one solved with K1 and with K1 + K6 (``--coarse-apply
+     small``), each from launch counts set to 0, to a true relative
+     residual <= 1e-4, launching K1 (and K6), in at most the Richardson-only
+     count + 1 outer iterations; the adapted K1 and the Richardson-only
+     counts within +-2 of qmg_tpu's (``JAX_ITERS_512_ADAPTIVE``); one more
+     setup under a counter of the device operations it dispatches and of
+     its host read-backs; setup s by stage, solve ms, ms per outer
+     iteration, the device kernels of one profiled solve and the
+     per-level operator report.
+
 The last two lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}.
 """
@@ -188,6 +204,13 @@ JAX_ITERS_512_SCHUR = 6
 # no dense inverse) through make_planes_solver on the CPU backend with x64
 # off, from ``python tests/test_torch_deflation.py --size 512``.
 JAX_ITERS_512_DEFLATE = 9
+# Outer iterations of qmg_tpu's solve on ``kcycle --setup adaptive``'s
+# 512^2 hierarchy (its traced ``make_adaptive_setup_planes`` with the dense
+# coarsest inverse, the planes solver, complex64, on the CPU backend) after
+# one pass and with none, from ``python tests/test_torch_adaptive.py
+# --size 512`` (qmg_tpu's setup takes ~26 min there).
+JAX_ITERS_512_ADAPTIVE = (11, 31)
+ADAPTIVE_SIZE = 512       # phase 19's lattice: phase 4's problem
 DEFLATE_N = 8
 DEFLATE_SIZES = (512, 2048)   # phase 18's lattices
 DEFLATE_EIG_TOL = 1e-3
@@ -206,10 +229,23 @@ PLAIN_REPS = 20           # the twins: tens of small kernels a call
 FP32_FLOP_S = 67e12
 
 
+T_START = time.perf_counter()
+
+
 def check(cond, msg):
+    """Exits 1 on a failed check; the message goes to both streams, so that
+    a caller that keeps only the standard error still reads it."""
     if not cond:
         print(f"FAIL: {msg}", flush=True)
+        print(f"chip_smoke FAIL: {msg}", file=sys.stderr, flush=True)
         sys.exit(1)
+
+
+def phase(label):
+    """Marks the start of a phase on the standard error, with the seconds
+    since the script started."""
+    print(f"# chip_smoke {time.perf_counter() - T_START:.1f} s: {label}",
+          file=sys.stderr, flush=True)
 
 
 def tool_line(cmd, pick_last=False):
@@ -1393,6 +1429,124 @@ def deflation_phase(torch, dev, direct, direct_big):
               flush=True)
 
 
+def count_device_ops(torch, fn):
+    """Runs ``fn()`` counting the aten operations it dispatches on the card
+    (views excluded; each of the others launches at least one kernel, a
+    copy of a scalar to the host included) and among them the scalar
+    read-backs (``.item()``, ``bool()``: one synchronisation each).
+    Returns (fn's result, operations, read-backs)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+    item = torch.ops.aten._local_scalar_dense.default
+
+    class Counter(TorchDispatchMode):
+        ops = reads = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func is item:
+                if args[0].is_cuda:
+                    Counter.ops += 1
+                    Counter.reads += 1
+            elif not func.is_view and any(
+                    isinstance(t, torch.Tensor) and t.is_cuda
+                    for t in tree_leaves(out)):
+                Counter.ops += 1
+            return out
+
+    with Counter():
+        result = fn()
+    torch.cuda.synchronize()
+    return result, Counter.ops, Counter.reads
+
+
+def check_finite_hierarchy(torch, mg, label):
+    """Every coefficient, null vector and the dense inverse of ``mg``
+    finite."""
+    arrays = {"cdinv": mg.coarsest_dinv}
+    for lvl in range(mg.get_num_levels()):
+        c = mg.get_stencil(lvl).coeffs
+        arrays[f"clover{lvl}"], arrays[f"hopping{lvl}"] = c.clover, c.hopping
+    for lvl in range(mg.get_num_levels() - 1):
+        arrays[f"nvb{lvl}"] = mg.get_transfer(lvl)._nvb
+    bad = [k for k, a in arrays.items() if a is not None and not bool(
+        torch.isfinite(torch.view_as_real(a)).all())]
+    check(not bad, f"{label}: non-finite {bad}")
+
+
+def adaptive_phase(torch, dev, problem):
+    """Phase 19 on ``problem``, phase 4's 512^2 problem. Returns the
+    launches of K1 and K6 over the adapted hierarchy's K1 + K6 path."""
+    from qmg_tpu_torch.kcycle import (adaptive_problem, run_solver,
+                                      print_report, reset_launch_counts,
+                                      launch_counts)
+    size = problem["size"]
+
+    def stages_line(p):
+        return ", ".join(f"{label} {sec:.3f}" for label, sec in p["stages"])
+
+    def path(p, label, **kw):
+        print(f"--- {label}", flush=True)
+        reset_launch_counts()
+        r = run_solver(p, **kw)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        print_report(r)
+        print(f"launches over the path: {counts}", flush=True)
+        check_solve(r, label)
+        check(r["launches"]["wilson_r1"] > 0 and counts["wilson_r1"] > 0,
+              f"{label}: K1 not launched")
+        return r, counts
+
+    adapted = adaptive_problem(problem, 1)
+    check_finite_hierarchy(torch, adapted["mg"], f"{size}^2 adaptive setup")
+    print(f"{size}^2 adaptive setup (n_setup 1, dense coarsest): "
+          f"{adapted['setup_s']:.3f} s; stages s: {stages_line(adapted)}",
+          flush=True)
+    rich = adaptive_problem(problem, 0, seeds=(adapted["seeds"][0], []))
+    check_finite_hierarchy(torch, rich["mg"], f"{size}^2 Richardson setup")
+    print(f"{size}^2 Richardson-only setup (n_setup 0): {rich['setup_s']:.3f}"
+          f" s; stages s: {stages_line(rich)}", flush=True)
+    r0, _ = path(rich, f"{size}^2 Richardson-only hierarchy, wilson-r1")
+    del rich
+    r1, _ = path(adapted, f"{size}^2 adapted hierarchy, wilson-r1",
+                 profile=True)
+    r6, c6 = path(adapted, f"{size}^2 adapted hierarchy, wilson-r1 + small "
+                  "coarse", coarse_apply="small")
+    check(r6["launches"]["dslash_small"] > 0 and c6["dslash_small"] > 0,
+          f"{size}^2 adapted, small coarse: K6 not launched")
+    for r in (r1, r6):
+        check(r["iters"] <= r0["iters"] + 1,
+              f"{size}^2 adapted hierarchy ({r['level_applies']}): "
+              f"{r['iters']} outer iterations against the Richardson-only "
+              f"{r0['iters']}")
+    j1, j0 = JAX_ITERS_512_ADAPTIVE
+    check(abs(r1["iters"] - j1) <= 2 and abs(r0["iters"] - j0) <= 2,
+          f"{size}^2 adaptive outer iterations {r1['iters']} (Richardson-"
+          f"only {r0['iters']}) vs qmg_tpu's {j1} ({j0})")
+    print(f"{size}^2 outer iterations: adapted {r1['iters']}, K1 + K6 "
+          f"{r6['iters']}, Richardson-only {r0['iters']} (qmg_tpu {j1}, "
+          f"{j0}): ok", flush=True)
+    counted, ops, reads = count_device_ops(torch, lambda: adaptive_problem(
+        problem, 1, seeds=adapted["seeds"]))
+    check_finite_hierarchy(torch, counted["mg"], f"{size}^2 counted setup")
+    print(f"{size}^2 adaptive setup: {ops} device operations dispatched, "
+          f"{reads} of them host read-backs ({counted['setup_s']:.3f} s with "
+          f"the counter on); stages s: {stages_line(counted)}", flush=True)
+    print(f"{size}^2 adaptive against Richardson-only: setup s, solve ms, ms "
+          "per outer iteration, outer iterations, per-level iterations, "
+          "device kernels of one profiled solve", flush=True)
+    for label, r in (("adapted, wilson-r1", r1),
+                     ("adapted, wilson-r1 + small", r6),
+                     ("Richardson-only, wilson-r1", r0)):
+        kernels = r["device_kernels"]
+        print(f"  {label}: {r['setup_s']:.3f}, {r['solve_ms']:.3f}, "
+              f"{r['ms_per_iter']:.3f}, {r['iters']}, {r['level_iters']}, "
+              + (f"{kernels}" if kernels is not None else "not profiled"),
+              flush=True)
+    return {"wilson_r1": c6["wilson_r1"], "dslash_small": c6["dslash_small"]}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1402,18 +1556,21 @@ def main():
     from concurrent.futures import ThreadPoolExecutor
     from qmg_tpu_torch import wilson_kernel as wk, dslash_kernel as dk
     from qmg_tpu_torch.cuda_build import find_nvcc
-    from qmg_tpu_torch.kcycle import run_kcycle, print_report
+    from qmg_tpu_torch.kcycle import build_problem, run_solver, print_report
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     # --- 1. environment ---
+    phase("1. environment")
     nvcc_line = tool_line([find_nvcc(), "--version"], pick_last=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"device {kind}, nvcc: {nvcc_line}", flush=True)
+          f"device {kind}, nvcc: {nvcc_line}; host: {os.cpu_count()} CPUs, "
+          f"numpy {np.__version__}", flush=True)
     print(tool_line(["nvidia-smi", "--query-gpu=name,power.limit",
                      "--format=csv,noheader"]), flush=True)
 
     # --- 2. build: one compiler per source, started together ---
+    phase("2. build")
     from qmg_tpu_torch import u1
     with ThreadPoolExecutor(3) as pool:
         builds = {"wilson (nvcc sm_90a)": pool.submit(wk.build_wilson),
@@ -1423,6 +1580,7 @@ def main():
             print(f"build {name}: {fut.result():.2f} s", flush=True)
 
     # --- 3. kernel vs plain ---
+    phase("3. kernel vs plain")
     floor_ms = graph_ms(dk.empty_launch, torch)
     print(f"launch floor: an empty kernel {floor_ms * 1e3:.2f} us a launch "
           f"on the device alone (100 launches in one CUDA graph), "
@@ -1431,8 +1589,10 @@ def main():
     wilson_worst, wilson_times = kernel_phase(torch, wk, dk, dev)
 
     # --- 4. the original path ---
+    phase("4. the original path")
     wk.wilson_r1_apply.launches = 0
-    r = run_kcycle(512, dev, profile=True)
+    problem = build_problem(ADAPTIVE_SIZE, dev)
+    r = run_solver(problem, profile=True)
     torch.cuda.synchronize()
     launches = wk.wilson_r1_apply.launches
     print_report(r)
@@ -1448,32 +1608,44 @@ def main():
           f"{JAX_ITERS_512}: ok", flush=True)
 
     # --- 5. and 6. the generic stencil kernels vs their twins ---
+    phase("5.-6. the stencil kernels")
     worst = stencil_phase(torch, dk, dev)
     stimes = stencil_timings(torch, dk, dev)
 
     # --- 7. and 8. the kernel paths ---
+    phase("7.-9., 12. the kernel paths")
     path_launches, direct_big = kernel_paths(torch, dev)
 
     # --- 10. the dslash chains through K3 and K2 ---
+    phase("10. the dslash chains")
     (path_launches["wilson_split"],
      path_launches["dslash_small_split"]) = dslash_chains(torch, dev)
     path_launches["wilson_r1"] = launches
 
     # --- 11. the slab kernel, 13. the distributed mesh of one rank ---
+    phase("11., 13. the slab kernel and the mesh")
     halo_worst, halo_times = halo_phase(torch, wk, dev)
     nccl_phase(torch, dev)
 
     # --- 14.-16. the rhs-axis kernels, the batched solve, the stream ---
+    phase("14.-16. the rhs axis, the batched solve, the stream")
     rhs_worst, rhs_times = rhs_kernel_phase(torch, wk, dk, dev)
     rhs_launches = batched_phase(torch, dev)
     for name, n in stream_phase(torch, dev).items():
         rhs_launches[name] += n
 
     # --- 17. the n19 Schur path ---
+    phase("17. the Schur path")
     schur_phase(torch, dev, r)
 
     # --- 18. the deflated normal-operator coarsest ---
+    phase("18. the deflated coarsest")
     deflation_phase(torch, dev, r, direct_big)
+
+    # --- 19. the n22 adaptive setup on phase 4's problem ---
+    phase("19. the adaptive setup")
+    adaptive_launches = adaptive_phase(torch, dev, problem)
+    del problem
 
     # Each Wilson kernel at its path's shape: K1 the 512^2 solve, K2 the
     # 2048^2 solve, K3 the 2048^2 chain.
@@ -1492,6 +1664,8 @@ def main():
             "plain_ms": plain_ms, "bound_ms": k_bound, "bound_by": k_by,
             "library_ms": None, "bound_apply_ms": apply_ms,
             "device_ms": dev_ms})
+        if name in adaptive_launches:
+            kernels[-1]["adaptive_launches"] = adaptive_launches[name]
     k_ms, k_plain, k_bound, k_by, k_wrapper, k_dev = halo_times
     kernels.append({
         "name": "wilson_r1_halo", "route": "cuda",
@@ -1515,6 +1689,8 @@ def main():
             "ms": k_ms, "plain_ms": k_plain, "bound_ms": k_bound,
             "bound_by": k_by, "library_ms": None, "bound_apply_ms": k_apply,
             "device_ms": k_dev})
+        if name in adaptive_launches:
+            kernels[-1]["adaptive_launches"] = adaptive_launches[name]
     # The rhs entries of K1 and K6 at the batched solve's shapes (512^2 and
     # 32^2 nc8, nrhs 8); launches over phases 15 and 16.
     for name, kid, source, line in (
@@ -1537,7 +1713,6 @@ def main():
 
 
 if __name__ == "__main__":
-    t0 = time.perf_counter()
     main()
-    print(f"# chip_smoke wall {time.perf_counter() - t0:.1f} s",
+    print(f"# chip_smoke wall {time.perf_counter() - T_START:.1f} s",
           file=sys.stderr)

@@ -42,6 +42,24 @@ the dense inverse. ``--deflate`` is refused with ``--outer schur``, ``--shards``
 and ``--distributed``. The report adds the coarsest level's Krylov
 iterations per visit.
 
+``--setup adaptive`` builds the hierarchy by the n22 adaptive setup
+instead (the reference's tests/n22_wilson_kcycle_adaptive, qmg_tpu's
+``make_adaptive_setup_planes``): Richardson-smoothed test vectors on every
+level, ``--n-setup N`` passes (default 1) that smooth them with the
+current K-cycle and rebuild the levels below, the solve-phase parameters
+restored, then the dense coarsest inverse unless ``--no-direct``. The
+gauge field, mass and right-hand side are the n13 problem's (the stream
+skips the n13 setup's draws), and the setup's gaussians come from the
+same stream after the right-hand side. The timed setup covers all of it;
+the report adds its stages. It takes the original formulation on one
+device (no ``--outer schur``, ``--deflate``, ``--shards`` or
+``--distributed``).
+
+Every report ends with the reference's per-level operator report
+(``[QMG-OPS-STATS]``: NULLVEC, the setup's work, and KRYLOV, PRESMOOTH
+and POSTSMOOTH over the run's solves) and ``[QMG-ITER-STATS]``
+(``query_average_iterations``).
+
 Level 0 can be cut into y-slabs (``parallel.Mesh``; fine kernel
 ``wilson-r1``, the slab kernel, or ``none``):
 
@@ -67,7 +85,10 @@ import torch
 
 from .lattice import Lattice2D
 from .operators.wilson import Wilson2D
-from .setup import KCycleConfig, build_kcycle_hierarchy, SCHUR_CONFIG
+from .setup import (KCycleConfig, build_kcycle_hierarchy, SCHUR_CONFIG,
+                    AdaptiveConfig)
+from .setup_planes import (gauss_seed_planes, adaptive_seed_planes,
+                           make_adaptive_setup_planes)
 from .solve import (make_solver, FINE_KERNELS, state_to_numpy,
                     state_from_numpy, shard_state)
 from .stencil import apply_M, StencilType
@@ -115,6 +136,11 @@ OUTERS = {"original": StencilType.ORIGINAL,
 DEFLATE_LATER = ("the deflated coarsest takes the original formulation on "
                  "one device: with --outer schur it waits for ROADMAP Queue "
                  "1 item 9, on a mesh for item 14")
+SETUPS = ("kcycle", "adaptive")
+ADAPTIVE_LATER = ("the adaptive setup takes the original formulation on one "
+                  "device, with no deflation: a sharded setup waits for "
+                  "ROADMAP Queue 1 item 14")
+OPS_NAMES = ("NULLVEC", "KRYLOV", "PRESMOOTH", "POSTSMOOTH")
 
 
 def kcycle_config(size: int, outer: str = "original", deflate: int = 0,
@@ -192,26 +218,44 @@ def profile_solve(solve, b, solve_ms: float, top: int = 12):
 def build_problem(size: int = 512, device="cuda",
                   wilson_coeff: float = 1.0, mesh: Mesh | None = None,
                   outer: str = "original", deflate: int = 0,
-                  direct: bool = True) -> dict:
+                  direct: bool = True, setup: str = "kcycle",
+                  n_setup: int = 1) -> dict:
     """The gauge field, the fine operator (Wilson coefficient
     ``wilson_coeff``), the hierarchy of the ``outer`` formulation (setup
     timed) and the right-hand side (drawn after the setup, as bench.py
-    does). ``mesh`` is the mesh the solvers will cut level 0 over; a
-    distributed one makes this rank's cut of the problem
-    (``_cut_for_rank``). ``deflate`` and ``direct`` as in
-    ``kcycle_config``; a deflated setup ends with the deflation stage."""
+    does); ``rng`` is the stream after it. ``mesh`` is the mesh the
+    solvers will cut level 0 over; a distributed one makes this rank's cut
+    of the problem (``_cut_for_rank``). ``deflate`` and ``direct`` as in
+    ``kcycle_config``; a deflated setup ends with the deflation stage.
+    ``setup="adaptive"`` builds the hierarchy of the same problem by the
+    n22 setup with ``n_setup`` passes (``adaptive_problem``)."""
     if outer not in OUTERS:
         raise ValueError(f"unknown outer formulation {outer!r}")
+    if setup not in SETUPS:
+        raise ValueError(f"unknown setup {setup!r}")
     if mesh is not None and outer != "original":
         raise ValueError("a mesh takes the original formulation only")
     if deflate and (mesh is not None or outer != "original"):
         raise ValueError(DEFLATE_LATER)
+    if setup == "adaptive" and (mesh is not None or outer != "original"
+                                or deflate):
+        raise ValueError(ADAPTIVE_LATER)
     if mesh is not None and mesh.distributed:
         return _cut_for_rank(size, device, wilson_coeff, mesh, direct)
     lat = Lattice2D(size, size, 2)
     rng = QMGRandom(SEED)
     gauge = u1.gauss_gauge_u1(lat, rng, BETA)
     cfg, restart = kcycle_config(size, outer, deflate, direct)
+    if setup == "adaptive":
+        # The n13 problem's right-hand side: skip the n13 setup's draws.
+        gauss_seed_planes(lat, cfg, rng)
+        b = torch.as_tensor(rng.gaussian_cv(lat)).to(device=device,
+                                                      dtype=torch.complex64)
+        return adaptive_problem(
+            {"size": size, "device": device, "gauge": gauge, "b": b,
+             "rng": rng, "restart": restart, "mesh": None,
+             "outer": "original", "wilson_coeff": wilson_coeff},
+            n_setup, direct)
 
     _sync(device)
     t0 = time.perf_counter()
@@ -226,7 +270,40 @@ def build_problem(size: int = 512, device="cuda",
                                                   dtype=torch.complex64)
     return {"size": size, "device": device, "op": op, "mg": mg, "b": b,
             "restart": restart, "setup_s": setup_s, "mesh": mesh,
-            "outer": outer}
+            "outer": outer, "gauge": gauge, "rng": rng,
+            "wilson_coeff": wilson_coeff, "setup": "kcycle",
+            "stages": None}
+
+
+def adaptive_problem(problem: dict, n_setup: int = 1, direct: bool = True,
+                     seeds=None) -> dict:
+    """``problem`` (a ``build_problem`` dict: its gauge field, right-hand
+    side and restarts) with the hierarchy of the n22 adaptive setup in
+    place of its own: ``make_adaptive_setup_planes`` with ``n_setup``
+    passes and, with ``direct``, the dense coarsest inverse, from
+    ``seeds`` (``adaptive_seed_planes``' pair; by default drawn from
+    ``problem["rng"]``). The depth, coarse dof and solve-phase restarts are
+    ``kcycle_config``'s. The setup is timed as a whole (``setup_s``) and
+    by stage (``stages``); ``seeds`` are kept."""
+    size, device = problem["size"], problem["device"]
+    lat = Lattice2D(size, size, 2)
+    cfg, _ = kcycle_config(size, direct=direct)
+    acfg = AdaptiveConfig(n_refine=cfg.n_refine, coarse_dof=cfg.coarse_dof,
+                          n_setup=n_setup,
+                          inner_restart_freq=cfg.inner_restart_freq,
+                          coarsest_restart_freq=cfg.coarsest_restart_freq)
+    if seeds is None:
+        seeds = adaptive_seed_planes(lat, acfg, problem["rng"])
+    setup_fn = make_adaptive_setup_planes(
+        lat, acfg, MASS, problem["wilson_coeff"], dtype=torch.complex64,
+        device=device, coarsest_direct=direct)
+    _sync(device)
+    t0 = time.perf_counter()
+    mg = setup_fn(problem["gauge"], *seeds)
+    _sync(device)
+    return dict(problem, op=mg.get_stencil(0), mg=mg,
+                setup_s=time.perf_counter() - t0, setup="adaptive",
+                n_setup=n_setup, stages=setup_fn.stages, seeds=seeds)
 
 
 def _cut_for_rank(size: int, device, wilson_coeff: float, mesh: Mesh,
@@ -252,7 +329,8 @@ def _cut_for_rank(size: int, device, wilson_coeff: float, mesh: Mesh,
     b_loc = torch.as_tensor(b_loc).to(device=device, dtype=torch.complex64)
     return {"size": size, "device": device, "op": mg.get_stencil(0),
             "mg": mg, "b": b_loc.contiguous(), "restart": restart,
-            "setup_s": setup_s, "mesh": mesh, "outer": "original"}
+            "setup_s": setup_s, "mesh": mesh, "outer": "original",
+            "setup": "kcycle", "stages": None}
 
 
 def run_solver(problem: dict, fine_kernel: str | None = "wilson-r1",
@@ -329,6 +407,12 @@ def run_solver(problem: dict, fine_kernel: str | None = "wilson-r1",
         "launches": launches,
         "device_busy_ms": busy_ms,      # of the profiled solve, or None
         "device_kernels": n_kernels,
+        "setup": problem["setup"],
+        "setup_stages": problem["stages"],
+        # The hierarchy's trackers: the setup's work, then every solve so
+        # far (this run's warm-up, timed and profiled ones included).
+        "ops": mg.tracker["counts"].tolist(),
+        "avg_iters": mg.query_average_iterations(),
     }
 
 
@@ -338,10 +422,11 @@ def run_kcycle(size: int = 512, device="cuda",
                profile: bool = False, repeats: int = 1,
                wilson_coeff: float = 1.0, mesh: Mesh | None = None,
                outer: str = "original", deflate: int = 0,
-               direct: bool = True) -> dict:
+               direct: bool = True, setup: str = "kcycle",
+               n_setup: int = 1) -> dict:
     """Setup + one solver (``build_problem`` then ``run_solver``)."""
     return run_solver(build_problem(size, device, wilson_coeff, mesh, outer,
-                                    deflate, direct),
+                                    deflate, direct, setup, n_setup),
                       fine_kernel, coarse_apply, coeff_dtype, profile=profile,
                       repeats=repeats)
 
@@ -378,7 +463,10 @@ def print_report(r: dict):
              else "")
           + f", true (c128, full x, ORIGINAL operator) "
           f"{r['rel_res_true']:.3e}")
-    print(f"setup s: {r['setup_s']:.3f}")
+    print(f"setup s: {r['setup_s']:.3f} ({r['setup']} setup)")
+    if r["setup_stages"]:
+        print("setup stages s: " + ", ".join(
+            f"{label} {sec:.3f}" for label, sec in r["setup_stages"]))
     print(f"solve ms: {r['solve_ms']:.3f}, ms/iter: {r['ms_per_iter']:.3f}"
           + (f" (median of {len(r['solve_ms_all'])}: "
              + ", ".join(f"{t:.3f}" for t in r["solve_ms_all"]) + ")"
@@ -390,6 +478,11 @@ def print_report(r: dict):
              if r["coarsest_iters_per_visit"] is not None else ""))
     print("kernel launches per timed solve: " + ", ".join(
         f"{k} {n}" for k, n in r["launches"].items()))
+    for lvl, counts in enumerate(r["ops"]):
+        print(f"[QMG-OPS-STATS]: Level {lvl} " + " ".join(
+            f"{name} {n}" for name, n in zip(OPS_NAMES, counts)))
+    print("[QMG-ITER-STATS]: avg iterations per level "
+          + " ".join(f"{v:.2f}" for v in r["avg_iters"]))
 
 
 def main(argv=None):
@@ -421,6 +514,11 @@ def main(argv=None):
                         "eigenpairs (the setup's deflation stage)")
     p.add_argument("--no-direct", action="store_true",
                    help="iterative coarsest instead of the dense inverse")
+    p.add_argument("--setup", default="kcycle", choices=list(SETUPS),
+                   help="hierarchy setup: kcycle (n13 null vectors) or "
+                        "adaptive (n22)")
+    p.add_argument("--n-setup", type=int, default=1, metavar="N",
+                   help="adaptive passes of --setup adaptive")
     p.add_argument("--repeats", type=int, default=1,
                    help="timed solves; the median is reported")
     p.add_argument("--profile", action="store_true",
@@ -441,6 +539,12 @@ def main(argv=None):
         raise SystemExit(f"--deflate: {DEFLATE_LATER}")
     if args.deflate < 0:
         raise SystemExit("--deflate takes a number of eigenpairs >= 0")
+    if args.setup == "adaptive" and (
+            args.outer == "schur" or args.deflate or args.shards is not None
+            or args.distributed):
+        raise SystemExit(f"--setup adaptive: {ADAPTIVE_LATER}")
+    if args.n_setup < 0:
+        raise SystemExit("--n-setup takes a number of passes >= 0")
     if args.fine_kernel is None:
         args.fine_kernel = "none" if args.outer == "schur" else "wilson-r1"
     if args.coarse_apply is None:
@@ -473,7 +577,8 @@ def main(argv=None):
                        profile=args.profile, repeats=args.repeats,
                        wilson_coeff=args.wilson_coeff, mesh=mesh,
                        outer=args.outer, deflate=args.deflate,
-                       direct=not args.no_direct)
+                       direct=not args.no_direct, setup=args.setup,
+                       n_setup=args.n_setup)
     finally:
         if args.distributed:
             import torch.distributed as dist

@@ -24,20 +24,38 @@ rng)`` would draw level by level from the same stream, so both builds give
 the same hierarchy. The TPU-only options (``per_level_jit``,
 ``channels_first``, ``matmul_precision``) have no counterpart and are
 refused; the sharded setup (``mesh``) is a later slice and is refused too.
+
+The n22 adaptive setup has the same form:
+
+  * ``adaptive_seed_planes(lat, acfg, rng)`` draws (init_seeds,
+    pass_seeds) in the order the eager flow consumes them: the initial
+    levels fine to coarse, then for each pass and each level i the
+    rebuilds of levels i + 1 ... n_refine - 1;
+  * ``make_adaptive_setup_planes(lat, acfg, mass, w, ...)`` returns
+    ``setup_fn(gauge, init_seeds, pass_seeds)``, which runs
+    ``setup.build_adaptive_hierarchy``, ``adaptive_pass`` x n_setup and
+    ``finalize_adaptive`` on the device (then, with ``coarsest_direct``,
+    ``prepare_direct_coarsest``, qmg_tpu's ``cdinv`` stage) and returns the
+    hierarchy. Every stage is timed (``setup_fn.stages``).
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
 
 from .lattice import Lattice2D
 from .operators.wilson import Wilson2D
-from .setup import KCycleConfig, build_kcycle_hierarchy
+from .setup import (KCycleConfig, build_kcycle_hierarchy, AdaptiveConfig,
+                    build_adaptive_hierarchy, adaptive_pass,
+                    finalize_adaptive, check_pass_seeds)
 from .stencil import StencilType
 from .stateful import _NORMAL_TYPES
 
-__all__ = ["gauss_seed_planes", "make_kcycle_setup_planes"]
+__all__ = ["gauss_seed_planes", "make_kcycle_setup_planes",
+           "adaptive_seed_planes", "make_adaptive_setup_planes"]
 
 TPU_ONLY = ("per_level_jit", "channels_first", "matmul_precision")
 # The largest coarsest level whose dense inverse a setup builds, qmg_tpu's
@@ -45,6 +63,32 @@ TPU_ONLY = ("per_level_jit", "channels_first", "matmul_precision")
 # the dimension grows 16x for each level the hierarchy stops short.
 MAX_DIRECT_DIM = 4096
 LATER = {"mesh": "ROADMAP Queue 1 item 14 (the sharded setup)"}
+
+
+def _refuse(options: dict, fname: str):
+    """qmg_tpu's options that the eager setup has no use for."""
+    for name in options:
+        if name in TPU_ONLY:
+            raise ValueError(f"{name} is a TPU workaround of qmg_tpu's "
+                             "traced setup; the eager setup on the device "
+                             "takes no such option")
+        if name in LATER:
+            raise ValueError(f"{name} is not ported yet: {LATER[name]}")
+        raise TypeError(f"{fname}() got an unexpected keyword argument "
+                        f"{name!r}")
+
+
+def _check_direct(lat0: Lattice2D, cfg, direct: bool) -> int:
+    """The coarsest level's dimension, refused for a dense inverse above
+    ``MAX_DIRECT_DIM``."""
+    n_coarsest = int(np.prod(cfg.coarse_lattices(lat0)[-1].cv_shape()))
+    if direct and n_coarsest > MAX_DIRECT_DIM:
+        raise ValueError(
+            f"coarsest dimension {n_coarsest} too large for the dense "
+            f"direct inverse (at most {MAX_DIRECT_DIM}, qmg_tpu's limit) - "
+            "use a deeper hierarchy (larger n_refine) or "
+            "coarsest_direct=False")
+    return n_coarsest
 
 
 def gauss_seed_planes(lat0: Lattice2D, cfg: KCycleConfig, rng):
@@ -71,25 +115,11 @@ def make_kcycle_setup_planes(lat0: Lattice2D, cfg: KCycleConfig, mass,
     and a coarsest level of at most ``MAX_DIRECT_DIM`` dimensions).
     qmg_tpu's options that this setup has no use for raise
     ``ValueError``."""
-    for name in options:
-        if name in TPU_ONLY:
-            raise ValueError(f"{name} is a TPU workaround of qmg_tpu's "
-                             "traced setup; the eager setup on the device "
-                             "takes no such option")
-        if name in LATER:
-            raise ValueError(f"{name} is not ported yet: {LATER[name]}")
-        raise TypeError(f"make_kcycle_setup_planes() got an unexpected "
-                        f"keyword argument {name!r}")
+    _refuse(options, "make_kcycle_setup_planes")
     if lat0.nc != 2:
         raise ValueError("make_kcycle_setup_planes builds the Wilson n13 "
                          f"flow; fine nc must be 2, got {lat0.nc}")
-    n_coarsest = int(np.prod(cfg.coarse_lattices(lat0)[-1].cv_shape()))
-    if cfg.coarsest_direct and n_coarsest > MAX_DIRECT_DIM:
-        raise ValueError(
-            f"coarsest dimension {n_coarsest} too large for the dense "
-            f"direct inverse (at most {MAX_DIRECT_DIM}, qmg_tpu's limit) - "
-            "use a deeper hierarchy (larger n_refine) or "
-            "coarsest_direct=False")
+    n_coarsest = _check_direct(lat0, cfg, cfg.coarsest_direct)
     if deflate_low or deflate_high:
         if StencilType(cfg.coarsest_stencil_app) not in _NORMAL_TYPES:
             raise ValueError(
@@ -112,3 +142,94 @@ def make_kcycle_setup_planes(lat0: Lattice2D, cfg: KCycleConfig, mass,
         return mg
 
     return setup_fn
+
+
+def adaptive_seed_planes(lat0: Lattice2D, acfg: AdaptiveConfig, rng):
+    """The adaptive setup's gaussians, drawn from ``rng`` in the order the
+    eager flow consumes them: (init_seeds, pass_seeds), ``init_seeds[i]``
+    a complex128 (coarse_dof / 2, *cv_shape) array of level i's lattice,
+    ``pass_seeds[m][i]`` the list of rebuild stacks for levels i + 1 ...
+    n_refine - 1 of pass m."""
+    lats = [lat0] + acfg.coarse_lattices(lat0)
+    n_half = acfg.coarse_dof // 2
+
+    def draw(lat):
+        return np.stack([rng.gaussian_cv(lat) for _ in range(n_half)])
+
+    init = [draw(lats[i]) for i in range(acfg.n_refine)]
+    passes = [[[draw(lats[jj]) for jj in range(i + 1, acfg.n_refine)]
+               for i in range(acfg.n_refine)]
+              for _ in range(acfg.n_setup)]
+    return init, passes
+
+
+def make_adaptive_setup_planes(lat0: Lattice2D, acfg: AdaptiveConfig, mass,
+                               w: float = 1.0, *, dtype=torch.complex64,
+                               device="cuda", coarsest_direct: bool = False,
+                               **options):
+    """Returns ``setup_fn(gauge, init_seeds, pass_seeds) ->
+    StatefulMultigridMG``: the n22 adaptive setup of a Wilson operator
+    (mass ``mass``, Wilson coefficient ``w``, ``dtype``) on ``device`` from
+    a (2, 2, Y, Xh) U(1) gauge field and the seeds of
+    ``adaptive_seed_planes``: the initial levels, ``acfg.n_setup`` adaptive
+    passes, ``finalize_adaptive`` and, with ``coarsest_direct``, the dense
+    coarsest inverse. The hierarchy solves with ``acfg``'s solve-phase
+    parameters.
+
+    Each call leaves ``setup_fn.stages``: (label, seconds) for the fine
+    operator ("operator"), each initial level ("init L{i}"), each pass's
+    level updates ("pass {m} L{i}") and rebuilds ("pass {m} rebuild
+    L{jj}"), the dense inverse ("cdinv"), the device synchronized at each
+    boundary. Non-finite test vectors stop the setup at the transfer built
+    from them (``TransferMG`` refuses non-finite null vectors; the stages
+    before it are in ``setup_fn.stages``). ``matmul_precision`` (TPU-only)
+    is refused."""
+    _refuse(options, "make_adaptive_setup_planes")
+    if lat0.nc != 2:
+        raise ValueError("make_adaptive_setup_planes builds the Wilson n22 "
+                         f"flow; fine nc must be 2, got {lat0.nc}")
+    _check_direct(lat0, acfg, coarsest_direct)
+
+    def setup_fn(gauge, init_seeds, pass_seeds):
+        if len(init_seeds) != acfg.n_refine:
+            raise ValueError(f"need {acfg.n_refine} init seed arrays, got "
+                             f"{len(init_seeds)}")
+        if len(pass_seeds) != acfg.n_setup:
+            raise ValueError(f"need {acfg.n_setup} pass seed groups, got "
+                             f"{len(pass_seeds)}")
+        for seeds in pass_seeds:
+            check_pass_seeds(seeds, acfg.n_refine)
+        stages = setup_fn.stages = []
+        last = _synced_clock(device)
+
+        def stage(label):
+            nonlocal last
+            now = _synced_clock(device)
+            stages.append((label, now - last))
+            last = now
+
+        op = Wilson2D(lat0, mass, gauge, w, dtype=dtype, device=device)
+        stage("operator")
+        mg, tvs = build_adaptive_hierarchy(
+            lat0, op, acfg, seeds=list(init_seeds),
+            on_stage=lambda kind, i: stage(f"init L{i}"))
+        for m, seeds in enumerate(pass_seeds):
+            adaptive_pass(mg, tvs, acfg, seeds=seeds,
+                          on_stage=lambda kind, i, m=m: stage(
+                              f"pass {m} L{i}" if kind == "pass"
+                              else f"pass {m} rebuild L{i}"))
+        finalize_adaptive(mg, acfg)
+        if coarsest_direct:
+            mg.prepare_direct_coarsest()
+            stage("cdinv")
+        return mg
+
+    setup_fn.stages = []
+    return setup_fn
+
+
+def _synced_clock(device) -> float:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter()
+

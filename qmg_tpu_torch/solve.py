@@ -173,22 +173,43 @@ def _takes_small(st: Stencil2D) -> bool:
             and small_fits(st.lat.nc, st.lat.y_len, st.lat.xh))
 
 
+def _hierarchy_guard(mg: StatefulMultigridMG):
+    """A check that ``mg`` has not changed since the call: a solver holds
+    the stencils, transfers and overrides of the levels it was made on."""
+    version = mg.version
+
+    def check():
+        if mg.version != version:
+            raise RuntimeError(
+                "the hierarchy changed since this solver was made "
+                "(push_level, pop_level, update_level, "
+                "prepare_direct_coarsest or deflate_coarsest): make a new "
+                "solver")
+    return check
+
+
 def make_solver(mg: StatefulMultigridMG, tol: float = 1e-8,
                 max_iter: int = 400, restart_freq: int = 32,
                 fine_kernel: str | None = "wilson-r1",
                 coarse_apply: str = "plain", coeff_dtype=None,
                 mesh: Mesh | None = None,
-                outer_type: StencilType = StencilType.ORIGINAL):
-    """Returns solve(b) -> (SolveResult, carry): outer FGCR on the fine
-    operator, preconditioned by one K-cycle per iteration. ``carry`` holds
-    this solve's per-level operator and iteration counts (outer ones
-    included); they are also added to ``mg.tracker``.
+                outer_type: StencilType = StencilType.ORIGINAL,
+                prepared: bool = False):
+    """Returns solve(b, x0=None, track=True) -> (SolveResult, carry): outer
+    FGCR on the fine operator, from ``x0`` (zero by default),
+    preconditioned by one K-cycle per iteration. ``carry`` holds this
+    solve's per-level operator and iteration counts (outer ones included);
+    with ``track`` they are also added to ``mg.tracker``. A solve refuses
+    to run once the hierarchy changed (``mg.version``).
 
     ``outer_type`` is the outer operator, level 0's ``fine_stencil_app``:
     ORIGINAL, RIGHT_JACOBI or RIGHT_SCHUR (the n19 configuration). The
     caller passes the full b and gets the full x back in ``res.x``:
     ``prepare_M`` and ``reconstruct_M`` run inside ``solve``, and
-    ``res.res_sq`` is the residual of the prepared system. The derived
+    ``res.res_sq`` is the residual of the prepared system; with
+    ``prepared=True`` b, x0 and ``res.x`` are that system's own vectors
+    instead (qmg_tpu's ``StatefulMultigridMG.solve``), and without it an
+    ``x0`` needs the ORIGINAL outer type. The derived
     sets that the solve applies are built here, once. No kernel and no
     gather apply replaces a derived apply, so with a derived outer type
     ``fine_kernel`` must be None and ``mesh`` None, and ``coarse_apply``
@@ -258,6 +279,7 @@ def make_solver(mg: StatefulMultigridMG, tol: float = 1e-8,
             "rbjacobi) apply takes an override; use 'plain'")
     pin_full_precision()
     mg.prebuild_derived_stencils(outer_type)
+    unchanged = _hierarchy_guard(mg)
     fine = mg.get_stencil(0)
     stencils = [mg.get_stencil(lvl) for lvl in range(n_levels)]
     overrides, applies = [None], ["plain"]
@@ -296,15 +318,21 @@ def make_solver(mg: StatefulMultigridMG, tol: float = 1e-8,
     else:
         matvec = make_sharded_dslash(fine.coeffs, mesh)
 
-    def solve(b):
+    transformed = outer_type != StencilType.ORIGINAL and not prepared
+
+    def solve(b, x0=None, track: bool = True):
+        unchanged()
+        if x0 is not None and transformed:
+            raise ValueError(f"x0 with outer_type {outer_type.name} needs "
+                             "prepared=True (x0 of the prepared system)")
         carry = zero_carry(n_levels)
-        rhs = fine.prepare_M(b, outer_type)
+        rhs = fine.prepare_M(b, outer_type) if transformed else b
         try:
             for st, fn in zip(stencils, overrides):
                 st.apply_override = fn
             precond = mg.make_preconditioner(0, reduce=reduce)
             res, carry = solvers.gcr_var_precond_restart(
-                matvec, rhs, precond, max_iter=max_iter, tol=tol,
+                matvec, rhs, precond, x0=x0, max_iter=max_iter, tol=tol,
                 restart_freq=restart_freq, precond_carry=carry,
                 reduce=reduce)
         finally:
@@ -312,8 +340,9 @@ def make_solver(mg: StatefulMultigridMG, tol: float = 1e-8,
                 st.apply_override = None
         carry["counts"][0, DSLASH_KRYLOV] += res.ops_count
         carry["iters"][0] += res.iters
-        mg.absorb_carry(carry)
-        if outer_type != StencilType.ORIGINAL:
+        if track:
+            mg.absorb_carry(carry)
+        if transformed:
             res = res._replace(x=fine.reconstruct_M(res.x, b, outer_type))
         return res, carry
 
@@ -362,6 +391,7 @@ def make_batched_solver(mg: StatefulMultigridMG, tol: float = 1e-8,
         raise ValueError("batched solves are single-device: mesh= is not "
                          "ported for them (ROADMAP Queue 1 items 10 and 14)")
     pin_full_precision()
+    unchanged = _hierarchy_guard(mg)
     fine = mg.get_stencil(0)
     if fine_kernel is not None:
         _check_wilson(fine, fine_kernel)
@@ -385,6 +415,7 @@ def make_batched_solver(mg: StatefulMultigridMG, tol: float = 1e-8,
         return apply_M(fine.coeffs, v)
 
     def solve(b):
+        unchanged()
         if b.ndim != 5 or tuple(b.shape[1:]) != tuple(fine.lat.cv_shape()):
             raise ValueError(f"right-hand sides must be (nrhs, "
                              f"{', '.join(map(str, fine.lat.cv_shape()))}), "

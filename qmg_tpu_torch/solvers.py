@@ -126,6 +126,15 @@ def cg_restart(matvec, b, x0=None, max_iter: int = 1000, tol=1e-8,
 # restarted: one implementation.
 # ---------------------------------------------------------------------------
 
+def _store_rows(restart_len: int, max_iter: int) -> int:
+    """Rows of a GCR direction store: a solve stores at most one direction
+    an iteration, and with ``max_iter <= restart_len`` it never restarts,
+    so it never needs more than ``max_iter`` (qmg_tpu allocates
+    ``restart_len``: the adaptive setup's 8-iteration level solves with a
+    restart length of 1024)."""
+    return max(min(int(restart_len), int(max_iter)), 1)
+
+
 def _check_store(R: int, b: torch.Tensor):
     """Refuse a direction store of ``R`` copies of ``b`` (two stores)
     above ``GCR_STORE_LIMIT_BYTES``."""
@@ -146,7 +155,7 @@ def _gcr_impl(matvec, b, x0, max_iter: int, tol, restart_len: int,
     vdot, norm2sq, total = reductions(reduce)
     shape = b.shape
     n = b.numel()
-    R = int(restart_len)
+    R = _store_rows(restart_len, max_iter)
     _check_store(R, b)
     x = torch.zeros_like(b) if x0 is None else x0
     bsq = norm2sq(b)
@@ -290,7 +299,7 @@ def _gcr_batched(matvec, b, max_iter: int, tol, restart_len: int,
     qmg_tpu's vmap."""
     nrhs = b.shape[0]
     n = b[0].numel()
-    R = int(restart_len)
+    R = _store_rows(restart_len, max_iter)
     _check_store(R, b)
     active = all_lanes(b) if active is None else active
     x = torch.zeros_like(b)

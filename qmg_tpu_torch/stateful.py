@@ -19,7 +19,19 @@ CG at the coarsest, flexible GCR on the intermediate levels).
 ``make_preconditioner(level)`` returns precond(rhs, carry) -> (lhs, carry).
 The carry holds the per-level operator counters as host integers:
 ``counts`` (n_levels, 4) by {NULLVEC, KRYLOV, PRESMOOTH, POSTSMOOTH} and
-Krylov iteration counts ``iters`` (n_levels,).
+Krylov iteration counts ``iters`` (n_levels,). The hierarchy's own
+``tracker`` is such a carry, summed over its solves and setup, and read
+through qmg_tpu's tracker API (``get_tracker_count``,
+``query_average_iterations``, ``shift_all_to_nullvec``, ...).
+
+``push_level``, ``pop_level`` and ``update_level`` change the hierarchy:
+the trackers follow the levels (an updated level keeps its counts), and a
+change of the coarsest level drops its dense inverse and its deflation
+pairs, which belong to the old coarsest operator. Every change, and
+``prepare_direct_coarsest`` and ``deflate_coarsest``, bumps ``version``;
+a solver made by ``solve.make_solver`` refuses to run once it moved.
+``solve`` is qmg_tpu's ``StatefulMultigridMG.solve`` over
+``solve.make_solver`` with plain applies.
 
 ``make_batched_preconditioner(level)`` is the same K-cycle (ORIGINAL
 levels only) on fields with a leading rhs axis (B, 2, Y, Xh, nc):
@@ -124,6 +136,12 @@ class StatefulMultigridMG(MultigridMG):
         self.coarsest_dinv = None
         self.coarsest_evals = None    # (k,) deflation eigenvalues
         self.coarsest_evecs = None    # (k, *cv_shape), normalized
+        self.version = 0
+
+    # --- level management ---
+    def _coarsest_changed(self):
+        self.coarsest_dinv = None
+        self.coarsest_evals = self.coarsest_evecs = None
 
     def push_level(self, new_lat, new_transfer, level_solve=None, **kw):
         super().push_level(new_lat, new_transfer, **kw)
@@ -132,7 +150,25 @@ class StatefulMultigridMG(MultigridMG):
         grown["counts"][:-1] = self.tracker["counts"]
         grown["iters"][:-1] = self.tracker["iters"]
         self.tracker = grown
-        self.coarsest_dinv = None  # the coarsest level changed
+        self._coarsest_changed()
+        self.version += 1
+
+    def pop_level(self):
+        super().pop_level()
+        self.level_solve_list.pop()
+        self.tracker = {k: v[:-1].copy() for k, v in self.tracker.items()}
+        self._coarsest_changed()
+        self.version += 1
+
+    def update_level(self, level, new_lat, new_transfer, level_solve=None,
+                     **kw):
+        """Replace coarse level ``level`` in place; its tracker counts
+        stay."""
+        super().update_level(level, new_lat, new_transfer, **kw)
+        self.level_solve_list[level - 1] = level_solve
+        if level == self.get_num_levels() - 1:
+            self._coarsest_changed()
+        self.version += 1
 
     def get_level_solve(self, i: int) -> LevelSolveMG:
         ls = self.level_solve_list[i]
@@ -147,6 +183,41 @@ class StatefulMultigridMG(MultigridMG):
     def add_tracker_count(self, dtype: int, accum: int, level: int):
         self.tracker["counts"][level, dtype] += int(accum)
 
+    def add_iterations_count(self, accum: int, level: int):
+        self.tracker["iters"][level] += int(accum)
+
+    def shift_all_to_nullvec(self, level: int):
+        """Fold the level's KRYLOV, PRESMOOTH and POSTSMOOTH counts into
+        NULLVEC (the end of a setup) and clear its iterations."""
+        counts = self.tracker["counts"][level]
+        counts[DSLASH_NULLVEC] += counts[DSLASH_KRYLOV:].sum()
+        counts[DSLASH_KRYLOV:] = 0
+        self.tracker["iters"][level] = 0
+
+    def get_tracker_count(self, dtype: int, level: int) -> int:
+        return int(self.tracker["counts"][level, dtype])
+
+    def get_total_count(self, level: int) -> int:
+        return int(self.tracker["counts"][level].sum())
+
+    def get_iterations_count(self, level: int) -> int:
+        return int(self.tracker["iters"][level])
+
+    def query_average_iterations(self):
+        """Level 0's Krylov iterations, then for each coarser level its
+        iterations per iteration of the level above (0 where that has
+        none)."""
+        iters = self.tracker["iters"]
+        return [float(iters[0])] + [
+            float(iters[i]) / float(iters[i - 1]) if iters[i - 1] else 0.0
+            for i in range(1, self.get_num_levels())]
+
+    def reset_tracker(self, level: int = -1):
+        """Zero the counts of ``level``, or of every level (-1)."""
+        rows = slice(None) if level == -1 else level
+        self.tracker["counts"][rows] = 0
+        self.tracker["iters"][rows] = 0
+
     def absorb_carry(self, carry):
         """Add a carry (or a batched one, summed over its lanes) to the
         trackers."""
@@ -155,6 +226,25 @@ class StatefulMultigridMG(MultigridMG):
             counts, iters = counts.sum(axis=0), iters.sum(axis=0)
         self.tracker["counts"] += counts
         self.tracker["iters"] += iters
+
+    def solve(self, b, tol: float = 1e-10, max_iter: int = 1000,
+              restart_freq: int = 32,
+              outer_type: StencilType = StencilType.ORIGINAL, x0=None,
+              track: bool = True):
+        """qmg_tpu's ``StatefulMultigridMG.solve``: outer flexible GCR on
+        level 0's ``outer_type`` operator around the K-cycle, plain applies
+        on every level, from ``x0``; ``b``, ``x0`` and the result's ``x``
+        are the ``outer_type`` system's own vectors (the even half for
+        RIGHT_SCHUR). With ``track`` the counts go to the trackers. A new
+        ``solve.make_solver`` serves every call, so no solver outlives a
+        change of the hierarchy or of its solve configs. Returns the
+        ``solvers.SolveResult``."""
+        from .solve import make_solver
+        res, _ = make_solver(self, tol=tol, max_iter=max_iter,
+                             restart_freq=restart_freq, fine_kernel=None,
+                             outer_type=outer_type, prepared=True)(
+            b, x0=x0, track=track)
+        return res
 
     # --- coarsest deflation ---
     def deflate_coarsest(self, num_low: int, num_high: int):
@@ -183,6 +273,7 @@ class StatefulMultigridMG(MultigridMG):
             device=ref.device, dtype=ref.dtype)
         self.coarsest_evecs = torch.as_tensor(vecs / nrms).to(
             device=ref.device, dtype=ref.dtype)
+        self.version += 1
 
     # --- direct coarsest solve ---
     def prepare_direct_coarsest(self):
@@ -214,6 +305,7 @@ class StatefulMultigridMG(MultigridMG):
         self.coarsest_dinv = torch.as_tensor(dinv).to(device=ref.device,
                                                       dtype=ref.dtype)
         self.coarsest_solve.direct = True
+        self.version += 1
 
     # ------------------------------------------------------------------
     # The K-cycle preconditioner.
