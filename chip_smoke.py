@@ -158,6 +158,24 @@ fallback). Phases, any failure exits non-zero:
      iteration, the device kernels of one profiled solve and the
      per-level operator report.
 
+ 20. the other operators: (a) K4 at nc = 1 on the staggered and gauged
+     Laplace operators' channels (gauss gauge beta 6, seed 1337) at 512^2
+     and 2048^2, and at nc 8 and 16 on the domain-wall operator's (Ls 4
+     and 8) at 128^2, against its twin (max relative error <= 1e-5) and
+     timed three ways beside its bound (56 B/site at nc = 1); (b) the
+     2048^2 staggered solve (m = 0.1, complex64, BiCGstab(6) to 1e-6)
+     through K4 and through the plain apply: complex128 true residuals
+     <= 1e-4, iterations within two l-cycles (12) of each other and of
+     qmg_tpu's count (``JAX_ITERS_2048_STAGGERED``), ms and K4 launches;
+     and the eo-Schur
+     CG solve beside it; (c) ``goldstone.run_goldstone`` at 32^2,
+     staggered, m = 0.1, 60 configurations x 100 updates (PARITY.md's
+     setting) through K4: every solve converged, a positive correlator,
+     m_pi within 3 of its own jackknife sigmas of the reference's
+     0.355891, and each configuration's correlator within 1e-4 of the
+     plain apply's on the same configurations; (d) the same entry at
+     512^2, 3 configurations: seconds per configuration and K4 launches.
+
 The last two lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}.
 """
@@ -1547,6 +1565,234 @@ def adaptive_phase(torch, dev, problem):
     return {"wilson_r1": c6["wilson_r1"], "dslash_small": c6["dslash_small"]}
 
 
+# --- phase 20: the other operators ---
+
+OTHER_K4_SIZES = (512, 2048)   # K4 at nc = 1 on staggered / Laplace
+DWF_K4_CASES = ((4, 128), (8, 128))   # (Ls, L): K4 at nc 8 and 16
+STAG_SIZE = 2048               # the staggered solve
+STAG_MASS = 0.1
+STAG_TOL = 1e-6
+# Iterations of qmg_tpu's BiCGstab(6) on that solve (gauss gauge beta 6
+# from QMGRandom(1337), a gaussian right-hand side drawn after it,
+# complex64, the jnp apply) on the CPU backend, from ``python
+# tests/test_torch_goldstone.py --size 2048`` (the port's plain apply on
+# the CPU took 114 there). BiCGstab(6) counts whole l-cycles of 6
+# iterations, and in complex64 applies that round differently part by a
+# cycle or two on this solve (on the card: 126 through K4, 114 through the
+# plain apply), so the counts are held to two cycles of each other.
+JAX_ITERS_2048_STAGGERED = 120
+STAG_ITERS_SLACK = 12
+GOLDSTONE_L = 32               # PARITY.md's physics setting
+GOLDSTONE_COUNTS = (60, 1000, 100)   # configs, thermalization, updates
+GOLDSTONE_REF = (0.355891, 0.000412)  # the reference's m_pi at m = 0.1
+GOLDSTONE_JAX = (0.388, 0.146)        # qmg_tpu's (PARITY.md)
+GOLDSTONE_SIGMAS = 3.0
+GOLDSTONE_PLAIN_RTOL = 1e-4
+GOLDSTONE_BIG = (512, 3, 200, 5)      # L, configs, thermalization, updates
+
+
+def other_k4_inputs(torch, dev, kind, size, ls=None):
+    """K4's channels and a field for one operator of phase 20(a), from a
+    gauss gauge at beta 6 from QMGRandom(1337): the staggered operator at
+    m = 0.1, the gauged Laplace at m^2 = 0.01, or the domain-wall operator
+    at Ls = ``ls`` (m = 0.1, M5 = -1)."""
+    from qmg_tpu_torch.lattice import Lattice2D
+    from qmg_tpu_torch.operators import Staggered2D, GaugedLaplace2D, Dwf2D
+    from qmg_tpu_torch.rng import QMGRandom
+    from qmg_tpu_torch import u1, dslash_kernel as dk
+    nc = 1 if ls is None else 2 * ls
+    lat = Lattice2D(size, size, nc)
+    rng = QMGRandom(1337)
+    g = u1.gauss_gauge_u1(lat, rng, 6.0)
+    kw = dict(dtype=torch.complex64, device=dev)
+    if kind == "staggered":
+        op = Staggered2D(lat, STAG_MASS, g, **kw)
+    elif kind == "laplace":
+        op = GaugedLaplace2D(lat, STAG_MASS ** 2, g, **kw)
+    else:
+        op = Dwf2D(lat, STAG_MASS, g, ls, **kw)
+    gen = torch.Generator(device=dev).manual_seed(size + nc)
+    x = torch.randn(lat.cv_shape(), dtype=torch.complex64, device=dev,
+                    generator=gen)
+    return dk.stencil_channels(op.coeffs), x
+
+
+def other_k4_phase(torch, dk, dev):
+    """Phase 20(a): K4 at nc = 1 on staggered and Laplace coefficients at
+    512^2 and 2048^2 and at nc 8 and 16 on domain-wall coefficients at
+    128^2, against its twin, timed three ways beside its bound. Returns
+    (worst abs error at nc = 1, the 512^2 staggered times: ms, plain_ms,
+    bound_ms, bound_by, bound-apply ms, device ms)."""
+    cases = [(kind, size, None) for size in OTHER_K4_SIZES
+             for kind in ("staggered", "laplace")]
+    cases += [("dwf", size, ls) for ls, size in DWF_K4_CASES]
+    worst, times = 0.0, None
+    for kind, size, ls in cases:
+        ch, x = other_k4_inputs(torch, dev, kind, size, ls)
+        nc = x.shape[-1]
+        got = dk.dslash_apply(ch, x)
+        bound_apply = dk.bind_apply(dk.dslash_apply, ch, x.shape)
+        torch.cuda.synchronize()
+        abs_err, rel = rel_err(got, dk.dslash_apply_plain(ch, x))
+        check(torch.equal(bound_apply(x), got),
+              f"K4's bound apply differs from its wrapper on {kind} "
+              f"{size}^2 nc={nc}")
+        check(rel <= KERNEL_TOL, f"K4 disagrees with its twin on {kind} "
+              f"{size}^2 nc={nc}: {rel:.3e}")
+        if nc == 1:
+            worst = max(worst, abs_err)
+        ms, apply_ms, dev_ms = three_ways(lambda: dk.dslash_apply(ch, x),
+                                          lambda: bound_apply(x), torch)
+        plain_ms = time_ms(lambda: dk.dslash_apply_plain(ch, x), torch,
+                           reps=PLAIN_REPS)
+        sites = size * size
+        bytes_moved = dk.apply_bytes(nc, sites)
+        bound_ms, bound_by = bound(bytes_moved, 40 * nc * nc * sites)
+        print(f"K4 {kind}{'' if ls is None else f' Ls={ls}'} {size}^2 "
+              f"nc={nc}: max rel err {rel:.3e}; us/apply through the wrapper "
+              f"{ms * 1e3:.2f}, bound apply {apply_ms * 1e3:.2f}, device "
+              f"alone {dev_ms * 1e3:.2f} "
+              f"({bytes_moved / (dev_ms * 1e-3) / 1e9:.1f} GB/s, "
+              f"{bound_ms / dev_ms:.0%} of the bound), plain "
+              f"{plain_ms * 1e3:.2f}, bound {bound_ms * 1e3:.2f} "
+              f"({bound_by}; {bytes_moved / 1e6:.2f} MB, "
+              f"{bytes_moved // sites} B/site)", flush=True)
+        if kind == "staggered" and size == 512:
+            times = (ms, plain_ms, bound_ms, bound_by, apply_ms, dev_ms)
+    return worst, times
+
+
+def staggered_solve_phase(torch, dk, dev):
+    """Phase 20(b): the 2048^2 staggered solve by BiCGstab(6) with K4 and
+    with the plain apply, and the eo-Schur CG solve (plain half applies);
+    true residuals in complex128 against the exact operator."""
+    from qmg_tpu_torch import goldstone, solvers
+    op, b = goldstone.staggered_problem(STAG_SIZE, STAG_MASS,
+                                        dtype=torch.complex64, device=dev)
+    op128, b128 = goldstone.staggered_problem(
+        STAG_SIZE, STAG_MASS, dtype=torch.complex128, device=dev)
+
+    def true_res(x):
+        r = b128 - op128.apply_M(x.to(torch.complex128))
+        return float(torch.linalg.vector_norm(r)
+                     / torch.linalg.vector_norm(b128))
+
+    # A warm-up solve: the first one at this size pays for its workspace.
+    solvers.bicgstab_l(goldstone.bind_matvec(op, "matrix"), b, max_iter=4000,
+                       tol=STAG_TOL, l=6)
+    iters = {}
+    for kernel in ("matrix", None):
+        matvec = goldstone.bind_matvec(op, kernel)
+        before = dk.dslash_apply.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solvers.bicgstab_l(matvec, b, max_iter=4000, tol=STAG_TOL,
+                                 l=6)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = dk.dslash_apply.launches - before
+        rr = true_res(res.x)
+        label = "K4" if kernel else "plain apply"
+        print(f"staggered {STAG_SIZE}^2 m={STAG_MASS} BiCGstab(6) tol "
+              f"{STAG_TOL} through the {label}: {int(res.iters)} iterations, "
+              f"{ms:.1f} ms, true residual {rr:.3e}, K4 launches {launches}",
+              flush=True)
+        check(bool(res.converged) and rr <= TRUE_RES_BOUND,
+              f"the {label} staggered solve: converged {bool(res.converged)}"
+              f", true residual {rr:.3e}")
+        check((launches > 0) == (kernel is not None),
+              f"the {label} staggered solve launched K4 {launches} times")
+        iters[label] = int(res.iters)
+    print(f"qmg_tpu's count on the CPU: {JAX_ITERS_2048_STAGGERED}",
+          flush=True)
+    for label, n in iters.items():
+        check(abs(n - JAX_ITERS_2048_STAGGERED) <= STAG_ITERS_SLACK
+              and abs(n - iters["K4"]) <= STAG_ITERS_SLACK,
+              f"the {label} staggered solve took {n} iterations: K4 "
+              f"{iters['K4']}, qmg_tpu {JAX_ITERS_2048_STAGGERED}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = solvers.cg(op.apply_eo_prec_M, op.prepare_b(b), max_iter=4000,
+                     tol=STAG_TOL)
+    x = op.reconstruct_x(res.x, b)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    rr = true_res(x)
+    print(f"staggered {STAG_SIZE}^2 eo-Schur CG (plain half applies): "
+          f"{int(res.iters)} iterations, {ms:.1f} ms, true residual "
+          f"{rr:.3e}", flush=True)
+    check(bool(res.converged) and rr <= TRUE_RES_BOUND,
+          f"the eo-Schur CG solve: converged {bool(res.converged)}, true "
+          f"residual {rr:.3e}")
+
+
+def goldstone_phase(torch, dk, dev):
+    """Phase 20(c) and (d): the goldstone entry, staggered, through K4 at
+    32^2 (PARITY.md's 60 configurations) and again through the plain
+    apply, and at 512^2. Returns K4's launches over the two K4 runs, the
+    counts set to 0 just before them."""
+    from qmg_tpu_torch import goldstone
+    from qmg_tpu_torch.kcycle import reset_launch_counts
+    n_configs, n_therm, n_update = GOLDSTONE_COUNTS
+    kw = dict(op="staggered", L=GOLDSTONE_L, mass=STAG_MASS,
+              n_configs=n_configs, n_therm=n_therm, n_update=n_update,
+              device=dev, dtype=torch.complex64, verbose=False)
+    logs = {"matrix": [], "none": []}
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    pions, plaqs, _ = goldstone.run_goldstone(fine_kernel="matrix",
+                                              log=logs["matrix"], **kw)
+    wall = time.perf_counter() - t0
+    launches = dk.dslash_apply.launches
+    goldstone.run_goldstone(fine_kernel="none", log=logs["none"], **kw)
+    lo, hi = GOLDSTONE_L // 4, GOLDSTONE_L // 2 - 1
+    m_pi, m_err = goldstone.plateau_mass(pions, lo, hi)
+    diff = max(float(np.max(np.abs(a["pion"] - p["pion"])
+                            / np.abs(p["pion"])))
+               for a, p in zip(logs["matrix"], logs["none"]))
+    iters = [e["iters"][0] for e in logs["matrix"]]
+    print(f"--- goldstone staggered {GOLDSTONE_L}^2 m={STAG_MASS}, "
+          f"{n_configs} configs x {n_update} updates after {n_therm}: "
+          f"{wall:.1f} s through K4 ({launches} K4 launches, "
+          f"{launches / n_configs:.0f} a configuration; BiCGstab iterations "
+          f"{min(iters)}-{max(iters)}, mean {np.mean(iters):.1f}); plaquette "
+          f"{np.mean(plaqs):.5f}; m_pi = {m_pi:.5f} +/- {m_err:.5f} "
+          f"(plateau [{lo},{hi})), reference {GOLDSTONE_REF[0]}"
+          f"({GOLDSTONE_REF[1] * 1e6:.0f}), qmg_tpu {GOLDSTONE_JAX[0]}"
+          f"({GOLDSTONE_JAX[1] * 1e3:.0f}); max rel difference of a "
+          f"configuration's correlator from the plain apply's {diff:.3e}",
+          flush=True)
+    check(len(pions) == n_configs and all(
+        all(e["converged"]) for log in logs.values() for e in log),
+          f"{n_configs - len(pions)} goldstone configuration(s) did not "
+          "converge")
+    check(bool(np.all(pions > 0)), "the goldstone correlator is not positive")
+    check(np.isfinite(m_pi) and abs(m_pi - GOLDSTONE_REF[0])
+          <= GOLDSTONE_SIGMAS * m_err,
+          f"m_pi {m_pi:.5f} +/- {m_err:.5f} is not within "
+          f"{GOLDSTONE_SIGMAS} sigma of {GOLDSTONE_REF[0]}")
+    check(diff <= GOLDSTONE_PLAIN_RTOL,
+          f"K4's correlators differ from the plain apply's by {diff:.3e}")
+    size, n_big, therm_big, update_big = GOLDSTONE_BIG
+    log = []
+    before = dk.dslash_apply.launches
+    goldstone.run_goldstone(op="staggered", L=size, mass=STAG_MASS,
+                            n_configs=n_big, n_therm=therm_big,
+                            n_update=update_big, device=dev,
+                            dtype=torch.complex64, verbose=False,
+                            fine_kernel="matrix", log=log)
+    launches += dk.dslash_apply.launches - before
+    for e in log:
+        print(f"goldstone staggered {size}^2 config {e['config']}: heatbath "
+              f"{e['heatbath_s']:.3f} s, solve {e['solve_s']:.3f} s, "
+              f"{e['iters'][0]} iterations, true residual "
+              f"{e['true_res'][0]:.2e}, K4 launches {e['launches']}",
+              flush=True)
+    check(all(e["converged"] == [True] and e["launches"] > 0 for e in log),
+          f"the {size}^2 goldstone run: {[e['converged'] for e in log]}")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1647,6 +1893,12 @@ def main():
     adaptive_launches = adaptive_phase(torch, dev, problem)
     del problem
 
+    # --- 20. the other operators: K4 at nc = 1, the goldstone entry ---
+    phase("20. the other operators")
+    nc1_worst, nc1_times = other_k4_phase(torch, dk, dev)
+    staggered_solve_phase(torch, dk, dev)
+    nc1_launches = goldstone_phase(torch, dk, dev)
+
     # Each Wilson kernel at its path's shape: K1 the 512^2 solve, K2 the
     # 2048^2 solve, K3 the 2048^2 chain.
     kernels = []
@@ -1706,6 +1958,16 @@ def main():
             "ms": k_ms, "plain_ms": k_plain, "bound_ms": k_bound,
             "bound_by": k_by, "library_ms": None, "bound_apply_ms": k_apply,
             "device_ms": k_dev})
+    # K4 at nc = 1: the goldstone entry's staggered apply (phase 20), timed
+    # at 512^2.
+    k_ms, k_plain, k_bound, k_by, k_apply, k_dev = nc1_times
+    kernels.append({
+        "name": "dslash_nc1", "route": "cuda",
+        "source": "qmg_tpu_torch/csrc/dslash.cu",
+        "replaces": "qmg_tpu/pallas_dslash.py:76",
+        "launches": nc1_launches, "max_abs_err": nc1_worst, "ms": k_ms,
+        "plain_ms": k_plain, "bound_ms": k_bound, "bound_by": k_by,
+        "library_ms": None, "bound_apply_ms": k_apply, "device_ms": k_dev})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

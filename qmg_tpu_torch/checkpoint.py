@@ -6,14 +6,14 @@ One ``.npz`` holds every level's coefficients (``clover{l}``,
 ``hopping{l}``, ``shifts{l}``), the blocked null vectors ``nvb{l}`` in the
 (nvec, 2c, B, Yc, Xhc) layout, the dense coarsest inverse
 (``coarsest_dinv``), the deflation pairs (``coarsest_evals`` /
-``coarsest_evecs``), all as complex arrays, and ``__meta__``: a JSON
-record of the lattices, the chirality of each level, the doubling of each
-transfer and the level and coarsest solve configs. Versions 1 and 2 held
-the null vectors block-minor, (nvec, 2c, Yc, Xhc, B); they are converted
-on load. The asymmetric restriction vectors and saved block
-decompositions of qmg_tpu's bi-orthonormal transfers (``rnvb``,
-``chol``, ``blockL``, ``blockU``) have no counterpart here yet: a file
-that holds them is refused, and none is written.
+``coarsest_evecs``), a transfer's blocked restriction vectors
+(``rnvb{l}``, asymmetric transfers) and saved block decompositions
+(``chol{l}``, ``blockL{l}``, ``blockU{l}``) where it has them, all as
+complex arrays, and ``__meta__``: a JSON record of the lattices, the
+chirality of each level, the doubling of each transfer and the level and
+coarsest solve configs. Versions 1 and 2 held the null vectors (and
+restriction vectors) block-minor, (nvec, 2c, Yc, Xhc, B); they are
+converted on load.
 """
 
 from __future__ import annotations
@@ -33,7 +33,9 @@ from .operators.coarse import CoarseOperator2D
 __all__ = ["FORMAT_VERSION", "save_hierarchy", "load_hierarchy"]
 
 FORMAT_VERSION = 3
-UNPORTED = ("rnvb", "chol", "blockL", "blockU")
+# A transfer's optional arrays, by key prefix.
+TRANSFER_EXTRAS = (("rnvb", "_restrict_nvb"), ("chol", "block_cholesky"),
+                   ("blockL", "block_L"), ("blockU", "block_U"))
 
 
 def _np(t):
@@ -67,6 +69,9 @@ def save_hierarchy(mg: StatefulMultigridMG, path: str):
     for lvl in range(mg.get_num_levels() - 1):
         t = mg.get_transfer(lvl)
         arrays[f"nvb{lvl}"] = _np(t._nvb)
+        for key, attr in TRANSFER_EXTRAS:
+            if getattr(t, attr) is not None:
+                arrays[f"{key}{lvl}"] = _np(getattr(t, attr))
         meta.setdefault("doubling", []).append(int(t.get_doubling()))
         meta["level_solves"].append(_config(mg.get_level_solve(lvl)))
     meta["coarsest"] = _config(mg.get_coarsest_solve())
@@ -92,13 +97,6 @@ def load_hierarchy(path: str, fine_stencil: Stencil2D, *, device="cuda"
     if meta["version"] not in (1, 2, FORMAT_VERSION):
         raise ValueError(f"checkpoint version {meta['version']} not in "
                          f"(1, 2, {FORMAT_VERSION})")
-    unported = sorted(k for k in data.files
-                      if k.rstrip("0123456789") in UNPORTED)
-    if unported:
-        raise ValueError(
-            f"the checkpoint holds {unported}: the bi-orthonormal transfers "
-            "(asymmetric restriction, saved block decompositions) are not "
-            "ported (ROADMAP Queue 1 item 6)")
     device = torch.device(device)
     fine_dev = fine_stencil.coeffs.ref.device
     if fine_dev.type != device.type or (
@@ -120,12 +118,19 @@ def load_hierarchy(path: str, fine_stencil: Stencil2D, *, device="cuda"
     mg = StatefulMultigridMG(lat0, fine_stencil, cs)
     for lvl in range(1, meta["n_levels"]):
         lat = Lattice2D(*meta["lattices"][lvl])
+        extras = {attr: tensor(f"{key}{lvl - 1}")
+                  for key, attr in TRANSFER_EXTRAS
+                  if f"{key}{lvl - 1}" in data}
         nvb = tensor(f"nvb{lvl - 1}")
+        rnvb = extras.pop("_restrict_nvb", None)
         if legacy_nvb:
             nvb = torch.movedim(nvb, -1, 2).contiguous()
+            if rnvb is not None:
+                rnvb = torch.movedim(rnvb, -1, 2).contiguous()
         t = TransferMG.from_blocked(
             mg.get_lattice(lvl - 1), lat, nvb,
-            doubling=DoublingType(meta["doubling"][lvl - 1]))
+            doubling=DoublingType(meta["doubling"][lvl - 1]), rnvb=rnvb,
+            **extras)
         shifts = data[f"shifts{lvl}"]
         clover = tensor(f"clover{lvl}") if f"clover{lvl}" in data else None
         coeffs = make_coeffs(

@@ -13,10 +13,10 @@ from __future__ import annotations
 import torch
 
 __all__ = ["vdot", "norm2sq", "vdot_lanes", "norm2sq_lanes", "reductions",
-           "norm", "normalize",
+           "norm", "diffnorm2sq", "norminf", "normalize",
            "orthogonal",
            "site_matvec", "stacked_site_matvec", "site_matmul",
-           "site_conjtrans", "site_inv_qr", "identity_like",
+           "site_conjtrans", "site_inv", "site_inv_qr", "identity_like",
            "pin_full_precision"]
 
 
@@ -67,6 +67,16 @@ def norm(a):
     return torch.sqrt(norm2sq(a))
 
 
+def diffnorm2sq(a, b):
+    """||a - b||^2 as a real 0-dim tensor."""
+    return norm2sq(a - b)
+
+
+def norminf(a):
+    """max |a| over all elements."""
+    return a.abs().max()
+
+
 def normalize(a):
     return a / norm(a)
 
@@ -98,6 +108,11 @@ def site_matmul(a, b):
 def site_conjtrans(mat):
     """Per-site conjugate transpose (materialized, not a conj view)."""
     return mat.transpose(-1, -2).conj_physical()
+
+
+def site_inv(mat):
+    """Per-site inverse of square matrices (batched LU)."""
+    return torch.linalg.inv(mat)
 
 
 def site_inv_qr(mat):

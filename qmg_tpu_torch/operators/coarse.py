@@ -1,5 +1,5 @@
-"""Galerkin coarse operator built by probing (port of
-qmg_tpu/operators/coarse.py, chirality/gamma5 part).
+"""Galerkin coarse operator built by probing, with the coarse chirality
+operators (port of qmg_tpu/operators/coarse.py).
 
 The fine set probed is the fine stencil's original one, or with
 ``use_rbjacobi`` its right-block-Jacobi form A B^-1 (the n19 Schur path).
@@ -11,6 +11,15 @@ coarse hopping term (opposite-parity rows) - exact for distance-1 fine
 stencils. All coarse colours run at once as a leading batch axis.
 A coarse volume of 1 folds everything into the clover; a coarse
 dimension of 1 folds that direction's hopping into the clover.
+
+The coarse chirality follows the transfer's doubling: gamma5 (a sign on
+the lower dof half) after projection doubling, sigma1 (the dof halves
+swapped) after operator doubling. ``apply_coarse_sigma`` applies sigma1
+carried through the transfer's saved block decompositions: with the
+Cholesky factor C of a symmetric transfer, C sigma1 C^-1 on both sides;
+with the L / U factors of an asymmetric one, L^dagger sigma1 U^-1 on the
+left and U sigma1 L^-dagger on the right; and the two right-block-Jacobi
+forms B^-dagger sigma1^L and B sigma1^R.
 """
 
 from __future__ import annotations
@@ -21,6 +30,16 @@ from ..lattice import Lattice2D, DIR_XP1, DIR_YP1, DIR_XM1, DIR_YM1
 from ..stencil import (Stencil2D, StencilCoeffs, make_coeffs, apply_clover,
                        apply_hopping, DefaultChirality)
 from ..transfer import TransferMG, DoublingType
+from .. import linalg
+
+
+class CoarseSigmaType:
+    """What ``CoarseOperator2D.apply_coarse_sigma`` applies (the values of
+    qmg_tpu.operators.coarse.CoarseSigmaType, after ``SigmaType``'s)."""
+    SIGMA_1_L = 6
+    SIGMA_1_R = 7
+    SIGMA_1_L_RBJ = 8
+    SIGMA_1_R_RBJ = 9
 
 
 def build_coarse_coeffs(coarse_lat: Lattice2D, fine_coeffs: StencilCoeffs,
@@ -130,6 +149,7 @@ class CoarseOperator2D(Stencil2D):
         self.is_chiral = is_chiral
         self.use_rbjacobi = use_rbjacobi
         self.in_transfer = transfer
+        self._sigma_1_L = self._sigma_1_R = None
         doubling = transfer.get_doubling()
         if doubling == DoublingType.PROJECTION:
             self._default_chirality = DefaultChirality.GAMMA_5
@@ -141,18 +161,81 @@ class CoarseOperator2D(Stencil2D):
     def get_default_chirality(self) -> DefaultChirality:
         return self._default_chirality
 
-    def chiral_projection(self, x, is_up: bool):
-        """gamma5 chirality: keep the top (up) or bottom (down) dof half."""
-        if not self.is_chiral \
-                or self._default_chirality == DefaultChirality.NONE:
+    def gamma5(self, x):
+        """A sign flip on the lower dof half (the identity when the level
+        is not chiral)."""
+        if not self.is_chiral:
             return x
-        if self._default_chirality != DefaultChirality.GAMMA_5:
-            raise NotImplementedError("only gamma5 coarse chirality is "
-                                      "ported")
         half = self.lat.nc // 2
-        out = x.clone()
-        if is_up:
-            out[..., half:] = 0
-        else:
-            out[..., :half] = 0
-        return out
+        return torch.cat([x[..., :half], -x[..., half:]], dim=-1)
+
+    def chiral_projection(self, x, is_up: bool):
+        """gamma5 chirality: keep the upper (up) or lower (down) dof half;
+        sigma1 chirality: (x +- sigma1 x) / 2."""
+        if not self.is_chiral:
+            return x
+        if self._default_chirality == DefaultChirality.GAMMA_5:
+            half = self.lat.nc // 2
+            out = x.clone()
+            if is_up:
+                out[..., half:] = 0
+            else:
+                out[..., :half] = 0
+            return out
+        if self._default_chirality == DefaultChirality.SIGMA_1:
+            s = self.sigma1(x)
+            return 0.5 * (x + s) if is_up else 0.5 * (x - s)
+        return x
+
+    # --- sigma1 through the transfer's saved decompositions ---
+    def _build_sigma_lr(self):
+        if self._sigma_1_L is not None:
+            return
+        t = self.in_transfer
+        if not t.has_decompositions():
+            raise ValueError("the coarse sigma operators need the "
+                             "transfer's saved block decompositions "
+                             "(TransferMG(save_decomp=True))")
+        nc = self.lat.nc
+        half = nc // 2
+        ref = self.coeffs.ref
+        s1 = torch.zeros((nc, nc), dtype=ref.dtype, device=ref.device)
+        idx = torch.arange(half, device=ref.device)
+        s1[idx, idx + half] = 1.0
+        s1[idx + half, idx] = 1.0
+
+        def pad_parity(m):
+            """A point coarse lattice's factors live on one (1, 1, 1) site;
+            the field layout has two parities."""
+            if m.shape[0] == 1 and self.lat.volume == 1:
+                return torch.cat([m, m])
+            return m
+
+        if t.is_symmetric():
+            chol = pad_parity(t.block_cholesky)
+            s_l = linalg.site_matmul(chol, linalg.site_matmul(
+                s1.expand(chol.shape), linalg.site_inv_qr(chol)))
+            self._sigma_1_L = self._sigma_1_R = s_l
+            return
+        lower, upper = pad_parity(t.block_L), pad_parity(t.block_U)
+        ldag = linalg.site_conjtrans(lower)
+        s1b = s1.expand(upper.shape)
+        self._sigma_1_L = linalg.site_matmul(
+            ldag, linalg.site_matmul(s1b, linalg.site_inv_qr(upper)))
+        self._sigma_1_R = linalg.site_matmul(
+            upper, linalg.site_matmul(s1b, linalg.site_inv_qr(ldag)))
+
+    def apply_coarse_sigma(self, x, ctype: int):
+        """x under one of the ``CoarseSigmaType`` operators."""
+        self._build_sigma_lr()
+        if ctype == CoarseSigmaType.SIGMA_1_L:
+            return linalg.site_matvec(self._sigma_1_L, x)
+        if ctype == CoarseSigmaType.SIGMA_1_R:
+            return linalg.site_matvec(self._sigma_1_R, x)
+        if ctype == CoarseSigmaType.SIGMA_1_L_RBJ:
+            y = linalg.site_matvec(self._sigma_1_L, x)
+            return linalg.site_matvec(self.rbj_dagger.cinv, y)
+        if ctype == CoarseSigmaType.SIGMA_1_R_RBJ:
+            y = linalg.site_matvec(self._sigma_1_R, x)
+            return apply_clover(self.coeffs, y) + self.coeffs.shift * y
+        raise ValueError(f"invalid coarse sigma type {ctype}")

@@ -354,7 +354,7 @@ def make_batched_solver(mg: StatefulMultigridMG, tol: float = 1e-8,
                         max_iter: int = 400, restart_freq: int = 32,
                         fine_kernel: str | None = "wilson-r1",
                         coarse_apply: str = "plain", mesh: Mesh | None = None,
-                        fixed_outer_iters: int | None = None):
+                        fixed_outer_iters: int | None = None, trace=None):
     """Returns solve(B) -> (BatchedSolveResult, carry) for right-hand sides
     B (nrhs, 2, Y, Xh, nc): outer FGCR around one K-cycle per iteration,
     every lane the arithmetic of ``make_solver``'s solve of that field
@@ -375,7 +375,9 @@ def make_batched_solver(mg: StatefulMultigridMG, tol: float = 1e-8,
     it is; the outer matvec is always the exact plain apply. The other
     kernels and ``mesh`` are refused. ``fixed_outer_iters`` runs exactly
     that many outer trips on every lane with no stopping test
-    (``make_fixed_batched_solver``)."""
+    (``make_fixed_batched_solver``). ``trace`` goes to the outer solve
+    (``solvers.gcr_var_precond_restart_batched``): called at each restart
+    and at the end with every lane's iterations and residuals."""
     if fine_kernel not in BATCHED_FINE_KERNELS:
         raise ValueError(
             f"batched solves take fine_kernel in {BATCHED_FINE_KERNELS}, got "
@@ -431,7 +433,7 @@ def make_batched_solver(mg: StatefulMultigridMG, tol: float = 1e-8,
                 max_iter=(max_iter if fixed_outer_iters is None
                           else int(fixed_outer_iters)),
                 tol=tol, restart_freq=restart_freq, precond_carry=carry,
-                fixed_trips=fixed_outer_iters is not None)
+                fixed_trips=fixed_outer_iters is not None, trace=trace)
         finally:
             for st in stencils:
                 st.apply_override = None
@@ -565,7 +567,15 @@ def state_to_numpy(mg: StatefulMultigridMG, dtype=np.float32,
         state[f"shifts{lvl}"] = np.stack(
             [shifts.real, shifts.imag], axis=-1).astype(dtype)
     for lvl in range(mg.get_num_levels() - 1):
-        state[f"nvb{lvl}"] = _planes(mg.get_transfer(lvl)._nvb, dtype)
+        t = mg.get_transfer(lvl)
+        if not t.is_symmetric():
+            # The state dict (and so every hierarchy rebuilt from it, a
+            # mesh's ShardedTransferMG among them) restricts with nvb^dagger.
+            raise ValueError(
+                f"level {lvl}'s transfer is asymmetric (it restricts with "
+                "its own vectors, not P^dagger): the state dict carries only "
+                "nvb; save the hierarchy with checkpoint.save_hierarchy")
+        state[f"nvb{lvl}"] = _planes(t._nvb, dtype)
     if mg.coarsest_dinv is not None:
         state["cdinv"] = _planes(mg.coarsest_dinv, dtype)
     if mg.coarsest_evecs is not None:

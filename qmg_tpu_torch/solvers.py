@@ -290,13 +290,16 @@ def _masked(lanes, masked: bool, new, old):
 
 def _gcr_batched(matvec, b, max_iter: int, tol, restart_len: int,
                  precond=None, precond_carry=None, active: Lanes = None,
-                 fixed_trips: bool = False):
+                 fixed_trips: bool = False, trace=None):
     """``_gcr_impl`` on a leading rhs axis. ``tol`` is a float or a (B,)
     tensor (the K-cycle's per-lane inner tolerance); ``active`` the lanes
     that take part (the caller's active lanes; all by default): the
     others are frozen from the start. With ``fixed_trips`` every lane
     runs ``max_iter`` trips unmasked, as the trip-counted loop does under
-    qmg_tpu's vmap."""
+    qmg_tpu's vmap. ``trace(k, iters, rsq, true_rsq, bsq)``, when given,
+    is called at every restart and once at the end with the per-lane
+    iteration counts and squared recursive residuals; ``true_rsq`` is
+    the squared true residual at a restart, None at the end."""
     nrhs = b.shape[0]
     n = b[0].numel()
     R = _store_rows(restart_len, max_iter)
@@ -330,6 +333,8 @@ def _gcr_batched(matvec, b, max_iter: int, tol, restart_len: int,
             # started together, so they restart together.
             r = _masked(lanes, not fixed_trips, b - matvec(x), r)
             ops += lanes.host
+            if trace is not None:
+                trace(k, iters.copy(), rsq, norm2sq_lanes(r), bsq)
             ps.zero_()
             aps.zero_()
             apsq.fill_(1.0)
@@ -364,6 +369,8 @@ def _gcr_batched(matvec, b, max_iter: int, tol, restart_len: int,
         iters += lanes.host
         if not fixed_trips:
             lanes = _lanes(lanes.dev & torch.isfinite(rsq) & (rsq > target))
+    if trace is not None:
+        trace(k, iters.copy(), rsq, None, bsq)
     return BatchedSolveResult(x, iters, rsq, rsq <= target, ops), carry
 
 
@@ -379,12 +386,13 @@ def gcr_restart_batched(matvec, b, max_iter: int = 1000, tol=1e-8,
 def gcr_var_precond_restart_batched(matvec, b, precond, max_iter: int = 1000,
                                     tol=1e-8, restart_freq: int = 32,
                                     precond_carry=None, active: Lanes = None,
-                                    fixed_trips: bool = False):
+                                    fixed_trips: bool = False, trace=None):
     """Restarted flexible GCR on a leading rhs axis: the outer and inner
-    solver of the batched K-cycle. ``precond(r, carry, lanes)``."""
+    solver of the batched K-cycle. ``precond(r, carry, lanes)``; ``trace``
+    as ``_gcr_batched`` takes it."""
     return _gcr_batched(matvec, b, max_iter, tol, int(restart_freq),
                         precond=precond, precond_carry=precond_carry,
-                        active=active, fixed_trips=fixed_trips)
+                        active=active, fixed_trips=fixed_trips, trace=trace)
 
 
 # ---------------------------------------------------------------------------

@@ -28,7 +28,10 @@ original one:
 ``Stencil2D`` holds the original set, builds the derived ones lazily and
 caches them (``DERIVED_BUILDS`` counts the builds), and dispatches
 ``apply_M`` / ``prepare_M`` / ``reconstruct_M`` over the nine
-``StencilType``s. ``build_gather_apply`` is the distance-1 ORIGINAL apply
+``StencilType``s, and ``apply_sigma`` over the six ``SigmaType``s of the
+chirality interface (gamma5 and sigma1, whose defaults operators
+override, and the right-block-Jacobi forms B gamma5 and B^-dagger
+gamma5). ``build_gather_apply`` is the distance-1 ORIGINAL apply
 as an index gather plus one stacked matvec (the solver's
 ``coarse_apply="gather"``).
 """
@@ -68,6 +71,17 @@ class StencilType(enum.IntEnum):
     RBJ_DAGGER = 6
     RBJ_M_MDAGGER = 7
     RBJ_MDAGGER_M = 8
+
+
+class SigmaType(enum.IntEnum):
+    """What ``Stencil2D.apply_sigma`` applies (same values as
+    qmg_tpu.stencil.SigmaType)."""
+    NONE = 0
+    DEFAULT = 1
+    GAMMA_5 = 2
+    SIGMA_1 = 3
+    GAMMA_5_L_RBJ = 4
+    GAMMA_5_R_RBJ = 5
 
 
 class ChiralityState(enum.IntEnum):
@@ -680,6 +694,30 @@ class Stencil2D:
         return lat.cv_shape()
 
     # --- chirality interface; operators override ---
+    @staticmethod
+    def get_dof(i: int = 0) -> int:
+        return -1
+
+    @staticmethod
+    def has_chirality() -> ChiralityState:
+        return ChiralityState.UNKNOWN
+
+    def get_default_chirality(self) -> DefaultChirality:
+        raise NotImplementedError
+
+    def gamma5(self, x):
+        """Default gamma5: the identity."""
+        return x
+
+    def sigma1(self, x):
+        """Default sigma1: swap the two dof halves; the identity for odd
+        nc."""
+        nc = self.lat.nc
+        if nc % 2:
+            return x
+        half = nc // 2
+        return torch.cat([x[..., half:], x[..., :half]], dim=-1)
+
     def chiral_projection(self, x, is_up: bool):
         raise NotImplementedError
 
@@ -687,3 +725,26 @@ class Stencil2D:
         """(up, down) chiral projections."""
         return (self.chiral_projection(x, True),
                 self.chiral_projection(x, False))
+
+    def apply_sigma(self, x, stype: SigmaType = SigmaType.DEFAULT):
+        """x under one of the chirality operators: gamma5, sigma1, the
+        default chirality's, B gamma5 (GAMMA_5_R_RBJ, B = clover + shift)
+        or B^-dagger gamma5 (GAMMA_5_L_RBJ, from the rbj-dagger set)."""
+        t = SigmaType(stype)
+        if t == SigmaType.NONE:
+            return x
+        if t == SigmaType.DEFAULT:
+            dc = self.get_default_chirality()
+            if dc == DefaultChirality.GAMMA_5:
+                return self.gamma5(x)
+            if dc == DefaultChirality.SIGMA_1:
+                return self.sigma1(x)
+            return x
+        if t == SigmaType.GAMMA_5:
+            return self.gamma5(x)
+        if t == SigmaType.SIGMA_1:
+            return self.sigma1(x)
+        g = self.gamma5(x)
+        if t == SigmaType.GAMMA_5_R_RBJ:
+            return apply_clover(self.coeffs, g) + self.coeffs.shift * g
+        return linalg.site_matvec(self.rbj_dagger.cinv, g)  # GAMMA_5_L_RBJ

@@ -55,11 +55,27 @@ def _timeslices(x) -> np.ndarray:
     return norm2sq_timeslice(x.to(torch.complex128)).cpu().numpy()
 
 
+def _lane_printer(icfg: int, t_start: float):
+    """A ``make_batched_solver`` trace that prints one line per lane."""
+    def trace(k, iters, rsq, true_rsq, bsq):
+        rel = torch.sqrt(rsq / bsq).cpu().numpy()
+        true = (torch.sqrt(true_rsq / bsq).cpu().numpy()
+                if true_rsq is not None else None)
+        when = "end" if true is None else "restart"
+        for lane in range(len(iters)):
+            print(f"[QMG-LANES]: config {icfg} outer trip {k} ({when}, "
+                  f"{time.perf_counter() - t_start:.2f}s) lane {lane} "
+                  f"iters {int(iters[lane])} rel res {rel[lane]:.3e}"
+                  + (f" true {true[lane]:.3e}" if true is not None else ""),
+                  flush=True)
+    return trace
+
+
 def run_stream(L=32, beta=6.0, mass=-0.06, n_configs=10, n_therm=1000,
                n_update=100, n_refine=2, coarse_dof=8, tol=2e-6,
                seed=1337, verbose=True, batched=False, device="cuda",
                sweep="native", log=None, fine_kernel=FINE_KERNEL,
-               coarse_apply=COARSE_APPLY):
+               coarse_apply=COARSE_APPLY, trace_lanes=False):
     """Returns (pion_mean, pion_err, plaqs, iters_list, pions), as
     examples/wilson_mg_stream.run_stream does. ``sweep`` is the heatbath's
     ("native" or "numpy"; qmg_tpu takes its native sweep where its library
@@ -67,7 +83,10 @@ def run_stream(L=32, beta=6.0, mass=-0.06, n_configs=10, n_therm=1000,
     plaquette, outer iterations (per source), the correlator, and the
     heatbath, setup and solve seconds (host clock, device synchronised).
     ``fine_kernel`` and ``coarse_apply`` are the solvers' options
-    (``make_solver``'s; None and "plain" take the plain applies)."""
+    (``make_solver``'s; None and "plain" take the plain applies).
+    ``trace_lanes`` prints, for a batched solve, every lane's outer
+    iterations and relative residuals (recursive and true) at every
+    restart of the outer solve and at its end (``[QMG-LANES]``)."""
     lat = Lattice2D(L, L, 2)
     lat_g = lat.with_nc(1)
     rng = QMGRandom(seed)
@@ -108,7 +127,8 @@ def run_stream(L=32, beta=6.0, mass=-0.06, n_configs=10, n_therm=1000,
         pion = np.zeros(L)
         ok = True
         if batched:
-            res, _ = make_batched_solver(mg, **solver_kw)(srcs)
+            trace = _lane_printer(icfg, t2) if trace_lanes else None
+            res, _ = make_batched_solver(mg, trace=trace, **solver_kw)(srcs)
             its = [int(i) for i in res.iters]
             it = max(its)
             if it >= MAX_ITER:
@@ -171,6 +191,9 @@ def main(argv=None):
                         "solve")
     p.add_argument("--save", default=None,
                    help="save per-config folded correlators to this .npz")
+    p.add_argument("--trace-lanes", action="store_true",
+                   help="with --batched, print every lane's outer "
+                        "iterations and residuals at each restart")
     args = p.parse_args(argv)
     device = "cpu" if args.cpu else args.device
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
@@ -180,7 +203,7 @@ def main(argv=None):
         L=args.L, beta=args.beta, mass=args.mass,
         n_configs=args.n_configs, n_therm=args.n_therm,
         n_update=args.n_update, n_refine=args.n_refine, tol=args.tol,
-        batched=args.batched, device=device)
+        batched=args.batched, device=device, trace_lanes=args.trace_lanes)
 
     print(f"[QMG-MEAS]: mean plaquette {np.mean(plaqs):.6f} "
           f"(+/- {np.std(plaqs)/np.sqrt(max(len(plaqs),1)):.6f})")

@@ -1,5 +1,4 @@
-"""Aggregation-based transfer operators (port of qmg_tpu/transfer.py,
-symmetric R = P^dagger case).
+"""Aggregation-based transfer operators (port of qmg_tpu/transfer.py).
 
 A fine field (2, Y, Xh, nc) is reordered into blocked form
 (2c, B, Yc, Xhc), B = By*Bx*nc fine dof per coarse site, with the b axis
@@ -9,7 +8,8 @@ exchange it unchanged). Then
     restrict_f2c: coarse[s, v] = sum_b conj(NV[v, s, b]) fine[s, b]
     prolong_c2f:  fine[s, b]  = sum_v NV[v, s, b] coarse[s, v]
 
-Fields may carry leading batch axes (``(*batch, 2, Y, Xh, nc)``).
+Fields may carry leading batch axes (``(*batch, 2, Y, Xh, nc)``). An
+asymmetric pair restricts with its own vectors RV in place of NV.
 
 ``ShardedTransferMG`` is level 0's transfer on a distributed mesh
 (``parallel.Mesh``): each rank restricts its block of the fine field with
@@ -73,10 +73,17 @@ def _block_permutation(fine_lat: Lattice2D, coarse_lat: Lattice2D):
 class TransferMG:
     """Transfer between a fine and a coarse lattice from null vectors
     ``(nvec, 2, Y, Xh, nc)`` (nvec = coarse nc), block-orthonormalized
-    twice as the reference does."""
+    twice as the reference does, the first pass's decomposition kept with
+    ``save_decomp``. With ``restrict_null_vectors`` the pair is
+    asymmetric: prolongation by P and restriction by R != P^dagger, the
+    two block-bi-orthonormalized (<r_i, p_j> = delta_ij per block) and the
+    first pass's L / U factors kept with ``save_decomp``."""
 
     def __init__(self, fine_lat: Lattice2D, coarse_lat: Lattice2D,
-                 null_vectors, doubling: DoublingType = DoublingType.NONE):
+                 null_vectors, do_block_ortho: bool = True,
+                 save_decomp: bool = False,
+                 doubling: DoublingType = DoublingType.NONE,
+                 restrict_null_vectors=None):
         self.fine_lat = fine_lat
         self.coarse_lat = coarse_lat
         self.doubling = DoublingType(doubling)
@@ -84,33 +91,57 @@ class TransferMG:
             raise ValueError(f"need {coarse_lat.nc} null vectors, got "
                              f"{null_vectors.shape[0]}")
         self._init_geometry(null_vectors.device)
-        nvb = _block_orthonormalize(self._to_blocked(null_vectors))
-        self._set_nvb(_block_orthonormalize(nvb))
+        self.block_cholesky = self.block_L = self.block_U = None
+        nvb = self._to_blocked(null_vectors)
+        rnvb = None
+        if restrict_null_vectors is None:
+            if do_block_ortho:
+                nvb, chol = _block_orthonormalize(nvb)
+                if save_decomp:
+                    self.block_cholesky = chol
+                nvb, _ = _block_orthonormalize(nvb)
+        else:
+            rnvb = self._to_blocked(restrict_null_vectors)
+            if do_block_ortho:
+                nvb, rnvb, lower, upper = _block_bi_orthonormalize(nvb, rnvb)
+                if save_decomp:
+                    self.block_L, self.block_U = lower, upper
+                nvb, rnvb, _, _ = _block_bi_orthonormalize(nvb, rnvb)
+        self._set_nvb(nvb, rnvb)
 
     @classmethod
     def from_blocked(cls, fine_lat: Lattice2D, coarse_lat: Lattice2D, nvb,
                      doubling: DoublingType = DoublingType.PROJECTION,
-                     coarse_row0: int = 0) -> "TransferMG":
+                     coarse_row0: int = 0, rnvb=None, block_cholesky=None,
+                     block_L=None, block_U=None) -> "TransferMG":
         """A transfer from already block-orthonormal blocked null vectors
-        (nvec, 2c, B, Yc, Xhc), e.g. the ``nvb{l}`` entry of a state dict.
-        For a block of a larger lattice, ``coarse_row0`` is the row of the
-        whole coarse lattice at which the block's coarse rows start: the
-        coarse parity of a site follows the whole lattice's row."""
+        (nvec, 2c, B, Yc, Xhc), e.g. the ``nvb{l}`` entry of a state dict,
+        with, for an asymmetric pair, the blocked restriction vectors
+        ``rnvb``, and the saved decompositions. For a block of a larger
+        lattice, ``coarse_row0`` is the row of the whole coarse lattice at
+        which the block's coarse rows start: the coarse parity of a site
+        follows the whole lattice's row."""
         t = cls.__new__(cls)
         t.fine_lat, t.coarse_lat = fine_lat, coarse_lat
         t.doubling = DoublingType(doubling)
+        t.block_cholesky, t.block_L, t.block_U = (block_cholesky, block_L,
+                                                  block_U)
         t._init_geometry(nvb.device, coarse_row0)
-        t._set_nvb(nvb)
+        t._set_nvb(nvb, rnvb)
         return t
 
-    def _set_nvb(self, nvb):
-        if not bool(torch.isfinite(torch.view_as_real(nvb)).all()):
-            raise ValueError(
-                "block orthonormalization produced non-finite null "
-                "vectors - the per-block Gram matrix is singular (null "
-                "vectors are linearly dependent within a block)")
+    def _set_nvb(self, nvb, rnvb=None):
+        for v in (nvb, rnvb):
+            if v is not None and not bool(
+                    torch.isfinite(torch.view_as_real(v)).all()):
+                raise ValueError(
+                    "block orthonormalization produced non-finite null "
+                    "vectors - the per-block Gram matrix is singular (null "
+                    "vectors are linearly dependent within a block)")
         self._nvb = nvb
-        self._nvb_conj = torch.conj(nvb).resolve_conj()
+        self._restrict_nvb = rnvb
+        self._restrict_conj = torch.conj(
+            nvb if rnvb is None else rnvb).resolve_conj()
 
     def _init_geometry(self, device, coarse_row0: int = 0):
         fl, cl = self.fine_lat, self.coarse_lat
@@ -177,9 +208,10 @@ class TransferMG:
 
     # --- public transfer ops ---
     def restrict_f2c(self, fine):
-        """coarse = conj(NV) . fine per block."""
+        """coarse = conj(NV) . fine per block (conj(RV) for an asymmetric
+        pair)."""
         fb = self._to_blocked(fine)
-        coarse = torch.einsum("vcbyx,...cbyx->...cyxv", self._nvb_conj, fb)
+        coarse = torch.einsum("vcbyx,...cbyx->...cyxv", self._restrict_conj, fb)
         if self._coarse_is_point:
             # Blocked layout is (1, ...); the coarse field (2, 1, 1, nvec)
             # holds its single site at parity 0.
@@ -198,10 +230,25 @@ class TransferMG:
     def get_doubling(self) -> DoublingType:
         return self.doubling
 
+    def is_symmetric(self) -> bool:
+        return self._restrict_nvb is None
+
+    def has_decompositions(self) -> bool:
+        if self.is_symmetric():
+            return self.block_cholesky is not None
+        return self.block_L is not None and self.block_U is not None
+
     @property
     def null_vectors(self):
         """Block-orthonormalized null vectors, (nvec, 2, Y, Xh, nc)."""
         return self._from_blocked(self._nvb)
+
+    @property
+    def restrict_null_vectors(self):
+        """The restriction vectors of an asymmetric pair, or None."""
+        if self._restrict_nvb is None:
+            return None
+        return self._from_blocked(self._restrict_nvb)
 
 
 class ShardedTransferMG:
@@ -251,19 +298,69 @@ class ShardedTransferMG:
         return self.local.doubling
 
 
+# Block (bi-)orthonormalization over the blocked layout: each vector is a
+# (2c, B, Yc, Xhc) slice, contracted over B; the decompositions are
+# site-major (2c, Yc, Xhc, nvec, nvec), [..., row, col], the layout the
+# coarse sigma-1 build takes.
+
 def _bdot(a, b):
     """Per-block <a, b> over the b axis of a (2c, B, Yc, Xhc) slice."""
     return torch.sum(torch.conj(a) * b, dim=1)
 
 
+def _bsmul(g, v):
+    """Per-site scalar (2c, Yc, Xhc) times blocked (2c, B, Yc, Xhc)."""
+    return g[:, None] * v
+
+
+def _decomp_shape(vb):
+    return (vb.shape[1],) + tuple(vb.shape[3:]) + (vb.shape[0],) * 2
+
+
 def _block_orthonormalize(nvb):
-    """Classical Gram-Schmidt within each block (the reference's
-    restrict/prolong orthonormalization; qmg_tpu also keeps the R factor
-    for the coarse sigma-1 build, which is not ported)."""
+    """Classical Gram-Schmidt within each block. Returns (orthonormalized
+    nvb, R) with R[..., j, i] = <v_j, v_i> for j < i and R[..., i, i] the
+    block norm: the upper-triangular factor of orig = ortho R."""
     vs = [nvb[i] for i in range(nvb.shape[0])]
+    chol = torch.zeros(_decomp_shape(nvb), dtype=nvb.dtype,
+                       device=nvb.device)
     for i in range(len(vs)):
         for j in range(i):
-            vs[i] = vs[i] - _bdot(vs[j], vs[i])[:, None] * vs[j]
+            g = _bdot(vs[j], vs[i])
+            chol[..., j, i] = g
+            vs[i] = vs[i] - _bsmul(g, vs[j])
         nrm = torch.sqrt(_bdot(vs[i], vs[i]).real)
+        chol[..., i, i] = nrm.to(nvb.dtype)
         vs[i] = vs[i] / nrm[:, None]
-    return torch.stack(vs)
+    return torch.stack(vs), chol
+
+
+def _block_bi_orthonormalize(pvb, rvb):
+    """Bi-orthonormalization of prolongation / restriction pairs within
+    each block (qmg_tpu's ``_block_bi_orthonormalize``). Returns (pvb,
+    rvb, L, U): U[..., j, i] = <r_j, p_i> above the diagonal and |d|^1/2 on
+    it, L[..., i, j] = conj(<p_j, r_i>) below the diagonal and
+    |d|^1/2 e^{i arg d} on it, with d = <r_i, p_i> after the projections:
+    P_orig = P U and R_orig = R L^dagger. The diagonal normalization keeps
+    the phase of d on r."""
+    ps = [pvb[i] for i in range(pvb.shape[0])]
+    rs = [rvb[i] for i in range(rvb.shape[0])]
+    lower = torch.zeros(_decomp_shape(pvb), dtype=pvb.dtype,
+                        device=pvb.device)
+    upper = torch.zeros_like(lower)
+    for i in range(len(ps)):
+        for j in range(i):
+            u = _bdot(rs[j], ps[i])
+            upper[..., j, i] = u
+            ps[i] = ps[i] - _bsmul(u, ps[j])
+            lt = _bdot(ps[j], rs[i])
+            lower[..., i, j] = torch.conj(lt)
+            rs[i] = rs[i] - _bsmul(lt, rs[j])
+        d = _bdot(rs[i], ps[i])
+        f = torch.exp(1j * torch.angle(d)) / torch.sqrt(torch.abs(d))
+        rs[i] = _bsmul(f, rs[i])
+        lower[..., i, i] = torch.conj(1.0 / f)
+        f2 = 1.0 / torch.sqrt(torch.abs(d))
+        ps[i] = ps[i] * f2[:, None]
+        upper[..., i, i] = (1.0 / f2).to(upper.dtype)
+    return torch.stack(ps), torch.stack(rs), lower, upper

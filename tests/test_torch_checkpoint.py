@@ -4,7 +4,8 @@ round trip; complex128): the port's files load in the port and in
 qmg_tpu, qmg_tpu's load in the port, with the dense coarsest inverse and
 the deflation pairs, and every loaded hierarchy solves at its source's
 outer and per-level counts; the version-2 null-vector layout is converted
-on load; qmg_tpu's bi-orthonormal transfer arrays are refused."""
+on load; the bi-orthonormal transfers (restriction vectors and saved
+block decompositions) round-trip in both directions."""
 
 import json
 
@@ -193,10 +194,10 @@ def test_legacy_null_vector_layout(jax_file, tmp_path):
     same_solve(port_solve(tmg, b), jax_solve(jmg, b), x_tol=1e-10)
 
 
-def test_refusals(tmp_path):
-    """qmg_tpu's asymmetric transfer with saved block decompositions is
-    refused (the bi-orthonormal transfers are not ported); so are another
-    fine lattice and a fine stencil on another device."""
+def _asymmetric_hierarchy():
+    """qmg_tpu's two-level hierarchy over an asymmetric, operator-doubled
+    transfer with saved decompositions (test_checkpoint.py's), its gauge
+    and rng."""
     from qmg_tpu.transfer import TransferMG, DoublingType
     from qmg_tpu.stateful import (StatefulMultigridMG, LevelSolveMG,
                                   CoarsestSolveMG)
@@ -212,11 +213,61 @@ def test_refusals(tmp_path):
     jmg = StatefulMultigridMG(lat, op, CoarsestSolveMG(coarsest_tol=0.2))
     jmg.push_level(clat, t, LevelSolveMG(), build_stencil=True,
                    is_chiral=True)
+    return jmg, np.asarray(g), rng
+
+
+def test_asymmetric_round_trip(tmp_path):
+    """qmg_tpu's asymmetric hierarchy loads in the port with its
+    restriction vectors and decompositions (keys ``rnvb``, ``blockL``,
+    ``blockU``), gives qmg_tpu's coarse sigma operators of every type and
+    solves at qmg_tpu's counts; the port's save of it loads back in
+    qmg_tpu with the same arrays and sigma operators."""
+    from qmg_tpu.operators.coarse import CoarseSigmaType as JCST
+    jmg, g, rng = _asymmetric_hierarchy()
     path = str(tmp_path / "asym.npz")
     jcheckpoint.save_hierarchy(jmg, path)
+    assert {"rnvb0", "blockL0", "blockU0"} <= set(np.load(path).files)
     fine = TWilson2D(TLattice2D(8, 8, 2), MASS, g, dtype=torch.complex128)
-    with pytest.raises(ValueError, match="item 6"):
-        tcheckpoint.load_hierarchy(path, fine, device="cpu")
+    tmg = tcheckpoint.load_hierarchy(path, fine, device="cpu")
+    jt, tt = jmg.get_transfer(0), tmg.get_transfer(0)
+    assert not tt.is_symmetric() and tt.has_decompositions()
+    for attr in ("_nvb", "_restrict_nvb", "block_L", "block_U"):
+        np.testing.assert_array_equal(getattr(tt, attr).numpy(),
+                                      np.asarray(getattr(jt, attr)))
+    xc = np.asarray(rng.gaussian_cv(Lattice2D(2, 2, 4)))
+    want = {c: np.asarray(jmg.get_stencil(1).apply_coarse_sigma(
+        jnp.asarray(xc), c)) for c in (JCST.SIGMA_1_L, JCST.SIGMA_1_R,
+                                       JCST.SIGMA_1_L_RBJ,
+                                       JCST.SIGMA_1_R_RBJ)}
+    for c, w in want.items():
+        got = tmg.get_stencil(1).apply_coarse_sigma(torch.as_tensor(xc), c)
+        np.testing.assert_allclose(got.numpy(), w, rtol=0,
+                                   atol=1e-12 * np.abs(w).max())
+    b = np.asarray(rng.gaussian_cv(Lattice2D(8, 8, 2)))
+    same_solve(port_solve(tmg, b), jax_solve(jmg, b), x_tol=1e-10)
+
+    back = str(tmp_path / "asym_port.npz")
+    tcheckpoint.save_hierarchy(tmg, back)
+    jmg2 = jcheckpoint.load_hierarchy(
+        back, JWilson2D(Lattice2D(8, 8, 2), MASS, jnp.asarray(g)))
+    jt2 = jmg2.get_transfer(0)
+    assert jt2.block_cholesky is None and not jt2.is_symmetric()
+    for attr in ("_nvb", "_restrict_nvb", "block_L", "block_U"):
+        np.testing.assert_array_equal(np.asarray(getattr(jt2, attr)),
+                                      np.asarray(getattr(jt, attr)))
+    for c, w in want.items():
+        got = np.asarray(jmg2.get_stencil(1).apply_coarse_sigma(
+            jnp.asarray(xc), c))
+        np.testing.assert_array_equal(got, w)
+
+
+def test_refusals(tmp_path):
+    """Another fine lattice and a fine stencil on another device are
+    refused; a symmetric hierarchy without saved decompositions writes
+    none of a transfer's optional arrays."""
+    fine = TWilson2D(TLattice2D(8, 8, 2), MASS,
+                     ju1.gauss_gauge_u1(Lattice2D(8, 8, 2), JQMGRandom(11),
+                                        6.0), dtype=torch.complex128)
 
     tlat = TLattice2D(16, 16, 2)
     g16, rng16 = _gauge(16)
@@ -225,7 +276,8 @@ def test_refusals(tmp_path):
                                           nullvec_max_iter=20), rng16)
     path = str(tmp_path / "mg.npz")
     tcheckpoint.save_hierarchy(mg, path)
-    assert not any(k.rstrip("0123456789") in tcheckpoint.UNPORTED
+    extras = {key for key, _ in tcheckpoint.TRANSFER_EXTRAS}
+    assert not any(k.rstrip("0123456789") in extras
                    for k in np.load(path).files)
     with pytest.raises(ValueError, match="does not match"):
         tcheckpoint.load_hierarchy(path, fine, device="cpu")

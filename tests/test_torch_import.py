@@ -10,7 +10,11 @@ MODULES = ["qmg_tpu_torch", "qmg_tpu_torch.lattice", "qmg_tpu_torch.rng",
            "qmg_tpu_torch.u1", "qmg_tpu_torch.cshift",
            "qmg_tpu_torch.linalg", "qmg_tpu_torch.stencil",
            "qmg_tpu_torch.operators", "qmg_tpu_torch.operators.wilson",
-           "qmg_tpu_torch.operators.coarse", "qmg_tpu_torch.cuda_build",
+           "qmg_tpu_torch.operators.coarse",
+           "qmg_tpu_torch.operators.laplace",
+           "qmg_tpu_torch.operators.staggered",
+           "qmg_tpu_torch.operators.dwf", "qmg_tpu_torch.goldstone",
+           "qmg_tpu_torch.checkpoint", "qmg_tpu_torch.cuda_build",
            "qmg_tpu_torch.wilson_kernel", "qmg_tpu_torch.dslash_kernel",
            "qmg_tpu_torch.dslash", "qmg_tpu_torch.solvers",
            "qmg_tpu_torch.transfer", "qmg_tpu_torch.multigrid",

@@ -86,6 +86,39 @@ def test_stream_plain_solver_options():
     np.testing.assert_allclose(mean, pmean, rtol=1e-3)
 
 
+def test_stream_trace_lanes(capsys):
+    """--trace-lanes (the on-card probe of a batched solve that did not
+    stop): one line per lane at every outer restart and at the end, with
+    the iterations the solve reports."""
+    kw = dict(KW, n_configs=1, n_therm=10, n_update=5)
+    _, _, _, iters, _ = stream.run_stream(device="cpu", sweep=SWEEP,
+                                          batched=True, trace_lanes=True,
+                                          **kw)
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("[QMG-LANES]")]
+    ends = [ln for ln in lines if "(end," in ln]
+    assert len(ends) == 2
+    assert max(int(ln.split(" iters ")[1].split()[0]) for ln in ends) \
+        == iters[0]
+    # The solver's hook at each restart: per-lane counts, the recursive
+    # and the true squared residuals.
+    from qmg_tpu_torch import solvers
+    gen = torch.Generator().manual_seed(3)
+    a = 4 * torch.eye(16, dtype=torch.complex128) + torch.randn(
+        16, 16, dtype=torch.complex128, generator=gen)
+    b = torch.randn(2, 16, dtype=torch.complex128, generator=gen)
+    calls = []
+    res, _ = solvers.gcr_var_precond_restart_batched(
+        lambda v: v @ a.T, b, lambda r, c, lanes: (r, c), max_iter=9,
+        tol=1e-12, restart_freq=2,
+        trace=lambda *args: calls.append(args))
+    assert len(calls) == 5 and calls[-1][3] is None
+    for k, it, rsq, true_rsq, bsq in calls[:-1]:
+        assert k in (2, 4, 6, 8) and list(it) == [k, k]
+        assert torch.allclose(true_rsq, rsq, rtol=1e-6)
+    assert list(calls[-1][1]) == list(res.iters) == [9, 9]
+
+
 def test_seeded_setup_equals_eager_build():
     """setup_fn from gauss_seed_planes against build_kcycle_hierarchy with
     the same rng, complex128: level 0 exact, level 1 within 1e-12."""
