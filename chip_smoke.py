@@ -30,7 +30,8 @@ fallback). Phases, any failure exits non-zero:
   5. the generic stencil kernels (K4 matrix, K5 split, K6 small) vs their
      twins (max relative error <= 1e-5), each through its wrapper and
      through the solve's bound apply (``bind_apply``): K4 and K5 at every
-     nc they take, f32 and bf16 coefficients, at 16x8 and 64x48, at 2048^2
+     nc they take, f32 and bf16 coefficients, at 16x8, 64x48 and 10x6
+     (an odd Xh), at 2048^2
      nc2 and 512^2 nc2 (the fine levels of phases 7 and 8, f32 and bf16)
      and at 512^2 nc8; K6 at 32^2 nc8, 8^2 nc8, 64^2 nc8, 2x2, 64^2 nc2
      and 64x8 nc16, in both its layouts: the split entry against K5's
@@ -40,9 +41,14 @@ fallback). Phases, any failure exits non-zero:
      bound apply and on the device alone) and its twin at its path's
      shape, beside its bound; K6 in both layouts and K4 also at 32^2 nc8
      and 8^2 nc8, with the grid K6 launches there (at least as many
-     blocks as the card has SMs at 32^2 nc8, at least 8 at 8^2 nc8); and
+     blocks as the card has SMs at 32^2 nc8, at least 8 at 8^2 nc8);
      one coarse apply as the solve binds it, beside the same apply made
-     of the split entry between its two layout copies;
+     of the split entry between its two layout copies; and K4 and K5 at
+     every nc, f32 and bf16, on channels that stream from device memory
+     (nc 1 and 2 at 2048^2, nc 4 at 1024^2, nc 8 at 512^2, nc 16 at
+     256^2, and the domain-wall operator at Ls 8 on 128^2), each against
+     its twin, on the device alone with its share of the bound and GB/s,
+     beside ``torch.sum`` over the same channels (a read yardstick);
   7. the kernel paths at 2048^2 on one hierarchy: the rank-1 kernel
      (plain coarse levels), fine K4 with K6 on the coarse levels that it
      takes, fine K5 with the gather coarse apply, and the any-w Wilson
@@ -458,7 +464,7 @@ def stencil_phase(torch, dk, dev):
     cases = []
     for kind in ("K4", "K5"):
         for nc in dk.SUPPORTED_NC:
-            for shape in ((8, 8), (48, 32)):
+            for shape in ((8, 8), (48, 32), (6, 5)):
                 cases += [(kind, nc, shape, False), (kind, nc, shape, True)]
         for shape in ((2048, 1024), (512, 256)):
             cases += [(kind, 2, shape, False), (kind, 2, shape, True)]
@@ -558,7 +564,70 @@ def stencil_timings(torch, dk, dev):
             out[kind] = (ms, plain_ms, bound_ms, bound_by, bound_apply_ms,
                          dev_ms)
     solve_apply_timings(torch, dk, dev)
+    stream_timings(torch, dk, dev)
     return out
+
+
+# Phase 6's streaming rows: (nc, Y, Xh) of at least 100 MB of compulsory
+# bytes in complex64 (twice the card's L2), random channels; then the
+# domain-wall operator at Ls 8 on 128^2 (nc 16).
+STREAM_CASES = ((1, 2048, 1024), (2, 2048, 1024), (4, 1024, 512),
+                (8, 512, 256), (16, 256, 128))
+STREAM_DWF = (8, 128)
+
+
+def stream_timings(torch, dk, dev):
+    """K4 and K5 at every nc on channels that stream from device memory,
+    with complex64 and bf16 channels: each against its twin, its device
+    alone time (100 bound launches in one CUDA graph), share of its bound
+    and GB/s, beside a read yardstick: ``torch.sum`` over the same channel
+    tensor viewed as float32, one PyTorch call that reads the channel bytes
+    once (printed only; no path of the port calls it)."""
+    cases = [("random", nc, y_len, xh) for nc, y_len, xh in STREAM_CASES]
+    cases.append(("dwf", 2 * STREAM_DWF[0], STREAM_DWF[1],
+                  STREAM_DWF[1] // 2))
+    for src, nc, y_len, xh in cases:
+        for bf16 in (False, True):
+            if src == "dwf":
+                ch, x = other_k4_inputs(torch, dev, "dwf", y_len,
+                                        STREAM_DWF[0])
+                if bf16:
+                    ch = torch.view_as_real(ch).to(torch.bfloat16)
+            else:
+                ch, x = stencil_inputs(torch, dk, "K4", nc, y_len, xh, dev,
+                                       bf16)
+            sites = 2 * y_len * xh
+            bytes_moved = dk.apply_bytes(nc, sites,
+                                         torch.bfloat16 if bf16 else None)
+            bound_ms, bound_by = bound(bytes_moved, 40 * nc * nc * sites)
+            flat = ch.view(torch.float32)
+            sum_ms = graph_ms(lambda: flat.sum(), torch)
+            ch_bytes = ch.numel() * ch.element_size()
+            plan = dk.dslash_plan(nc, y_len, xh, ch.dtype,
+                                  dk._sm_count(dev.index))
+            for kind in ("K4", "K5"):
+                if kind == "K5":
+                    ch, x = dk.channels_to_split(ch), dk.x_to_split(x)
+                fn, plain = stencil_wrappers(dk)[kind]
+                apply = dk.bind_apply(fn, ch, x.shape)
+                got = apply(x)
+                _, rel = rel_err(got, plain(ch, x))
+                check(rel <= KERNEL_TOL, f"{kind} disagrees with its twin "
+                      f"on {src} nc={nc} Y={y_len} Xh={xh} bf16={bf16}: "
+                      f"{rel:.3e}")
+                dev_ms = graph_ms(lambda: apply(x), torch)
+                print(f"stream {kind} {src} nc={nc} {2 * xh}x{y_len} "
+                      f"{'bf16' if bf16 else 'c64'}: device alone "
+                      f"{dev_ms * 1e3:.2f} us, {bound_ms / dev_ms:.0%} of "
+                      f"the bound {bound_ms * 1e3:.2f} us ({bound_by}; "
+                      f"{bytes_moved / 1e6:.1f} MB), "
+                      f"{bytes_moved / (dev_ms * 1e-3) / 1e9:.0f} GB/s; "
+                      f"max rel err {rel:.2e}; torch.sum over the channels "
+                      f"{sum_ms * 1e3:.2f} us "
+                      f"({ch_bytes / (sum_ms * 1e-3) / 1e9:.0f} GB/s); "
+                      f"grid {tuple(plan)}", flush=True)
+            del ch, x, flat, got
+            torch.cuda.empty_cache()
 
 
 def solve_apply_timings(torch, dk, dev):

@@ -37,16 +37,52 @@
 // otherwise, the -x source column xh-1 on those rows and xh otherwise, all
 // mod Xh. Yh = 1 and Xh = 1 need no special case: the wrap is the identity.
 //
-// K4 and K5. What bounds them on an H100: bytes. Per site they read 5 nc^2
-// coefficients (8 B each, 4 B in bf16) and the site's own x, and write
-// nc outputs: (5 nc^2 + 2 nc) * 8 B = 192 B at nc = 2 and 2688 B at nc = 8
-// for 40 nc^2 flops, about 1 flop/byte - far under the card's 20 flops/byte
-// of float32 against 3.35 TB/s. The four neighbour vectors are re-reads
-// that the L1/L2 caches serve. The design keeps the coefficient stream
-// coalesced: for nc >= 4 one thread computes one output row (site, i), so
-// the nc threads of a site read consecutive rows of each nc x nc block and
-// a warp reads contiguous bytes; for nc <= 2 one thread computes a whole
-// site. Tiled loads and TMA are left for later work.
+// K4 and K5 (replace qmg_tpu/pallas_dslash.py::_dslash_kernel and
+// ::_dslash_split_kernel, whose grids stream row tiles of x with halo rows
+// and the channels through VMEM). What bounds them on an H100: bytes. Per
+// site they read 5 nc^2 coefficients (8 B each, 4 B in bf16) and the
+// site's own x, and write nc outputs: (5 nc^2 + 2 nc) * 8 B = 192 B at
+// nc = 2 and 10496 B at nc = 16 for 40 nc^2 flops, about 1 flop/byte -
+// far under the card's 20 flops/byte of float32 against 3.35 TB/s, so
+// tensor cores (wgmma) would buy nothing. The channels are 71-98% of the
+// bytes; the four neighbour vectors are re-reads that L1/L2 serve.
+//
+// The design, chosen by timing four in one run on an H100 (device alone,
+// us, old -> new; PERF.md, PR 12; qmg_tpu_torch/stencil_bench.py):
+//   * at nc >= 2, K6's lane split on a streaming grid (dslash_lanes_kernel,
+//     ceil(work / 256) blocks of 256): a lane takes 16 bytes of one row of
+//     each term's coefficients and of x, neighbouring lanes neighbouring
+//     bytes, so each load instruction of a warp reads 512 contiguous bytes
+//     of channels; the row's lanes join by shuffles. The template before
+//     it gave a thread a whole output row, nc loads of 8 bytes, each warp
+//     instruction touching 32 lines 8 nc bytes apart and coming back to
+//     them nc - 1 times: at nc = 16 the lines left L1 between visits
+//     (33-36 registers, no spills: not register pressure). K4 nc16 128^2
+//     (the domain-wall operator at Ls 8) 112.0 -> 59.1, 88% of the bound;
+//     nc16 256^2 359.4 -> 228.8; nc8 512^2 252.5 -> 239.2; nc4 1024^2
+//     255.5 -> 254.6; nc2 2048^2 291.3 -> 285.6. At nc8 128^2 in complex64
+//     (44 MB, inside the 50 MB L2) the old body stays faster (14.6 against
+//     15.2, K5 14.4 against 16.0), the one such shape; nc = 8 takes the
+//     lane split all the same, which wins at the streaming shape and in
+//     bf16 at 128^2 (5.7 against 8.3).
+//   * at nc = 1, the old body (dslash_site_kernel, a thread a site): the
+//     lane split is the same mapping there with K6's bookkeeping, and came
+//     out 0-5% slower (2048^2 88.9 both, 512^2 3.70 against 3.63).
+//   * K5 walks its sites in lattice row order (YWALK; K3's finding, PR 3):
+//     in storage order its +-y rows, a quarter of the lattice away, are
+//     read again from HBM. nc2 2048^2 317.3 -> 286.2 (307.7 in storage
+//     order), nc1 100.3 -> 89.5: K5 now runs at K4's speed.
+//   * not kept: tiles of consecutive sites of one parity whose five channel
+//     runs (and, as a fourth variant, the tile's x rows) a producer warp
+//     copies into a ring of shared-memory stages by TMA bulk copies
+//     (cp.async.bulk, one mbarrier a stage), consumers computing from
+//     shared memory (csrc/dslash_tma.cu, built by the bench alone). Both
+//     lost at every nc and coefficient type under every plan tried: nc16
+//     128^2 63.3-75.3, nc2 2048^2 290.8-308.9, nc1 512^2 5.0-6.5. A
+//     block's consumers wait on each stage together, and only 2-3 blocks
+//     fit an SM beside their stages, while the lane split keeps 48-64
+//     warps of independent 16-byte loads in flight.
+// Sums are float32; bf16 pairs are widened as they load.
 //
 // K6. The TPU kernel keeps a whole small lattice in VMEM and applies it in
 // one grid step, because such a level is bound there by the latency of a
@@ -90,6 +126,8 @@
 //     that is slower on the device alone at 32^2 and 8^2 nc8 (PERF.md
 //     has the numbers);
 // nc = 1 keeps 8-byte (4-byte in bf16) loads, nc = 2 in bf16 8-byte ones.
+
+#include <cstdint>
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -142,64 +180,6 @@ __device__ __forceinline__ void stencil_sources(int q, int row, int xh,
   src[4] = other + row_ym * xh_len + xh;
 }
 
-// acc[r] += sum_j C[i0 + r, j] v[j] for one stencil term; ``row0`` points
-// at C[i0, 0] of this site and term.
-template <int NC, int R, typename CT>
-__device__ __forceinline__ void accumulate(const CT* __restrict__ row0,
-                                           const float2* v,
-                                           float2 (&acc)[R]) {
-  float2 vv[NC];
-#pragma unroll
-  for (int j = 0; j < NC; ++j) vv[j] = v[j];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-#pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      const float2 c = widen(row0[r * NC + j]);
-      acc[r].x += c.x * vv[j].x - c.y * vv[j].y;
-      acc[r].y += c.x * vv[j].y + c.y * vv[j].x;
-    }
-  }
-}
-
-// Rows per thread: a whole site for nc <= 2, one output row otherwise.
-template <int NC>
-struct RowsPerThread {
-  static constexpr int value = NC <= 2 ? NC : 1;
-};
-
-// K4 (SPLIT = false) and K5 (SPLIT = true).
-template <int NC, typename CT, bool SPLIT>
-__global__ void __launch_bounds__(kThreads)
-dslash_kernel(const CT* __restrict__ ch, const float2* __restrict__ x,
-              float2* __restrict__ out, int y_len, int xh_len) {
-  constexpr int R = RowsPerThread<NC>::value;
-  constexpr int G = NC / R;  // threads per site
-  const int half = y_len * xh_len;
-  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
-  if (tid >= 2 * half * G) return;
-  const int site = tid / G;  // q * half + rem
-  const int i0 = (tid - site * G) * R;
-  const int q = site / half;
-  const int rem = site - q * half;
-  const int row = rem / xh_len;  // storage row
-  const int xh = rem - row * xh_len;
-  int src[5];
-  stencil_sources<SPLIT>(q, row, xh, y_len, xh_len, src);
-
-  float2 acc[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) acc[r] = make_float2(0.f, 0.f);
-#pragma unroll
-  for (int t = 0; t < 5; ++t) {
-    accumulate<NC, R, CT>(ch + ((t * 2 + q) * half + rem) * NC * NC + i0 * NC,
-                          x + src[t] * NC, acc);
-  }
-  float2* o = out + site * NC + i0;
-#pragma unroll
-  for (int r = 0; r < R; ++r) o[r] = acc[r];
-}
-
 // K6's split of one output row over lanes: a lane takes V consecutive
 // coefficients of the row per stencil term, in one load of at most 16
 // bytes, and L = NC / V lanes share the row.
@@ -245,47 +225,13 @@ __device__ __forceinline__ void load_x(const float2* __restrict__ p,
   }
 }
 
-// K6. Thread tid is lane tid % L of output row tid / L = (site, i); it
-// sums its V columns of the five terms, the row's lanes join their sums by
-// shuffles and lane 0 writes. No thread leaves before the shuffles: one
-// past the last row works on row 0 and does not write.
-//
-// The rhs axis: x and out hold gridDim.y fields one after another, and
-// block row b = blockIdx.y applies field b with the same loads and the
-// same sums in the same order as every other, so field b of the output is
-// bit for bit the single-field kernel on field b. One field is a grid of
-// one block row.
-template <int NC, typename CT, bool SPLIT>
-__global__ void __launch_bounds__(kThreads)
-dslash_small_kernel(const CT* __restrict__ ch, const float2* __restrict__ x,
-                    float2* __restrict__ out, int y_len, int xh_len) {
-  constexpr int V = SmallShape<NC, CT>::V;
-  constexpr int L = SmallShape<NC, CT>::L;
-  const int half = y_len * xh_len;
-  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = tid < 2 * half * NC * L;
-  const int orow = live ? tid / L : 0;  // site * NC + i
-  const int j0 = (tid % L) * V;
-  const int site = orow / NC;
-  const int i = orow - site * NC;
-  const int q = site / half;
-  const int rem = site - q * half;
-  const int row = rem / xh_len;
-  const int xh = rem - row * xh_len;
-  int src[5];
-  stencil_sources<SPLIT>(q, row, xh, y_len, xh_len, src);
-
-  const size_t field = static_cast<size_t>(blockIdx.y) * 2 * half * NC;
-  x += field;
-  out += field;
-
-  float2 c[5][V], v[5][V];
-#pragma unroll
-  for (int t = 0; t < 5; ++t) {
-    load_coeffs<CT, V>(
-        ch + (((t * 2 + q) * half + rem) * NC + i) * NC + j0, c[t]);
-    load_x<V>(x + src[t] * NC + j0, v[t]);
-  }
+// One output row from its lanes: each lane sums its V columns of the five
+// terms, and the row's L lanes (neighbours in the warp) join their sums by
+// shuffles, so that every lane holds the row. Every lane of the warp must
+// call it.
+template <int L, int V>
+__device__ __forceinline__ float2 row_sum(const float2 (&c)[5][V],
+                                          const float2 (&v)[5][V]) {
   float2 acc = make_float2(0.f, 0.f);
 #pragma unroll
   for (int t = 0; t < 5; ++t) {
@@ -300,20 +246,122 @@ dslash_small_kernel(const CT* __restrict__ ch, const float2* __restrict__ x,
     acc.x += __shfl_xor_sync(0xffffffffu, acc.x, m);
     acc.y += __shfl_xor_sync(0xffffffffu, acc.y, m);
   }
-  if (live && j0 == 0) out[orow] = acc;
+  return acc;
+}
+
+// Storage row of lattice row y: the split layout stores y = 2m + r at
+// r * Yh + m.
+template <bool SPLIT>
+__device__ __forceinline__ int storage_row(int y, int y_len) {
+  return SPLIT ? (y & 1) * (y_len >> 1) + (y >> 1) : y;
+}
+
+// K6, and K4 / K5 at nc >= 2 (on a streaming grid, one block row). Thread
+// tid is lane tid % L of output row tid / L = (site, i); it
+// sums its V columns of the five terms, the row's lanes join their sums by
+// shuffles and lane 0 writes. No thread leaves before the shuffles: one
+// past the last row works on row 0 and does not write.
+//
+// The rhs axis: x and out hold gridDim.y fields one after another, and
+// block row b = blockIdx.y applies field b with the same loads and the
+// same sums in the same order as every other, so field b of the output is
+// bit for bit the single-field kernel on field b. One field is a grid of
+// one block row. The sites are walked in storage order, or with YWALK in
+// lattice row order (K5: the split layout's +-y rows lie in the other
+// half, a quarter of the lattice away, and walked in storage order they
+// leave L2 before the rows next to them need them).
+template <int NC, typename CT, bool SPLIT, bool YWALK = false>
+__global__ void __launch_bounds__(kThreads)
+dslash_lanes_kernel(const CT* __restrict__ ch, const float2* __restrict__ x,
+                    float2* __restrict__ out, int y_len, int xh_len) {
+  constexpr int V = SmallShape<NC, CT>::V;
+  constexpr int L = SmallShape<NC, CT>::L;
+  const int half = y_len * xh_len;
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = tid < 2 * half * NC * L;
+  const int orow = live ? tid / L : 0;  // site * NC + i
+  const int j0 = (tid % L) * V;
+  const int site = orow / NC;
+  const int i = orow - site * NC;
+  const int q = site / half;
+  const int walked = site - q * half;
+  const int y = walked / xh_len;
+  const int xh = walked - y * xh_len;
+  const int row = YWALK ? storage_row<SPLIT>(y, y_len) : y;
+  const int rem = row * xh_len + xh;
+  int src[5];
+  stencil_sources<SPLIT>(q, row, xh, y_len, xh_len, src);
+
+  const size_t field = static_cast<size_t>(blockIdx.y) * 2 * half * NC;
+  x += field;
+  out += field;
+
+  float2 c[5][V], v[5][V];
+#pragma unroll
+  for (int t = 0; t < 5; ++t) {
+    load_coeffs<CT, V>(
+        ch + (((t * 2 + q) * half + rem) * NC + i) * NC + j0, c[t]);
+    load_x<V>(x + src[t] * NC + j0, v[t]);
+  }
+  const float2 acc = row_sum<L, V>(c, v);
+  if (live && j0 == 0) out[(q * half + rem) * NC + i] = acc;
+}
+
+// K4 and K5 at nc = 1: one thread a site, its five coefficients and five
+// neighbours by 8-byte (bf16: 4-byte) loads, the body of the template
+// before its redesign, which the lane split (one lane a site at nc = 1)
+// did not beat (see the header); sites walked as dslash_lanes_kernel's.
+template <typename CT, bool SPLIT, bool YWALK>
+__global__ void __launch_bounds__(kThreads)
+dslash_site_kernel(const CT* __restrict__ ch, const float2* __restrict__ x,
+                   float2* __restrict__ out, int y_len, int xh_len) {
+  const int half = y_len * xh_len;
+  const int site = blockIdx.x * blockDim.x + threadIdx.x;
+  if (site >= 2 * half) return;
+  const int q = site / half;
+  const int walked = site - q * half;
+  const int y = walked / xh_len;
+  const int xh = walked - y * xh_len;
+  const int row = YWALK ? storage_row<SPLIT>(y, y_len) : y;
+  const int rem = row * xh_len + xh;
+  int src[5];
+  stencil_sources<SPLIT>(q, row, xh, y_len, xh_len, src);
+  float2 acc = make_float2(0.f, 0.f);
+#pragma unroll
+  for (int t = 0; t < 5; ++t) {
+    const float2 v = x[src[t]];
+    const float2 c = widen(ch[(t * 2 + q) * half + rem]);
+    acc.x += c.x * v.x - c.y * v.y;
+    acc.y += c.x * v.y + c.y * v.x;
+  }
+  out[q * half + rem] = acc;
 }
 
 __global__ void empty_kernel() {}
 
+// K4 / K5 on ``blocks`` blocks of ``threads`` (dslash_kernel.py's plan,
+// checked here against the work items): one thread a site at nc = 1,
+// K6's lanes otherwise; K5 walks its sites in lattice row order.
 template <int NC, typename CT, bool SPLIT>
 int launch_dslash(const void* ch, const void* x, void* out, int y_len,
-                  int xh_len, cudaStream_t stream) {
-  constexpr int G = NC / RowsPerThread<NC>::value;
-  const int n = 2 * y_len * xh_len * G;
-  const int blocks = (n + kThreads - 1) / kThreads;
-  dslash_kernel<NC, CT, SPLIT><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const CT*>(ch), static_cast<const float2*>(x),
-      static_cast<float2*>(out), y_len, xh_len);
+                  int xh_len, int blocks, int threads, cudaStream_t stream) {
+  const long long items = 2LL * y_len * xh_len *
+                          (NC == 1 ? 1 : NC * SmallShape<NC, CT>::L);
+  if (threads < 32 || threads > kThreads || threads % 32 || blocks < 1 ||
+      static_cast<long long>(blocks) * threads < items ||
+      static_cast<long long>(blocks - 1) * threads >= items) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if constexpr (NC == 1) {
+    dslash_site_kernel<CT, SPLIT, SPLIT><<<blocks, threads, 0, stream>>>(
+        static_cast<const CT*>(ch), static_cast<const float2*>(x),
+        static_cast<float2*>(out), y_len, xh_len);
+  } else {
+    dslash_lanes_kernel<NC, CT, SPLIT, SPLIT>
+        <<<blocks, threads, 0, stream>>>(
+            static_cast<const CT*>(ch), static_cast<const float2*>(x),
+            static_cast<float2*>(out), y_len, xh_len);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -361,7 +409,7 @@ int launch_small(const void* ch, const void* x, void* out, int y_len,
   const int err = small_grid(2 * y_len * xh_len * NC * SmallShape<NC, CT>::L,
                              nrhs, &blocks, &threads);
   if (err != 0) return err;
-  dslash_small_kernel<NC, CT, SPLIT>
+  dslash_lanes_kernel<NC, CT, SPLIT>
       <<<dim3(blocks, nrhs), threads, 0, stream>>>(
           static_cast<const CT*>(ch), static_cast<const float2*>(x),
           static_cast<float2*>(out), y_len, xh_len);
@@ -370,15 +418,34 @@ int launch_small(const void* ch, const void* x, void* out, int y_len,
 
 template <typename CT, bool SPLIT>
 int dispatch_dslash(int nc, const void* ch, const void* x, void* out,
-                    int y_len, int xh_len, cudaStream_t s) {
+                    int y_len, int xh_len, int blocks, int threads,
+                    cudaStream_t s) {
   switch (nc) {
-    case 1: return launch_dslash<1, CT, SPLIT>(ch, x, out, y_len, xh_len, s);
-    case 2: return launch_dslash<2, CT, SPLIT>(ch, x, out, y_len, xh_len, s);
-    case 4: return launch_dslash<4, CT, SPLIT>(ch, x, out, y_len, xh_len, s);
-    case 8: return launch_dslash<8, CT, SPLIT>(ch, x, out, y_len, xh_len, s);
-    case 16: return launch_dslash<16, CT, SPLIT>(ch, x, out, y_len, xh_len, s);
+    case 1: return launch_dslash<1, CT, SPLIT>(ch, x, out, y_len, xh_len,
+                                               blocks, threads, s);
+    case 2: return launch_dslash<2, CT, SPLIT>(ch, x, out, y_len, xh_len,
+                                               blocks, threads, s);
+    case 4: return launch_dslash<4, CT, SPLIT>(ch, x, out, y_len, xh_len,
+                                               blocks, threads, s);
+    case 8: return launch_dslash<8, CT, SPLIT>(ch, x, out, y_len, xh_len,
+                                               blocks, threads, s);
+    case 16: return launch_dslash<16, CT, SPLIT>(ch, x, out, y_len, xh_len,
+                                                 blocks, threads, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+template <bool SPLIT>
+int dslash_entry(const void* ch, int coeff_bf16, const void* x, void* out,
+                 int nc, int y_len, int xh_len, int blocks, int threads,
+                 void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return coeff_bf16
+             ? dispatch_dslash<__nv_bfloat162, SPLIT>(nc, ch, x, out, y_len,
+                                                      xh_len, blocks,
+                                                      threads, s)
+             : dispatch_dslash<float2, SPLIT>(nc, ch, x, out, y_len, xh_len,
+                                              blocks, threads, s);
 }
 
 template <typename CT, bool SPLIT>
@@ -413,31 +480,26 @@ int small_entry(const void* ch, int coeff_bf16, const void* x, void* out,
 }  // namespace
 
 // Each launcher launches on ``stream`` and returns cudaGetLastError() (0 on
-// success; cudaErrorInvalidValue for an nc outside {1, 2, 4, 8, 16}).
+// success; cudaErrorInvalidValue for an nc outside {1, 2, 4, 8, 16}, or a
+// plan that does not fit the work).
 // ``coeff_bf16`` selects bf16 coefficient pairs over complex64.
 
-// K4: x, out (2, Y, Xh, nc); ch (5, 2, Y, Xh, nc, nc).
+// K4: x, out (2, Y, Xh, nc); ch (5, 2, Y, Xh, nc, nc); ``blocks`` and
+// ``threads`` are dslash_kernel.py's plan. ch, x and out 16-byte aligned.
 extern "C" int dslash_launch(const void* ch, int coeff_bf16, const void* x,
                              void* out, int nc, int y_len, int xh_len,
-                             void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return coeff_bf16
-             ? dispatch_dslash<__nv_bfloat162, false>(nc, ch, x, out, y_len,
-                                                      xh_len, s)
-             : dispatch_dslash<float2, false>(nc, ch, x, out, y_len, xh_len,
-                                              s);
+                             int blocks, int threads, void* stream) {
+  return dslash_entry<false>(ch, coeff_bf16, x, out, nc, y_len, xh_len,
+                             blocks, threads, stream);
 }
 
-// K5: x, out (2, 2, Yh, Xh, nc); ch (5, 2, 2, Yh, Xh, nc, nc).
+// K5: x, out (2, 2, Yh, Xh, nc); ch (5, 2, 2, Yh, Xh, nc, nc); as K4.
 extern "C" int dslash_split_launch(const void* ch, int coeff_bf16,
                                    const void* x, void* out, int nc,
-                                   int yh_len, int xh_len, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return coeff_bf16
-             ? dispatch_dslash<__nv_bfloat162, true>(nc, ch, x, out,
-                                                     2 * yh_len, xh_len, s)
-             : dispatch_dslash<float2, true>(nc, ch, x, out, 2 * yh_len,
-                                             xh_len, s);
+                                   int yh_len, int xh_len, int blocks,
+                                   int threads, void* stream) {
+  return dslash_entry<true>(ch, coeff_bf16, x, out, nc, 2 * yh_len, xh_len,
+                            blocks, threads, stream);
 }
 
 // K6 in the layouts of K5; ch, x and out 16-byte aligned.

@@ -319,6 +319,91 @@ def test_bind_apply_checks_once(kind, nc, y_len, xh, device, message):
         dk.bind_apply(WRAPPERS[kind], ch, x.shape)
 
 
+PLAN_SHAPES = {"2x2": (2, 1), "16x8": (8, 8), "64x48": (48, 32),
+               "ragged": (6, 5), "128x128": (128, 64), "512x512": (512, 256),
+               "2048x2048": (2048, 1024)}
+PLAN_CASES = [pytest.param(nc, bf16, shape, id=f"nc{nc}-{tag}-{name}")
+              for nc in dk.SUPPORTED_NC
+              for bf16, tag in ((False, "f32"), (True, "bf16"))
+              for name, shape in PLAN_SHAPES.items()]
+
+
+@pytest.mark.parametrize("nc, bf16, shape", PLAN_CASES)
+def test_dslash_plan(nc, bf16, shape):
+    """K4/K5's grid on an H100's 132 SMs: a thread for every work item (a
+    site at nc = 1, a lane of an output row otherwise), no block without
+    one, whole warps of at most 256 threads, K6's rule for the block size
+    (halved only while the grid has fewer blocks than SMs), and a block of
+    256 for each SM at 2048^2."""
+    y_len, xh = shape
+    dtype = torch.bfloat16 if bf16 else None
+    plan = dk.dslash_plan(nc, y_len, xh, dtype, 132)
+    lanes = dk.lanes(nc, 4 if bf16 else 8)
+    items = 2 * y_len * xh * (1 if nc == 1 else nc * lanes)
+    assert dk.work_items(nc, y_len, xh, dtype) == items
+    assert (plan.blocks - 1) * plan.threads < items
+    assert plan.blocks * plan.threads >= items
+    assert 32 <= plan.threads <= 256 and plan.threads % 32 == 0
+    assert plan.threads == 32 or plan.threads == 256 or plan.blocks >= 132
+    assert plan.threads == 256 or -(-items // (2 * plan.threads)) < 132
+    if shape == (2048, 1024):
+        assert plan.blocks >= 132 and plan.threads == 256
+
+
+@pytest.mark.parametrize("nc, bf16, shape", PLAN_CASES)
+def test_tma_plan(nc, bf16, shape):
+    """The TMA designs' plans (qmg_tpu_torch.stencil_bench, the variants
+    that K4/K5 were measured against; x staged or not, each layout) on
+    132 SMs: the tiles cover every site of both parities once (within a
+    storage row when x is staged); every bulk copy starts, lands and ends
+    on 16-byte boundaries, holds its run and stays inside its tensor and
+    its stage; the ring fits a block's shared memory; every warp takes
+    part in every shuffle; the grid is persistent (no more blocks than
+    tiles) and has a block for each of 132 SMs at 2048^2."""
+    from qmg_tpu_torch import stencil_bench as sb
+    y_len, xh = shape
+    dtype = torch.bfloat16 if bf16 else None
+    half = y_len * xh
+    site_bytes = nc * nc * (4 if bf16 else 8)
+    lanes = dk.lanes(nc, 4 if bf16 else 8)
+    for stage_x, split in ((False, False), (True, False), (True, True)):
+        plan = sb.tma_plan(nc, y_len, xh, dtype, 132, stage_x=stage_x)
+        tiles = sb.tma_tiles(plan, nc, y_len, xh, dtype, stage_x, split)
+        for q in (0, 1):
+            mine = tiles.q == q
+            rem0, count = tiles.rem0[mine], tiles.count[mine]
+            order = torch.argsort(rem0)
+            rem0, count = rem0[order], count[order]
+            assert int(rem0[0]) == 0 and int(rem0[-1] + count[-1]) == half
+            assert torch.equal(rem0[1:], rem0[:-1] + count[:-1])
+            assert int(count.min()) >= 1 and int(count.max()) <= plan.sites
+            if stage_x:     # a tile's sites lie in one row
+                assert torch.equal(rem0 // xh, (rem0 + count - 1) // xh)
+        for field in (tiles.src, tiles.nbytes, tiles.dst):
+            assert not bool((field % 16).any())
+        elem = torch.tensor([site_bytes] * 5 + [nc * 8] * 4)[
+            :tiles.src.shape[1]]
+        assert torch.equal(tiles.src + tiles.shift, tiles.first * elem)
+        slack = tiles.nbytes - tiles.shift - tiles.sites * elem
+        assert int(slack.min()) >= 0 and int(slack.max()) < 16
+        limit = torch.tensor([10 * half * site_bytes] * 5
+                             + [2 * half * nc * 8] * 4)[:elem.numel()]
+        assert bool(((tiles.src + tiles.nbytes) <= limit).all())
+        assert torch.equal(tiles.first[:, 0], tiles.q * half + tiles.rem0)
+        size = sb.stage_size(nc, 4 if bf16 else 8, plan.sites, stage_x)
+        assert int((tiles.dst + tiles.nbytes).max()) <= size
+        assert bool((tiles.dst[:, 1:] >= tiles.dst[:, :-1]
+                     + tiles.nbytes[:, :-1]).all())   # no overlap
+        assert int(tiles.nbytes.sum(1).max()) < 2 ** 20   # mbarrier tx
+        assert plan.smem == sb.BARRIER_BYTES + plan.stages * size
+        assert plan.smem <= 232448 and 1 <= plan.stages <= 8
+        assert 32 <= plan.threads <= 256 and plan.threads % 32 == 0
+        assert plan.sites * nc * lanes % plan.threads == 0
+        assert 1 <= plan.blocks <= tiles.q.numel()
+        if shape == (2048, 1024):
+            assert plan.blocks >= 132
+
+
 def test_apply_bytes_is_the_documented_count():
     """192 B a site at nc = 2 and 2688 B at nc = 8 with complex64
     coefficients, 112 B at nc = 2 with bf16 ones."""
@@ -366,8 +451,8 @@ def cuda_device():
 @pytest.mark.parametrize("kind", ["K4", "K5", "K6"])
 @pytest.mark.parametrize("nc", list(dk.SUPPORTED_NC))
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
-@pytest.mark.parametrize("shape", [(8, 8), (48, 32), (2, 1), (8, 32)],
-                         ids=["16x8", "64x48", "2x2", "64x8"])
+@pytest.mark.parametrize("shape", [(8, 8), (48, 32), (2, 1), (8, 32), (6, 5)],
+                         ids=["16x8", "64x48", "2x2", "64x8", "ragged"])
 def test_kernel_matches_twin_on_card(cuda_device, kind, nc, bf16, shape):
     y_len, xh = shape
     if kind == "K6" and not dk.small_fits(
@@ -387,3 +472,27 @@ def test_kernel_matches_twin_on_card(cuda_device, kind, nc, bf16, shape):
     bound = dk.bind_apply(wrapper, ch, x.shape)
     assert torch.equal(bound(x), got)
     assert wrapper.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["K4", "K5", "K6"])
+@pytest.mark.parametrize("operand", ["x", "channels"])
+def test_kernel_refuses_misaligned_view_on_card(cuda_device, kind, operand):
+    """A contiguous view 8 bytes past a 16-byte boundary: the wrapper and
+    bind_apply raise and launch nothing."""
+    ch, x = _inputs(kind, 2, 8, 4, cuda_device, seed=7)
+    t = x if operand == "x" else ch
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda_device)
+    view = buf[1:].view(t.shape).copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 8
+    if operand == "x":
+        x = view
+    else:
+        ch = view
+    wrapper = WRAPPERS[kind]
+    before = wrapper.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        wrapper(ch, x)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        dk.bind_apply(wrapper, ch, x.shape)(x)
+    assert wrapper.launches == before
