@@ -48,9 +48,10 @@
 // bytes; the four neighbour vectors are re-reads that L1/L2 serve.
 //
 // The design, chosen by timing four in one run on an H100 (device alone,
-// us, old -> new; PERF.md, PR 12; qmg_tpu_torch/stencil_bench.py):
-//   * at nc >= 2, K6's lane split on a streaming grid (dslash_lanes_kernel,
-//     ceil(work / 256) blocks of 256): a lane takes 16 bytes of one row of
+// us, old -> new; PERF.md; qmg_tpu_torch/stencil_bench.py), each
+// (nc, coefficient type) taking its body at compile time:
+//   * K6's lane split (dslash_lanes_kernel) at nc = 2, 4 and 16, and at
+//     nc = 8 with bf16 coefficients: a lane takes 16 bytes of one row of
 //     each term's coefficients and of x, neighbouring lanes neighbouring
 //     bytes, so each load instruction of a warp reads 512 contiguous bytes
 //     of channels; the row's lanes join by shuffles. The template before
@@ -58,30 +59,37 @@
 //     instruction touching 32 lines 8 nc bytes apart and coming back to
 //     them nc - 1 times: at nc = 16 the lines left L1 between visits
 //     (33-36 registers, no spills: not register pressure). K4 nc16 128^2
-//     (the domain-wall operator at Ls 8) 112.0 -> 59.1, 88% of the bound;
-//     nc16 256^2 359.4 -> 228.8; nc8 512^2 252.5 -> 239.2; nc4 1024^2
-//     255.5 -> 254.6; nc2 2048^2 291.3 -> 285.6. At nc8 128^2 in complex64
-//     (44 MB, inside the 50 MB L2) the old body stays faster (14.6 against
-//     15.2, K5 14.4 against 16.0), the one such shape; nc = 8 takes the
-//     lane split all the same, which wins at the streaming shape and in
-//     bf16 at 128^2 (5.7 against 8.3).
-//   * at nc = 1, the old body (dslash_site_kernel, a thread a site): the
-//     lane split is the same mapping there with K6's bookkeeping, and came
-//     out 0-5% slower (2048^2 88.9 both, 512^2 3.70 against 3.63).
-//   * K5 walks its sites in lattice row order (YWALK; K3's finding, PR 3):
-//     in storage order its +-y rows, a quarter of the lattice away, are
+//     (the domain-wall operator at Ls 8) 112.0 -> 59.1, 87% of the bound;
+//     nc16 256^2 359.4 -> 228.8; nc4 1024^2 255.5 -> 254.6; nc2 2048^2
+//     291.3 -> 285.6; nc8 bf16 512^2 130.9 -> 129.9, 128^2 8.3 -> 5.7.
+//   * a thread an output row (dslash_rows_kernel, the template's body
+//     before the redesign) at nc = 1 and at nc = 8 with complex64
+//     coefficients, where the lane split lost at some shape: nc1 512^2
+//     3.63 against 3.70 (2048^2 87.5 against 87.6; at nc = 1 the lane
+//     split is the same mapping with K6's bookkeeping), nc8 128^2 (44 MB,
+//     inside the 50 MB L2: the Ls 4 domain-wall operator) 14.5 against
+//     15.1, K5 14.4 against 15.8. At the streaming nc8 512^2 the lane
+//     split wins (237.0 against 246.5, K5 242.6 against 258.4), but one
+//     body an instantiation, no switch on the shape. There K5 keeps
+//     storage order: walked in row order the body gets 32 registers
+//     (8 blocks an SM instead of 6) and its strided loads ran slower
+//     (278 against 258).
+//   * the grid is K6's (small_grid): blocks of 256 threads, halved down
+//     to one warp until there are as many blocks as SMs.
+//   * K5 walks its sites in lattice row order (YWALK, as K3 walks y;
+//     all but the old body at nc = 8, above): in storage order its +-y rows, a quarter of the lattice away, are
 //     read again from HBM. nc2 2048^2 317.3 -> 286.2 (307.7 in storage
 //     order), nc1 100.3 -> 89.5: K5 now runs at K4's speed.
 //   * not kept: tiles of consecutive sites of one parity whose five channel
 //     runs (and, as a fourth variant, the tile's x rows) a producer warp
 //     copies into a ring of shared-memory stages by TMA bulk copies
 //     (cp.async.bulk, one mbarrier a stage), consumers computing from
-//     shared memory (csrc/dslash_tma.cu, built by the bench alone). Both
-//     lost at every nc and coefficient type under every plan tried: nc16
-//     128^2 63.3-75.3, nc2 2048^2 290.8-308.9, nc1 512^2 5.0-6.5. A
-//     block's consumers wait on each stage together, and only 2-3 blocks
-//     fit an SM beside their stages, while the lane split keeps 48-64
-//     warps of independent 16-byte loads in flight.
+//     shared memory (csrc/dslash_tma.cu of commit 1782ea6). Both lost at
+//     every nc and coefficient type under every plan tried: nc16 128^2
+//     63.3-75.3, nc2 2048^2 290.8-308.9, nc1 512^2 5.0-6.5. A block's
+//     consumers wait on each stage together, and only 2-3 blocks fit an
+//     SM beside their stages, while the lane split keeps 48-64 warps of
+//     independent 16-byte loads in flight.
 // Sums are float32; bf16 pairs are widened as they load.
 //
 // K6. The TPU kernel keeps a whole small lattice in VMEM and applies it in
@@ -126,8 +134,6 @@
 //     that is slower on the device alone at 32^2 and 8^2 nc8 (PERF.md
 //     has the numbers);
 // nc = 1 keeps 8-byte (4-byte in bf16) loads, nc = 2 in bf16 8-byte ones.
-
-#include <cstdint>
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -307,63 +313,76 @@ dslash_lanes_kernel(const CT* __restrict__ ch, const float2* __restrict__ x,
   if (live && j0 == 0) out[(q * half + rem) * NC + i] = acc;
 }
 
-// K4 and K5 at nc = 1: one thread a site, its five coefficients and five
-// neighbours by 8-byte (bf16: 4-byte) loads, the body of the template
-// before its redesign, which the lane split (one lane a site at nc = 1)
-// did not beat (see the header); sites walked as dslash_lanes_kernel's.
-template <typename CT, bool SPLIT, bool YWALK>
+// acc[r] += sum_j C[i0 + r, j] v[j] for one stencil term, as the template
+// before the redesign summed it (x first); ``row0`` points at C[i0, 0] of
+// this site and term.
+template <int NC, int R, typename CT>
+__device__ __forceinline__ void accumulate(const CT* __restrict__ row0,
+                                           const float2* v,
+                                           float2 (&acc)[R]) {
+  float2 vv[NC];
+#pragma unroll
+  for (int j = 0; j < NC; ++j) vv[j] = v[j];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      const float2 c = widen(row0[r * NC + j]);
+      acc[r].x += c.x * vv[j].x - c.y * vv[j].y;
+      acc[r].y += c.x * vv[j].y + c.y * vv[j].x;
+    }
+  }
+}
+
+// K4 and K5 where the lane split did not beat the body of the template
+// before it (see the header): that body as it was written, one thread an
+// output row (site, i0), its nc coefficients of each term and the term's
+// nc neighbour values by 8-byte (bf16 coefficients: 4-byte) loads; sites
+// in storage order, or with YWALK in lattice row order. Keep its text: at
+// nc = 8 nvcc gives it 34 registers (6 blocks an SM), and a version with
+// the one row folded in got 32 (8 blocks) and ran 10% slower at 512^2.
+template <int NC, typename CT, bool SPLIT, bool YWALK>
 __global__ void __launch_bounds__(kThreads)
-dslash_site_kernel(const CT* __restrict__ ch, const float2* __restrict__ x,
+dslash_rows_kernel(const CT* __restrict__ ch, const float2* __restrict__ x,
                    float2* __restrict__ out, int y_len, int xh_len) {
+  constexpr int R = 1;       // rows a thread
+  constexpr int G = NC / R;  // threads per site
   const int half = y_len * xh_len;
-  const int site = blockIdx.x * blockDim.x + threadIdx.x;
-  if (site >= 2 * half) return;
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  if (tid >= 2 * half * G) return;
+  const int site = tid / G;  // q * half + the walked rem
+  const int i0 = (tid - site * G) * R;
   const int q = site / half;
-  const int walked = site - q * half;
-  const int y = walked / xh_len;
-  const int xh = walked - y * xh_len;
-  const int row = YWALK ? storage_row<SPLIT>(y, y_len) : y;
-  const int rem = row * xh_len + xh;
+  int rem = site - q * half;
+  int row = rem / xh_len;
+  const int xh = rem - row * xh_len;
+  if (YWALK) {
+    row = storage_row<SPLIT>(row, y_len);
+    rem = row * xh_len + xh;
+  }
   int src[5];
   stencil_sources<SPLIT>(q, row, xh, y_len, xh_len, src);
-  float2 acc = make_float2(0.f, 0.f);
+
+  float2 acc[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) acc[r] = make_float2(0.f, 0.f);
 #pragma unroll
   for (int t = 0; t < 5; ++t) {
-    const float2 v = x[src[t]];
-    const float2 c = widen(ch[(t * 2 + q) * half + rem]);
-    acc.x += c.x * v.x - c.y * v.y;
-    acc.y += c.x * v.y + c.y * v.x;
+    accumulate<NC, R, CT>(ch + ((t * 2 + q) * half + rem) * NC * NC + i0 * NC,
+                          x + src[t] * NC, acc);
   }
-  out[q * half + rem] = acc;
+  float2* o = out + (q * half + rem) * NC + i0;
+#pragma unroll
+  for (int r = 0; r < R; ++r) o[r] = acc[r];
+}
+
+// K4 / K5's body at (nc, coefficient bytes): a thread an output row at
+// nc = 1 and at nc = 8 with complex64 coefficients, K6's lanes otherwise.
+constexpr bool rows_body(int nc, int coeff_bytes) {
+  return nc == 1 || (nc == 8 && coeff_bytes == 8);
 }
 
 __global__ void empty_kernel() {}
-
-// K4 / K5 on ``blocks`` blocks of ``threads`` (dslash_kernel.py's plan,
-// checked here against the work items): one thread a site at nc = 1,
-// K6's lanes otherwise; K5 walks its sites in lattice row order.
-template <int NC, typename CT, bool SPLIT>
-int launch_dslash(const void* ch, const void* x, void* out, int y_len,
-                  int xh_len, int blocks, int threads, cudaStream_t stream) {
-  const long long items = 2LL * y_len * xh_len *
-                          (NC == 1 ? 1 : NC * SmallShape<NC, CT>::L);
-  if (threads < 32 || threads > kThreads || threads % 32 || blocks < 1 ||
-      static_cast<long long>(blocks) * threads < items ||
-      static_cast<long long>(blocks - 1) * threads >= items) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if constexpr (NC == 1) {
-    dslash_site_kernel<CT, SPLIT, SPLIT><<<blocks, threads, 0, stream>>>(
-        static_cast<const CT*>(ch), static_cast<const float2*>(x),
-        static_cast<float2*>(out), y_len, xh_len);
-  } else {
-    dslash_lanes_kernel<NC, CT, SPLIT, SPLIT>
-        <<<blocks, threads, 0, stream>>>(
-            static_cast<const CT*>(ch), static_cast<const float2*>(x),
-            static_cast<float2*>(out), y_len, xh_len);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
 
 // SMs of the current device, asked once per device.
 int sm_count(int* sms) {
@@ -416,36 +435,53 @@ int launch_small(const void* ch, const void* x, void* out, int y_len,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K4 / K5 on K6's grid rule. K5 walks its sites in lattice row order,
+// but for the old body at nc = 8 (see the header).
+template <int NC, typename CT, bool SPLIT>
+int launch_dslash(const void* ch, const void* x, void* out, int y_len,
+                  int xh_len, cudaStream_t stream) {
+  constexpr bool kRows = rows_body(NC, sizeof(CT));
+  int blocks = 0, threads = 0;
+  const int err = small_grid(
+      2 * y_len * xh_len * NC * (kRows ? 1 : SmallShape<NC, CT>::L), 1,
+      &blocks, &threads);
+  if (err != 0) return err;
+  if constexpr (kRows) {
+    dslash_rows_kernel<NC, CT, SPLIT, SPLIT && NC == 1>
+        <<<blocks, threads, 0, stream>>>(
+            static_cast<const CT*>(ch), static_cast<const float2*>(x),
+            static_cast<float2*>(out), y_len, xh_len);
+  } else {
+    dslash_lanes_kernel<NC, CT, SPLIT, SPLIT>
+        <<<blocks, threads, 0, stream>>>(
+            static_cast<const CT*>(ch), static_cast<const float2*>(x),
+            static_cast<float2*>(out), y_len, xh_len);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename CT, bool SPLIT>
 int dispatch_dslash(int nc, const void* ch, const void* x, void* out,
-                    int y_len, int xh_len, int blocks, int threads,
-                    cudaStream_t s) {
+                    int y_len, int xh_len, cudaStream_t s) {
   switch (nc) {
-    case 1: return launch_dslash<1, CT, SPLIT>(ch, x, out, y_len, xh_len,
-                                               blocks, threads, s);
-    case 2: return launch_dslash<2, CT, SPLIT>(ch, x, out, y_len, xh_len,
-                                               blocks, threads, s);
-    case 4: return launch_dslash<4, CT, SPLIT>(ch, x, out, y_len, xh_len,
-                                               blocks, threads, s);
-    case 8: return launch_dslash<8, CT, SPLIT>(ch, x, out, y_len, xh_len,
-                                               blocks, threads, s);
-    case 16: return launch_dslash<16, CT, SPLIT>(ch, x, out, y_len, xh_len,
-                                                 blocks, threads, s);
+    case 1: return launch_dslash<1, CT, SPLIT>(ch, x, out, y_len, xh_len, s);
+    case 2: return launch_dslash<2, CT, SPLIT>(ch, x, out, y_len, xh_len, s);
+    case 4: return launch_dslash<4, CT, SPLIT>(ch, x, out, y_len, xh_len, s);
+    case 8: return launch_dslash<8, CT, SPLIT>(ch, x, out, y_len, xh_len, s);
+    case 16: return launch_dslash<16, CT, SPLIT>(ch, x, out, y_len, xh_len, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 template <bool SPLIT>
 int dslash_entry(const void* ch, int coeff_bf16, const void* x, void* out,
-                 int nc, int y_len, int xh_len, int blocks, int threads,
-                 void* stream) {
+                 int nc, int y_len, int xh_len, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return coeff_bf16
              ? dispatch_dslash<__nv_bfloat162, SPLIT>(nc, ch, x, out, y_len,
-                                                      xh_len, blocks,
-                                                      threads, s)
+                                                      xh_len, s)
              : dispatch_dslash<float2, SPLIT>(nc, ch, x, out, y_len, xh_len,
-                                              blocks, threads, s);
+                                              s);
 }
 
 template <typename CT, bool SPLIT>
@@ -480,26 +516,40 @@ int small_entry(const void* ch, int coeff_bf16, const void* x, void* out,
 }  // namespace
 
 // Each launcher launches on ``stream`` and returns cudaGetLastError() (0 on
-// success; cudaErrorInvalidValue for an nc outside {1, 2, 4, 8, 16}, or a
-// plan that does not fit the work).
+// success; cudaErrorInvalidValue for an nc outside {1, 2, 4, 8, 16}).
 // ``coeff_bf16`` selects bf16 coefficient pairs over complex64.
 
-// K4: x, out (2, Y, Xh, nc); ch (5, 2, Y, Xh, nc, nc); ``blocks`` and
-// ``threads`` are dslash_kernel.py's plan. ch, x and out 16-byte aligned.
+// K4: x, out (2, Y, Xh, nc); ch (5, 2, Y, Xh, nc, nc); aligned as
+// dslash_alignment says.
 extern "C" int dslash_launch(const void* ch, int coeff_bf16, const void* x,
                              void* out, int nc, int y_len, int xh_len,
-                             int blocks, int threads, void* stream) {
+                             void* stream) {
   return dslash_entry<false>(ch, coeff_bf16, x, out, nc, y_len, xh_len,
-                             blocks, threads, stream);
+                             stream);
 }
 
 // K5: x, out (2, 2, Yh, Xh, nc); ch (5, 2, 2, Yh, Xh, nc, nc); as K4.
 extern "C" int dslash_split_launch(const void* ch, int coeff_bf16,
                                    const void* x, void* out, int nc,
-                                   int yh_len, int xh_len, int blocks,
-                                   int threads, void* stream) {
+                                   int yh_len, int xh_len, void* stream) {
   return dslash_entry<true>(ch, coeff_bf16, x, out, nc, 2 * yh_len, xh_len,
-                            blocks, threads, stream);
+                            stream);
+}
+
+// The alignment in bytes that K4 and K5 need of x and out and of the
+// channels at nc: 16 where they take K6's lanes, one element where a
+// thread takes an output row.
+extern "C" int dslash_alignment(int coeff_bf16, int nc, int* x_align,
+                                int* ch_align) {
+  if (nc != 1 && nc != 2 && nc != 4 && nc != 8 && nc != 16) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int coeff_bytes =
+      coeff_bf16 ? sizeof(__nv_bfloat162) : sizeof(float2);
+  const bool rows = rows_body(nc, coeff_bytes);
+  *x_align = rows ? sizeof(float2) : 16;
+  *ch_align = rows ? coeff_bytes : 16;
+  return 0;
 }
 
 // K6 in the layouts of K5; ch, x and out 16-byte aligned.

@@ -35,10 +35,11 @@ every device. ``bind_apply`` makes a wrapper's checks once for fixed
 channels and x shape, for callers that apply one operator many times (the
 solve).
 
-K4 and K5 take K6's lane split at nc >= 2 (a thread a lane of an output
-row, 16-byte loads) and one thread a site at nc = 1, on a grid that
-``dslash_plan`` sizes from the shape and the card's SM count. On a CUDA
-device every kernel needs 16-byte aligned channels, x and out.
+K4 and K5 give a thread one output row at nc = 1 and at nc = 8 with
+complex64 channels, and take K6's lane split (a thread a lane of an
+output row, 16-byte loads) otherwise. On a CUDA device the lane split and
+K6 need 16-byte aligned channels and x; a thread a row needs one
+element's alignment.
 
 ``apply_bytes`` is the kernels' compulsory byte count and ``HBM_BYTES_S``
 the card's memory rate; their bound is the one over the other.
@@ -47,7 +48,6 @@ the card's memory rate; their bound is the one over the other.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 from typing import Callable, NamedTuple
 
@@ -66,7 +66,7 @@ __all__ = ["SUPPORTED_NC", "HBM_BYTES_S", "stencil_channels",
            "bind_apply",
            "dslash_apply_plain", "dslash_split_apply_plain",
            "dslash_small_apply_plain", "small_grid", "empty_launch",
-           "build_dslash", "DslashPlan", "dslash_plan"]
+           "build_dslash"]
 
 SOURCE = "dslash.cu"
 SUPPORTED_NC = (1, 2, 4, 8, 16)
@@ -75,9 +75,6 @@ SUPPORTED_NC = (1, 2, 4, 8, 16)
 SMALL_MAX_BYTES = 14 * 1024 * 1024
 # H100 SXM HBM3 peak, bytes/s (data sheet, at its 700 W power limit).
 HBM_BYTES_S = 3.35e12
-# Every kernel's 16-byte loads: 16-byte aligned channels, x and out.
-ALIGN = 16
-PLAN_THREADS = 256          # K4/K5's threads a block, at most
 _LIB = {}
 
 
@@ -96,7 +93,7 @@ def build_dslash() -> float:
         return 0.0
     lib, seconds = build_library(SOURCE)
     ptr, c_int = ctypes.c_void_p, ctypes.c_int
-    for name, ints in (("dslash_launch", 5), ("dslash_split_launch", 5),
+    for name, ints in (("dslash_launch", 3), ("dslash_split_launch", 3),
                        ("dslash_small_launch", 3),
                        ("dslash_small_interleaved_launch", 3),
                        ("dslash_small_rhs_launch", 4)):
@@ -107,58 +104,12 @@ def build_dslash() -> float:
     int_p = ctypes.POINTER(ctypes.c_int)
     lib.dslash_small_grid.argtypes = [ctypes.c_int] * 4 + [int_p] * 3
     lib.dslash_small_grid.restype = ctypes.c_int
+    lib.dslash_alignment.argtypes = [ctypes.c_int] * 2 + [int_p] * 2
+    lib.dslash_alignment.restype = ctypes.c_int
     lib.empty_launch.argtypes = [ctypes.c_void_p]
     lib.empty_launch.restype = ctypes.c_int
     _LIB["lib"] = lib
     return seconds
-
-
-# ---------------------------------------------------------------------------
-# K4 and K5's plan.
-# ---------------------------------------------------------------------------
-
-class DslashPlan(NamedTuple):
-    """K4/K5's grid: ``blocks`` blocks of ``threads`` (the C entries'
-    integers, in this order)."""
-    blocks: int
-    threads: int
-
-
-def lanes(nc: int, coeff_bytes: int) -> int:
-    """Threads that share an output row in K6's lane split (K4/K5 at
-    nc >= 2): one load of at most 16 bytes each a term."""
-    return 1 if nc * coeff_bytes <= 16 else nc * coeff_bytes // 16
-
-
-def work_items(nc: int, y_len: int, xh_len: int, coeff_dtype=None) -> int:
-    """K4/K5's threads of work for (2, Y, Xh, nc) fields: one a site at
-    nc = 1, one a lane of an output row otherwise."""
-    sites = 2 * y_len * xh_len
-    if nc == 1:
-        return sites
-    return sites * nc * lanes(nc, 4 if coeff_dtype == torch.bfloat16 else 8)
-
-
-@functools.lru_cache(maxsize=None)
-def dslash_plan(nc: int, y_len: int, xh_len: int, coeff_dtype=None,
-                sms: int = 132) -> DslashPlan:
-    """K4/K5's grid for (2, Y, Xh, nc) fields on a card of ``sms`` SMs,
-    K6's rule (``small_grid``): a thread a work item, blocks of
-    ``PLAN_THREADS`` halved down to one warp until the grid has at least
-    as many blocks as SMs."""
-    if nc not in SUPPORTED_NC:
-        raise ValueError(f"nc={nc} is not supported (the kernels are built "
-                         f"for nc in {SUPPORTED_NC})")
-    items = work_items(nc, y_len, xh_len, coeff_dtype)
-    threads = PLAN_THREADS
-    while threads > 32 and -(-items // threads) < sms:
-        threads //= 2
-    return DslashPlan(-(-items // threads), threads)
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 # ---------------------------------------------------------------------------
@@ -337,11 +288,29 @@ def _launcher(wrapper, launcher, ch, x):
     if x.device.type != "cuda":
         raise ValueError(f"{wrapper.__name__}: unsupported device "
                          f"{x.device}")
-    if x.data_ptr() % ALIGN or ch.data_ptr() % ALIGN:
-        raise ValueError(f"{wrapper.__name__} needs {ALIGN}-byte aligned x "
-                         f"and channels")
+    x_align, ch_align = _alignment(wrapper, ch, x.shape[-1])
+    if x.data_ptr() % x_align or ch.data_ptr() % ch_align:
+        raise ValueError(f"{wrapper.__name__} needs {x_align}-byte aligned "
+                         f"x and {ch_align}-byte aligned channels")
     build_dslash()
     return _LIB[launcher]
+
+
+def _alignment(wrapper, ch, nc):
+    """(x's, the channels') alignment in bytes: K6 loads 16 bytes at a
+    time; K4 and K5 as their C entry says for nc and the coefficient type
+    (16 bytes where they take K6's lanes, one element where a thread
+    takes an output row)."""
+    if _BINDINGS[wrapper].small:
+        return 16, 16
+    build_dslash()
+    x_align, ch_align = ctypes.c_int(), ctypes.c_int()
+    err = _LIB["lib"].dslash_alignment(int(ch.dtype == torch.bfloat16), nc,
+                                       ctypes.byref(x_align),
+                                       ctypes.byref(ch_align))
+    if err != 0:
+        raise RuntimeError(f"dslash_alignment failed: CUDA error {err}")
+    return x_align.value, ch_align.value
 
 
 def _run(wrapper, fn, ch, x, dims):
@@ -362,24 +331,10 @@ def _run(wrapper, fn, ch, x, dims):
     return out
 
 
-def _dims(wrapper, ch, x_shape):
-    """The C entry's integers after nc for x of ``x_shape``: the binding's
-    dims, then K4/K5's plan on x's card."""
-    binding = _BINDINGS[wrapper]
-    dims = binding.dims(x_shape)
-    if binding.small:
-        return dims
-    y_len = dims[0] * (2 if binding.layout == "split" else 1)
-    index = ch.device.index
-    return dims + tuple(dslash_plan(
-        x_shape[-1], y_len, dims[1], ch.dtype,
-        _sm_count(torch.cuda.current_device() if index is None else index)))
-
-
 def _launch(wrapper, ch, x):
     binding = _BINDINGS[wrapper]
     return _run(wrapper, _launcher(wrapper, binding.launcher, ch, x), ch, x,
-                _dims(wrapper, ch, x.shape))
+                binding.dims(x.shape))
 
 
 def dslash_apply(ch, x):
@@ -453,13 +408,13 @@ class _Binding(NamedTuple):
     """What ``bind_apply`` and the wrappers' launches know of a wrapper.
     ``dims`` maps x's shape to the C entry's integers after nc: (rows,
     Xh), rows being Y of the interleaved layout and Yh of the split one;
-    then nrhs for the rhs entry (K4 and K5 add their plan, ``_dims``)."""
+    then nrhs for the rhs entry."""
     layout: str            # x's layout, as ``_check`` takes it
     launcher: str          # the C entry
     twin: Callable
     dims: Callable
     counter: Callable      # the wrapper whose ``launches`` counts
-    small: bool = False    # K6: small_fits' refusal, no plan
+    small: bool = False    # K6: small_fits' refusal, 16-byte alignment
 
 
 _BINDINGS = {
@@ -486,8 +441,8 @@ def bind_apply(wrapper, ch, x_shape):
     ``x_shape``, with the wrapper's checks made here, once. The returned
     function takes a contiguous complex64 x of that shape on ``ch``'s
     device, aligned as the kernel needs it (checked in one expression):
-    the kernel (counted like the wrapper's own launches, K4/K5 with the
-    plan computed here) for a CUDA ``ch``, the twin for a CPU one."""
+    the kernel (counted like the wrapper's own launches) for a CUDA
+    ``ch``, the twin for a CPU one."""
     binding = _BINDINGS[wrapper]
     x_shape = torch.Size(x_shape)
     probe = torch.empty(x_shape, dtype=torch.complex64, device=ch.device)
@@ -495,7 +450,8 @@ def bind_apply(wrapper, ch, x_shape):
     if binding.small:
         _check_small(wrapper.__name__, ch, probe, binding.layout)
     device = ch.device
-    x_align = ALIGN if device.type == "cuda" else 1
+    x_align = (_alignment(wrapper, ch, x_shape[-1])[0]
+               if device.type == "cuda" else 1)
 
     def check(x):
         if (x.shape != x_shape or x.device != device
@@ -514,8 +470,8 @@ def bind_apply(wrapper, ch, x_shape):
             check(x)
             return twin(ch, x)
         return apply
+    dims = binding.dims(x_shape)
     fn = _launcher(wrapper, binding.launcher, ch, probe)
-    dims = _dims(wrapper, ch, x_shape)
 
     def apply(x):
         check(x)

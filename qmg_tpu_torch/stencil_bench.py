@@ -1,8 +1,7 @@
 """Device-alone timings of the generic stencil kernels K4 and K5 against
 the designs they were chosen over, on one CUDA card.
 
-    python -m qmg_tpu_torch.stencil_bench [--old-source PATH] [--sweep]
-                                          [--ptxas]
+    python -m qmg_tpu_torch.stencil_bench [--old-source PATH] [--ptxas]
 
 For K4 (interleaved layout) and K5 (split layout) at every nc in
 ``SUPPORTED_NC``, with complex64 and bf16 channels, at shapes whose
@@ -12,31 +11,22 @@ port's paths (nc 1 at 512^2, nc 8 and 16 at 128^2, the domain-wall
 operator's), it times on the device alone (100 launches captured in one
 CUDA graph, replayed 5 times between CUDA events):
 
-  (a) ``--old-source PATH``: another build of ``csrc/dslash.cu`` whose
-      ``dslash_launch`` / ``dslash_split_launch`` take no grid (the
-      template before its redesign: one thread an output row at nc >= 4,
-      a site at nc <= 2, 8-byte loads, 256-thread blocks);
+  (a) ``--old-source PATH``: another build of ``csrc/dslash.cu`` with the
+      same C entries (e.g. the source before the redesign: one thread an
+      output row at nc >= 4, a site at nc <= 2, 8-byte loads, 256-thread
+      blocks);
   (b) K6's kernel body on a streaming grid, through K6's own entries
       (``dslash_small_interleaved_launch``, ``dslash_small_launch``): the
-      lane split with 16-byte loads from device memory, no shared memory;
-  (c) the TMA design of ``csrc/dslash_tma.cu`` under ``tma_plan``:
-      coefficient tiles through TMA bulk copies into a ring in shared
-      memory, fed by a producer warp;
-  (d) the same with the tile's x staged too (four runs of x a tile, the
-      tiles within storage rows);
-  (k) K4 / K5 as the port binds them (``bind_apply``): (b) at nc >= 2,
-      the old one-thread-a-site body at nc = 1, K5 walking its sites in
-      lattice row order.
+      lane split with 16-byte loads from device memory;
+  (k) K4 / K5 as the port binds them (``bind_apply``).
 
 Each variant's output is held to the plain twin (relative error <= 1e-5),
 first at small shapes (16x8, 64x48, 10x6, 2x2), then at each timed one.
-The variants run in turns, a b c d k then k d c b a, and the line gives
-both times, us, beside the bound (``apply_bytes`` / 3.35 TB/s).
-``--sweep`` also times (c) and (d) under other plans (stage bytes,
-stages, consumer threads, tiles a block); ``--ptxas`` prints nvcc's
-register and spill report of every K4 / K5 kernel instantiation of the
-sources. Every line names the card and its power limit. No path of the
-port uses this module.
+The variants run in turns, a b k then k b a, and the line gives both
+times, us, beside the bound (``apply_bytes`` / 3.35 TB/s). ``--ptxas``
+prints nvcc's register and spill report of every K4 / K5 kernel
+instantiation of the sources. Every line names the card and its power
+limit. No path of the port uses this module.
 """
 
 from __future__ import annotations
@@ -48,7 +38,6 @@ import os
 import re
 import subprocess
 import sys
-from typing import NamedTuple
 
 import torch
 
@@ -57,206 +46,11 @@ from .cuda_build import BUILD_DIR, CSRC_DIR, NVCC_FLAGS, find_nvcc
 
 TOL = 1e-5
 REPS, REPLAYS = 100, 5
-TMA_SOURCE = os.path.join(CSRC_DIR, "dslash_tma.cu")
 # (nc, Y, Xh): streaming shapes (>= 100 MB compulsory in complex64), then
 # the smaller shapes of the port's paths.
 STREAM_SHAPES = ((1, 2048, 1024), (2, 2048, 1024), (4, 1024, 512),
                  (8, 512, 256), (16, 256, 128))
 PATH_SHAPES = ((1, 512, 256), (8, 128, 64), (16, 128, 64))
-# --sweep: (stage bytes, stages, consumer threads, tiles a block) against
-# tma_plan's own, at these (kind, nc, Y, Xh, bf16).
-SWEEP = ((20480, 4, 256, 4), (20480, 3, 256, 4), (10240, 3, 256, 4),
-         (10240, 3, 128, 4), (10240, 2, 128, 4), (5120, 2, 64, 4),
-         (10240, 4, 128, 8))
-SWEEP_CASES = (("K4", 16, 128, 64, False), ("K4", 1, 2048, 1024, False),
-               ("K4", 2, 2048, 1024, False), ("K4", 1, 512, 256, False),
-               ("K4", 8, 512, 256, False), ("K4", 16, 128, 64, True))
-
-# --- the TMA design's plan (csrc/dslash_tma.cu mirrors its arithmetic) ---
-
-TMA_STAGE_BYTES = 20480     # channel bytes a stage holds, at most
-TMA_STAGES = 2              # stages of the ring
-TMA_THREADS = 256           # consumer threads a block, at most
-TMA_TILES_PER_BLOCK = 4     # tiles a block walks, at least, where possible
-BARRIER_BYTES = 128         # the stages' mbarriers, before the ring
-MAX_SMEM = 232448           # a block's dynamic shared memory on an H100
-# What an H100 SM holds: threads, 32-bit registers, shared memory (of which
-# 1 KB a block is the system's), blocks; and the kernel's registers a
-# thread, at most (ptxas reports 39-66).
-SM_THREADS, SM_REGISTERS, SM_SMEM, SM_BLOCKS = 2048, 65536, 233472, 32
-TMA_REGISTERS = 64
-
-
-class TmaPlan(NamedTuple):
-    """``sites`` consecutive sites of one parity a tile, ``stages`` tiles
-    in a block's ring, ``smem`` bytes of dynamic shared memory, ``blocks``
-    blocks of ``threads`` consumer threads and one producer warp (the C
-    entries' integers, in this order)."""
-    sites: int
-    stages: int
-    smem: int
-    blocks: int
-    threads: int
-
-
-def run_stride(sites: int, site_bytes: int) -> int:
-    """Bytes of one term's run in a stage: ``sites`` sites of
-    ``site_bytes``, widened to 16 bytes at both ends, rounded up to 128."""
-    widened = -(-sites * site_bytes // 16) * 16 + (16 if site_bytes % 16
-                                                   else 0)
-    return -(-widened // 128) * 128
-
-
-def resident_blocks(threads: int, smem: int) -> int:
-    """Blocks of ``threads`` consumers, a producer warp and ``smem`` bytes
-    of dynamic shared memory that one SM holds at once."""
-    width = threads + 32
-    return max(1, min(SM_THREADS // width,
-                      SM_REGISTERS // (TMA_REGISTERS * width),
-                      SM_SMEM // (smem + 1024), SM_BLOCKS))
-
-
-def tma_plan(nc, y_len, xh_len, coeff_dtype=None, sms=132,
-             stage_bytes=TMA_STAGE_BYTES, stages=TMA_STAGES,
-             threads=TMA_THREADS, tiles_per_block=TMA_TILES_PER_BLOCK,
-             stage_x=False):
-    """The TMA kernel's plan for (2, Y, Xh, nc) fields: tiles of
-    ``threads`` work items of a thread or a power of two more, up to
-    ``stage_bytes`` of channels (and, with ``stage_x``, no more sites
-    than a row holds), halved until the lattice has ``tiles_per_block``
-    tiles for each block the card holds at once; blocks of fewer
-    consumers (down to one warp) where it has fewer tiles than SMs; a
-    persistent grid; ``stages`` stages, fewer where a block walks fewer
-    tiles. With ``stage_x`` a tile lies within a storage row and its stage
-    holds four x runs besides the five channel runs."""
-    coeff_bytes = 4 if coeff_dtype == torch.bfloat16 else 8
-    site_bytes = nc * nc * coeff_bytes
-    items = nc * dk.lanes(nc, coeff_bytes)  # threads' work items a site
-    half = y_len * xh_len
-
-    def tile_sites(k, threads):
-        return max(1, k * threads // items)
-
-    def tiles(k, threads):
-        sites = tile_sites(k, threads)
-        if stage_x:
-            return 2 * y_len * -(-xh_len // sites)
-        return 2 * -(-half // sites)
-
-    def smem(sites, stages):
-        return BARRIER_BYTES + stages * stage_size(nc, coeff_bytes, sites,
-                                                   stage_x)
-
-    k = 1     # work items a thread a tile: the most whose tile fits a stage
-    while 5 * site_bytes * tile_sites(2 * k, threads) <= stage_bytes:
-        k *= 2
-    while stage_x and k > 1 and tile_sites(k, threads) > xh_len:
-        k //= 2
-    while k > 1 and tiles(k, threads) < tiles_per_block * sms * \
-            resident_blocks(threads, smem(tile_sites(k, threads), stages)):
-        k //= 2
-    while threads > 32 and tile_sites(k, threads) > 1 and \
-            tiles(k, threads) < sms:
-        threads //= 2
-    sites = tile_sites(k, threads)
-    n_tiles = tiles(k, threads)
-    blocks = min(n_tiles, sms * resident_blocks(threads,
-                                                smem(sites, stages)))
-    stages = min(stages, -(-n_tiles // blocks))
-    return TmaPlan(sites, stages, smem(sites, stages), blocks, threads)
-
-
-def stage_size(nc, coeff_bytes, sites, stage_x):
-    """Bytes of a stage: five channel runs, with ``stage_x`` four x runs
-    of ``sites`` + 2 sites."""
-    return 5 * run_stride(sites, nc * nc * coeff_bytes) + (
-        4 * run_stride(sites + 2, nc * 8) if stage_x else 0)
-
-
-class Tiles(NamedTuple):
-    """The TMA kernel's tiles under a plan, tile k at row k (block b takes
-    tiles b, b + blocks, ...), as int64 tensors: each tile's parity ``q``,
-    first site ``rem0`` of that parity and site count ``count``, shape
-    (tiles,); its bulk copies at columns 0-4 (the channel runs of terms
-    0-4) and, with x staged, 5-8 (x's four runs), shape (tiles, 5 or 9):
-    ``src`` and ``nbytes`` in bytes of the channel tensor (of x from column
-    5), ``dst`` in bytes of the stage, the run's first site at ``dst +
-    shift``; ``first`` and ``sites``: the run's first element and its
-    length, in sites of the tensor."""
-    q: torch.Tensor
-    rem0: torch.Tensor
-    count: torch.Tensor
-    src: torch.Tensor
-    nbytes: torch.Tensor
-    dst: torch.Tensor
-    shift: torch.Tensor
-    first: torch.Tensor
-    sites: torch.Tensor
-
-
-def _row_pm(row, y_len, split):
-    """Storage rows +y and -y of storage ``row`` (x_runs' row map, as
-    dslash.cu's stencil_sources)."""
-    if not split:
-        return (row + 1) % y_len, (row - 1) % y_len
-    yh = y_len // 2
-    r = row >= yh
-    m = row - r * yh
-    return (torch.where(r, (m + 1) % yh, yh + m),
-            torch.where(r, m, yh + (m - 1) % yh))
-
-
-def _widened(first, count, nbytes):
-    start = first * nbytes
-    lo = start // 16 * 16
-    return lo, -(-(start + count * nbytes) // 16) * 16 - lo, start - lo
-
-
-def tma_tiles(plan: TmaPlan, nc: int, y_len: int, xh_len: int,
-              coeff_dtype=None, stage_x=False, split=False) -> Tiles:
-    """The TMA kernel's tiles and bulk copies under ``plan``, as it makes
-    them (``tile_at``, ``x_runs`` and the producer's loop in
-    csrc/dslash_tma.cu), for the interleaved layout or the ``split``
-    one."""
-    coeff_bytes = 4 if coeff_dtype == torch.bfloat16 else 8
-    site_bytes = nc * nc * coeff_bytes
-    half = y_len * xh_len
-    S = plan.sites
-    if stage_x:
-        tpr = -(-xh_len // S)
-        k = torch.arange(2 * y_len * tpr, dtype=torch.int64)
-        q = k // (y_len * tpr)
-        j = k - q * y_len * tpr
-        row, x0 = j // tpr, (j % tpr) * S
-        rem0, count = row * xh_len + x0, torch.clamp(xh_len - x0, max=S)
-    else:
-        per = -(-half // S)
-        k = torch.arange(2 * per, dtype=torch.int64)
-        q = k // per
-        rem0 = (k - q * per) * S
-        count = torch.clamp(half - rem0, max=S)
-    t = torch.arange(5, dtype=torch.int64)
-    first = (2 * t + q[:, None]) * half + rem0[:, None]
-    sites = count[:, None].expand_as(first)
-    lo, nbytes, shift = _widened(first, sites, site_bytes)
-    dst = (t * run_stride(S, site_bytes)).expand_as(lo)
-    if stage_x:
-        other = (1 - q) * half
-        yp, ym = _row_pm(row, y_len, split)
-        a = torch.clamp(x0 - 1, min=0)
-        b = torch.clamp(x0 + count + 1, max=xh_len)
-        xfirst = torch.stack([q * half + rem0, other + row * xh_len + a,
-                              other + yp * xh_len + x0,
-                              other + ym * xh_len + x0], 1)
-        xsites = torch.stack([count, b - a, count, count], 1)
-        xlo, xn, xshift = _widened(xfirst, xsites, nc * 8)
-        xdst = (5 * run_stride(S, site_bytes) + torch.arange(4) *
-                run_stride(S + 2, nc * 8)).expand_as(xlo)
-        lo, nbytes, dst, shift = (torch.cat(p, 1) for p in (
-            (lo, xlo), (nbytes, xn), (dst, xdst), (shift, xshift)))
-        first = torch.cat([first, xfirst], 1)
-        sites = torch.cat([sites, xsites], 1)
-    return Tiles(q, rem0, count, lo, nbytes, dst, shift, first, sites)
 
 
 # --- timing ---
@@ -287,9 +81,8 @@ def nvcc_build(src, tag, extra=()):
     """Build ``src`` with the port's nvcc flags (and ``extra``) into the
     build directory; returns (library path, nvcc's standard error)."""
     digest = hashlib.sha256(" ".join(extra).encode())
-    for path in (src, os.path.join(CSRC_DIR, dk.SOURCE)):  # and its include
-        with open(path, "rb") as f:
-            digest.update(f.read())
+    with open(src, "rb") as f:
+        digest.update(f.read())
     digest = digest.hexdigest()[:16]
     os.makedirs(BUILD_DIR, exist_ok=True)
     out = os.path.join(BUILD_DIR, f"lib{tag}-{digest}.so")
@@ -352,14 +145,14 @@ def c_call(fn, ch, x, nc, dims):
     return call
 
 
-def load_lib(path, tag, names, ints):
-    """``path`` built and loaded, its launchers ``names`` typed with
-    ``ints`` integers after (nc, rows, Xh)."""
-    lib = ctypes.CDLL(nvcc_build(path, tag)[0])
-    for name in names:
+def load_old(path):
+    """``path`` built and loaded, its K4 / K5 entries typed as the port's
+    (``dslash_kernel.build_dslash``)."""
+    lib = ctypes.CDLL(nvcc_build(path, "dslash_old")[0])
+    for name in ("dslash_launch", "dslash_split_launch"):
         getattr(lib, name).argtypes = ([ctypes.c_void_p, ctypes.c_int] +
                                        [ctypes.c_void_p] * 2 +
-                                       [ctypes.c_int] * (3 + ints) +
+                                       [ctypes.c_int] * 3 +
                                        [ctypes.c_void_p])
         getattr(lib, name).restype = ctypes.c_int
     return lib
@@ -370,7 +163,6 @@ def variants(kind, nc, ch, x, libs):
     dk.build_dslash()
     rows, xh = (x.shape[1], x.shape[2]) if kind == "K4" else (x.shape[2],
                                                               x.shape[3])
-    y_len = rows if kind == "K4" else 2 * rows
     split = "" if kind == "K4" else "split_"
     out = {}
     if "old" in libs:
@@ -379,11 +171,6 @@ def variants(kind, nc, ch, x, libs):
     out["b"] = c_call(dk._LIB["dslash_small_interleaved_launch"
                               if kind == "K4" else "dslash_small_launch"],
                       ch, x, nc, (rows, xh))
-    sms = dk._sm_count(x.device.index)
-    for label, stage_x in (("c", 0), ("d", 1)):
-        plan = tma_plan(nc, y_len, xh, ch.dtype, sms, stage_x=stage_x)
-        out[label] = c_call(getattr(libs["tma"], f"dslash_tma_{split}launch"),
-                            ch, x, nc, (rows, xh, *plan, stage_x))
     bound = dk.bind_apply(dk.dslash_apply if kind == "K4"
                           else dk.dslash_split_apply, ch, x.shape)
     out["k"] = lambda: bound(x)
@@ -440,36 +227,10 @@ def case_line(kind, nc, y_len, xh, bf16, libs, card):
           f"({bytes_moved / 1e6:.1f} MB); {card}", flush=True)
 
 
-def sweep_line(kind, nc, y_len, xh, bf16, libs, card):
-    dev = torch.device("cuda", 0)
-    ch, x = inputs(kind, nc, y_len, xh, bf16, dev)
-    twin = (dk.dslash_apply_plain if kind == "K4"
-            else dk.dslash_split_apply_plain)(ch, x)
-    split = "" if kind == "K4" else "split_"
-    fn = getattr(libs["tma"], f"dslash_tma_{split}launch")
-    rows = y_len if kind == "K4" else y_len // 2
-    sms = dk._sm_count(dev.index)
-    for label, stage_x in (("c", 0), ("d", 1)):
-        parts = []
-        for args in (None,) + SWEEP:
-            plan = tma_plan(nc, y_len, xh, ch.dtype, sms, *(args or ()),
-                            stage_x=stage_x)
-            call = c_call(fn, ch, x, nc, (rows, xh, *plan, stage_x))
-            check(str(args), call, twin, (kind, nc, y_len, xh))
-            t = min(graph_us(call), graph_us(call))
-            parts.append(f"{'plan' if args is None else args} -> "
-                         f"{tuple(plan)}: {t:.2f}")
-        print(f"sweep ({label}) {kind} nc={nc} {2 * xh}x{y_len} "
-              f"{'bf16' if bf16 else 'c64'} (stage bytes, stages, threads, "
-              f"tiles a block) -> plan: us; " + "; ".join(parts) +
-              f"; {card}", flush=True)
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--old-source", help="a dslash.cu whose K4/K5 entries "
-                    "take no grid: variant (a)")
-    ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--old-source", help="another dslash.cu with the same "
+                    "K4/K5 entries: variant (a)")
     ap.add_argument("--ptxas", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -478,29 +239,20 @@ def main(argv=None):
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     print(f"card: {card}; torch {torch.__version__}", flush=True)
-    sources = {"new": os.path.join(CSRC_DIR, dk.SOURCE), "tma": TMA_SOURCE}
+    sources = {"new": os.path.join(CSRC_DIR, dk.SOURCE)}
     if args.old_source:
         sources["old"] = args.old_source
     if args.ptxas:
         for tag, src in sources.items():
             for line in ptxas_report(src, tag):
                 print(line, flush=True)
-    libs = {"tma": load_lib(TMA_SOURCE, "dslash_tma",
-                            ("dslash_tma_launch", "dslash_tma_split_launch"),
-                            6)}
-    if args.old_source:
-        libs["old"] = load_lib(args.old_source, "dslash_old",
-                               ("dslash_launch", "dslash_split_launch"), 0)
+    libs = {"old": load_old(args.old_source)} if args.old_source else {}
     check_small(libs)
     for nc, y_len, xh in STREAM_SHAPES + PATH_SHAPES:
         for kind in ("K4", "K5"):
             for bf16 in (False, True):
                 case_line(kind, nc, y_len, xh, bf16, libs, card)
                 torch.cuda.empty_cache()
-    if args.sweep:
-        for case in SWEEP_CASES:
-            sweep_line(*case, libs, card)
-            torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

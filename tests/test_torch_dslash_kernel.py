@@ -15,6 +15,8 @@ The kernel-vs-twin tests carry the ``cuda`` marker and skip where there
 is no CUDA device.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -319,89 +321,47 @@ def test_bind_apply_checks_once(kind, nc, y_len, xh, device, message):
         dk.bind_apply(WRAPPERS[kind], ch, x.shape)
 
 
-PLAN_SHAPES = {"2x2": (2, 1), "16x8": (8, 8), "64x48": (48, 32),
-               "ragged": (6, 5), "128x128": (128, 64), "512x512": (512, 256),
-               "2048x2048": (2048, 1024)}
-PLAN_CASES = [pytest.param(nc, bf16, shape, id=f"nc{nc}-{tag}-{name}")
-              for nc in dk.SUPPORTED_NC
-              for bf16, tag in ((False, "f32"), (True, "bf16"))
-              for name, shape in PLAN_SHAPES.items()]
+TWIN_SHAPES = {"2x2": (2, 1), "16x8": (8, 8), "64x48": (48, 32),
+               "ragged": (6, 5)}
 
 
-@pytest.mark.parametrize("nc, bf16, shape", PLAN_CASES)
-def test_dslash_plan(nc, bf16, shape):
-    """K4/K5's grid on an H100's 132 SMs: a thread for every work item (a
-    site at nc = 1, a lane of an output row otherwise), no block without
-    one, whole warps of at most 256 threads, K6's rule for the block size
-    (halved only while the grid has fewer blocks than SMs), and a block of
-    256 for each SM at 2048^2."""
-    y_len, xh = shape
-    dtype = torch.bfloat16 if bf16 else None
-    plan = dk.dslash_plan(nc, y_len, xh, dtype, 132)
-    lanes = dk.lanes(nc, 4 if bf16 else 8)
-    items = 2 * y_len * xh * (1 if nc == 1 else nc * lanes)
-    assert dk.work_items(nc, y_len, xh, dtype) == items
-    assert (plan.blocks - 1) * plan.threads < items
-    assert plan.blocks * plan.threads >= items
-    assert 32 <= plan.threads <= 256 and plan.threads % 32 == 0
-    assert plan.threads == 32 or plan.threads == 256 or plan.blocks >= 132
-    assert plan.threads == 256 or -(-items // (2 * plan.threads)) < 132
-    if shape == (2048, 1024):
-        assert plan.blocks >= 132 and plan.threads == 256
+@functools.lru_cache(maxsize=None)
+def _exact_in_bf16(nc, y_len, xh):
+    """(port coefficients, x, qmg_tpu's apply_M(x)) for random clover and
+    hopping whose real and imaginary parts bf16 holds exactly, with no
+    shifts: the bf16 channels are then the complex64 ones."""
+    x_len = 2 * xh
+    lat = Lattice2D(x_len, y_len, nc)
+    rng = np.random.default_rng(100 * nc + 10 * y_len + xh)
+
+    def exact(shape):
+        parts = torch.view_as_real(torch.as_tensor(_cfield(rng, shape)))
+        return torch.view_as_complex(parts.to(torch.bfloat16).float())
+
+    clover, hopping = exact(lat.cm_shape()), exact((4,) + lat.cm_shape())
+    jc = jstencil.make_coeffs(lat, clover=jnp.asarray(clover.numpy()),
+                              hopping=jnp.asarray(hopping.numpy()),
+                              dtype=jnp.complex64)
+    tc = tmake_coeffs(TLattice2D(x_len, y_len, nc), clover=clover,
+                      hopping=hopping, dtype=torch.complex64)
+    x = _cfield(rng, lat.cv_shape())
+    return tc, x, np.asarray(jstencil.apply_M(jc, jnp.asarray(x)))
 
 
-@pytest.mark.parametrize("nc, bf16, shape", PLAN_CASES)
-def test_tma_plan(nc, bf16, shape):
-    """The TMA designs' plans (qmg_tpu_torch.stencil_bench, the variants
-    that K4/K5 were measured against; x staged or not, each layout) on
-    132 SMs: the tiles cover every site of both parities once (within a
-    storage row when x is staged); every bulk copy starts, lands and ends
-    on 16-byte boundaries, holds its run and stays inside its tensor and
-    its stage; the ring fits a block's shared memory; every warp takes
-    part in every shuffle; the grid is persistent (no more blocks than
-    tiles) and has a block for each of 132 SMs at 2048^2."""
-    from qmg_tpu_torch import stencil_bench as sb
-    y_len, xh = shape
-    dtype = torch.bfloat16 if bf16 else None
-    half = y_len * xh
-    site_bytes = nc * nc * (4 if bf16 else 8)
-    lanes = dk.lanes(nc, 4 if bf16 else 8)
-    for stage_x, split in ((False, False), (True, False), (True, True)):
-        plan = sb.tma_plan(nc, y_len, xh, dtype, 132, stage_x=stage_x)
-        tiles = sb.tma_tiles(plan, nc, y_len, xh, dtype, stage_x, split)
-        for q in (0, 1):
-            mine = tiles.q == q
-            rem0, count = tiles.rem0[mine], tiles.count[mine]
-            order = torch.argsort(rem0)
-            rem0, count = rem0[order], count[order]
-            assert int(rem0[0]) == 0 and int(rem0[-1] + count[-1]) == half
-            assert torch.equal(rem0[1:], rem0[:-1] + count[:-1])
-            assert int(count.min()) >= 1 and int(count.max()) <= plan.sites
-            if stage_x:     # a tile's sites lie in one row
-                assert torch.equal(rem0 // xh, (rem0 + count - 1) // xh)
-        for field in (tiles.src, tiles.nbytes, tiles.dst):
-            assert not bool((field % 16).any())
-        elem = torch.tensor([site_bytes] * 5 + [nc * 8] * 4)[
-            :tiles.src.shape[1]]
-        assert torch.equal(tiles.src + tiles.shift, tiles.first * elem)
-        slack = tiles.nbytes - tiles.shift - tiles.sites * elem
-        assert int(slack.min()) >= 0 and int(slack.max()) < 16
-        limit = torch.tensor([10 * half * site_bytes] * 5
-                             + [2 * half * nc * 8] * 4)[:elem.numel()]
-        assert bool(((tiles.src + tiles.nbytes) <= limit).all())
-        assert torch.equal(tiles.first[:, 0], tiles.q * half + tiles.rem0)
-        size = sb.stage_size(nc, 4 if bf16 else 8, plan.sites, stage_x)
-        assert int((tiles.dst + tiles.nbytes).max()) <= size
-        assert bool((tiles.dst[:, 1:] >= tiles.dst[:, :-1]
-                     + tiles.nbytes[:, :-1]).all())   # no overlap
-        assert int(tiles.nbytes.sum(1).max()) < 2 ** 20   # mbarrier tx
-        assert plan.smem == sb.BARRIER_BYTES + plan.stages * size
-        assert plan.smem <= 232448 and 1 <= plan.stages <= 8
-        assert 32 <= plan.threads <= 256 and plan.threads % 32 == 0
-        assert plan.sites * nc * lanes % plan.threads == 0
-        assert 1 <= plan.blocks <= tiles.q.numel()
-        if shape == (2048, 1024):
-            assert plan.blocks >= 132
+@pytest.mark.parametrize("kind", ["K4", "K5"])
+@pytest.mark.parametrize("nc", list(dk.SUPPORTED_NC))
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", list(TWIN_SHAPES.values()),
+                         ids=list(TWIN_SHAPES))
+def test_twin_matches_apply_m_at_every_nc(kind, nc, bf16, shape):
+    """K4's and K5's twins (what their wrappers run on the CPU, and what
+    the card tests hold the kernels to) against qmg_tpu's ``apply_M`` at
+    every nc, with complex64 and bf16 channels, on the card tests' shapes
+    (2x2, 16x8, 64x48 and the ragged 10x6, an odd Xh)."""
+    tc, x, expect = _exact_in_bf16(nc, *shape)
+    got = _port_out(kind, tc, x, torch.bfloat16 if bf16 else None)
+    np.testing.assert_allclose(got, expect,
+                               atol=TOL * np.max(np.abs(expect)))
 
 
 def test_apply_bytes_is_the_documented_count():
@@ -496,3 +456,31 @@ def test_kernel_refuses_misaligned_view_on_card(cuda_device, kind, operand):
     with pytest.raises(ValueError, match="16-byte aligned"):
         dk.bind_apply(wrapper, ch, x.shape)(x)
     assert wrapper.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["K4", "K5"])
+@pytest.mark.parametrize("nc, bf16", [(1, False), (1, True), (8, False)],
+                         ids=["nc1-f32", "nc1-bf16", "nc8-f32"])
+def test_rows_body_takes_element_aligned_views_on_card(cuda_device, kind,
+                                                       nc, bf16):
+    """Where a thread takes an output row (nc = 1, and nc = 8 with
+    complex64 channels), K4 and K5 need one element's alignment: x 8 bytes
+    and channels 8 (bf16: 4) bytes past a 16-byte boundary give what
+    aligned copies give, through the wrapper and bind_apply."""
+    ch, x = _inputs(kind, nc, 8, 4, cuda_device, bf16=bf16, seed=11)
+
+    def shifted(t, elems):
+        buf = torch.empty(t.numel() + elems, dtype=t.dtype,
+                          device=cuda_device)
+        return buf[elems:].view(t.shape).copy_(t)
+
+    xv, chv = shifted(x, 1), shifted(ch, 2 if bf16 else 1)
+    assert xv.data_ptr() % 16 == 8
+    assert chv.data_ptr() % 16 == (4 if bf16 else 8)
+    wrapper = WRAPPERS[kind]
+    want = wrapper(ch, x)
+    before = wrapper.launches
+    assert torch.equal(wrapper(chv, xv), want)
+    assert torch.equal(dk.bind_apply(wrapper, chv, xv.shape)(xv), want)
+    assert wrapper.launches == before + 2
