@@ -182,6 +182,25 @@ fallback). Phases, any failure exits non-zero:
      plain apply's on the same configurations; (d) the same entry at
      512^2, 3 configurations: seconds per configuration and K4 launches.
 
+ 21. the two examples' entry points: (a) ``wilson_kcycle.run(256, -0.075,
+     6.0, 2, spectrum_nev=4, coarsest_direct=True)`` in complex128 (the n13
+     study at the reference's fixture size: the example's heatbath, setup
+     with the dense coarsest inverse, since the example's GCR coarsest
+     stagnates at two refinements, mg.solve to 1e-10): converged, true
+     residual <= 1e-9, qmg_tpu's outer count (``JAX_ITERS_256_N13``), the 4
+     fine eigenpairs nearest 0 with ||M v - lambda v|| / |lambda| <= 1e-6,
+     and a second solve with ``VerboseMG(DETAIL, SUMMARY)`` printing one
+     outer iteration line per outer iteration and summary lines for every
+     level that runs a Krylov solve (all but the direct coarsest); heatbath
+     s, setup s, solve ms; (b) the dense spectrum and the colinear study at
+     16^2 (16 vectors; 32^2 put the phase over 120 s): the lowest mode's
+     ||(1 - P P^dag) v|| below the highest kept mode's; (c)
+     ``wilson_tpu_solve.run(512, -0.06, n_refine=3)`` with a checkpoint in
+     a temporary directory, twice (the second restores it and takes the
+     same outer count), then with ``schur=True``: true residuals <= 10 tol,
+     outer counts within +-2 of qmg_tpu's (``JAX_ITERS_512_TPU_SOLVE``), K1
+     launched in the standard solves and not in the Schur one.
+
 The last two lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}.
 """
@@ -234,6 +253,30 @@ JAX_ITERS_512_DEFLATE = 9
 # one pass and with none, from ``python tests/test_torch_adaptive.py
 # --size 512`` (qmg_tpu's setup takes ~26 min there).
 JAX_ITERS_512_ADAPTIVE = (11, 31)
+# Outer iterations of qmg_tpu's own n13 study at 256^2 (its heatbath
+# configuration from QMGRandom(1337), complex128, tol 1e-10) with the dense
+# coarsest inverse, from ``PYTHONPATH=. JAX_PLATFORMS=cpu python
+# tests/test_torch_examples.py --n13 256`` (examples/wilson_kcycle.py 256
+# -0.075 6.0 2 --cpu, its setup wrapped to set coarsest_direct: the
+# example's restarted-GCR coarsest stagnates from two refinements on, in
+# both packages).
+N13_ARGS = (256, -0.075, 6.0, 2)
+JAX_ITERS_256_N13 = 21
+N13_TRUE_RES = 1e-9
+N13_SPECTRUM_NEV = 4
+N13_EIG_RES = 1e-6
+# The colinear study at 16^2 (the CPU tests' size): at 32^2 it took 21.5 s
+# of the card's 124.8 s phase (two host eigensystems of 2048 and 512
+# dimensions), over the phase's 120 s.
+COLINEAR_ARGS = (16, -0.075, 6.0, 1)
+COLINEAR_NEV = 16
+# Outer iterations of qmg_tpu's example solve at 512^2 (gauss gauge beta 6
+# from QMGRandom(1337), m = -0.06, complex64, tol 1e-5, three
+# refinements), standard and n19 Schur, from ``PYTHONPATH=.
+# JAX_PLATFORMS=cpu python tests/test_torch_examples.py --tpu-solve 512``
+# (examples/wilson_tpu_solve.py 512 -0.06 --n-refine 3 [--schur]).
+TPU_SOLVE_ARGS = (512, -0.06, 3)
+JAX_ITERS_512_TPU_SOLVE = (9, 6)
 ADAPTIVE_SIZE = 512       # phase 19's lattice: phase 4's problem
 DEFLATE_N = 8
 DEFLATE_SIZES = (512, 2048)   # phase 18's lattices
@@ -1860,6 +1903,114 @@ def goldstone_phase(torch, dk, dev):
     return launches
 
 
+def examples_phase(torch, wk, dev):
+    """Phase 21: the n13 study, its spectrum and colinearity legs, and the
+    checkpointed solve. Returns K1's launches over (c)'s standard solves,
+    the count set to 0 just before them."""
+    import contextlib
+    import io
+    import tempfile
+    from qmg_tpu_torch import wilson_kcycle, wilson_tpu_solve
+    from qmg_tpu_torch.solvers import VerboseMG, Verbosity
+    t0 = time.perf_counter()
+
+    # (a) the n13 study at 256^2, complex128
+    L, mass, beta, n_refine = N13_ARGS
+    r = wilson_kcycle.run(L, mass, beta, n_refine, spectrum=True,
+                          spectrum_nev=N13_SPECTRUM_NEV,
+                          coarsest_direct=True, device=dev)
+    print(f"--- n13 {L}^2 complex128 on {dev}: heatbath {r['heatbath_s']:.3f}"
+          f" s, setup {r['setup_s']:.3f} s, solve {r['solve_s'] * 1e3:.1f} "
+          f"ms, {r['iters']} outer iterations (qmg_tpu "
+          f"{JAX_ITERS_256_N13}), true residual {r['resid']:.3e}; fine "
+          f"eigenpair residuals "
+          + ", ".join(f"{e:.2e}" for e in r["fine_eig_res"])
+          + f"; (a) took {time.perf_counter() - t0:.1f} s", flush=True)
+    check(r["converged"] and r["resid"] <= N13_TRUE_RES,
+          f"n13 {L}^2: converged {r['converged']}, true residual "
+          f"{r['resid']:.3e} > {N13_TRUE_RES}")
+    check(r["iters"] == JAX_ITERS_256_N13,
+          f"n13 {L}^2: {r['iters']} outer iterations, qmg_tpu "
+          f"{JAX_ITERS_256_N13}")
+    check(len(r["fine_eig_res"]) == N13_SPECTRUM_NEV
+          and max(r["fine_eig_res"]) <= N13_EIG_RES,
+          f"n13 {L}^2 fine eigenpair residuals {r['fine_eig_res']}")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = r["mg"].solve(r["b"], tol=1e-10, max_iter=1000,
+                            restart_freq=32,
+                            verbose=VerboseMG(Verbosity.DETAIL,
+                                              Verbosity.SUMMARY))
+    lines = out.getvalue().splitlines()
+    outer = [ln for ln in lines if "Level 0 iter " in ln]
+    # Every level that runs a Krylov solve: all but a direct coarsest.
+    iterative = r["levels"] - int(r["mg"].coarsest_solve.direct)
+    summaries = {lvl: sum(f"Level {lvl} " in ln and "summary:" in ln
+                          for ln in lines) for lvl in range(iterative)}
+    print(f"verbose solve: {res.iters} outer iterations, {len(outer)} outer "
+          f"iteration lines, summary lines by level {summaries}; last "
+          f"{lines[-1].strip() if lines else None}", flush=True)
+    check(bool(res.converged) and len(outer) == res.iters
+          and all(summaries.values()),
+          f"the verbose n13 solve: {res.iters} iterations, {len(outer)} "
+          f"iteration lines, summaries {summaries}")
+    del r, res
+
+    # (b) the dense spectrum and the colinear study at 32^2
+    t1 = time.perf_counter()
+    L, mass, beta, n_refine = COLINEAR_ARGS
+    r = wilson_kcycle.run(
+        L, mass, beta, n_refine, spectrum=True, colinear=True,
+        colinear_nev=COLINEAR_NEV, device=dev,
+        out=lambda ln: None if "SPECTRUM]" in ln else print(ln))
+    rows = r["overlap"]
+    print(f"--- n13 colinear {L}^2: onePP lowest {rows[0][3]:.4f}, highest "
+          f"kept {rows[-1][3]:.4f}; onePAPA {rows[0][4]:.4f} / "
+          f"{rows[-1][4]:.4f}; {len(r['spectra'][0])} fine and "
+          f"{len(r['spectra'][1])} coarse eigenvalues; (b) took "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
+    check(r["converged"] and len(rows) == COLINEAR_NEV
+          and all(row[5] for row in rows) and rows[0][3] < rows[-1][3],
+          f"the colinear study at {L}^2: {rows}")
+    del r
+
+    # (c) the checkpointed solve at 512^2, and the Schur solve
+    t1 = time.perf_counter()
+    L, mass, n_refine = TPU_SOLVE_ARGS
+    wk.wilson_r1_apply.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "mg.npz")
+        runs = [wilson_tpu_solve.run(L, mass, n_refine=n_refine, ckpt=ckpt,
+                                     device=dev) for _ in range(2)]
+    launches = wk.wilson_r1_apply.launches
+    runs.append(wilson_tpu_solve.run(L, mass, n_refine=n_refine,
+                                     schur=True, device=dev))
+    for run, want in zip(runs, (JAX_ITERS_512_TPU_SOLVE[0],) * 2
+                         + (JAX_ITERS_512_TPU_SOLVE[1],)):
+        kind = ("schur" if run["schur"] else
+                "restored" if run["restored"] else "built")
+        setup = ("restored" if run["setup_s"] is None
+                 else f"{run['setup_s']:.3f} s")
+        print(f"wilson_tpu_solve {L}^2 {kind}: setup {setup}, first solve "
+              f"{run['first_s']:.3f} s, timed solve "
+              f"{run['solve_ms']:.1f} ms, {run['iters']} outer iterations "
+              f"(qmg_tpu {want}), true residual {run['resid']:.2e}, K1 "
+              f"launches {run['k1_launches']}", flush=True)
+        check(run["ok"] and abs(run["iters"] - want) <= 2,
+              f"wilson_tpu_solve {kind}: {run['iters']} outer iterations "
+              f"(qmg_tpu {want}), true residual {run['resid']:.2e}")
+        check((run["k1_launches"] > 0) != run["schur"],
+              f"wilson_tpu_solve {kind}: {run['k1_launches']} K1 launches")
+    check(not runs[0]["restored"] and runs[1]["restored"]
+          and runs[1]["iters"] == runs[0]["iters"],
+          f"the restored hierarchy took {runs[1]['iters']} outer "
+          f"iterations, the built one {runs[0]['iters']}")
+    print(f"phase 21 took {time.perf_counter() - t0:.1f} s ((c) "
+          f"{time.perf_counter() - t1:.1f} s); K1 launches over the "
+          f"standard checkpointed runs {launches}", flush=True)
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1966,6 +2117,10 @@ def main():
     staggered_solve_phase(torch, dk, dev)
     nc1_launches = goldstone_phase(torch, dk, dev)
 
+    # --- 21. the examples' entry points ---
+    phase("21. the examples' entry points")
+    tpu_solve_launches = examples_phase(torch, wk, dev)
+
     # Each Wilson kernel at its path's shape: K1 the 512^2 solve, K2 the
     # 2048^2 solve, K3 the 2048^2 chain.
     kernels = []
@@ -1985,6 +2140,8 @@ def main():
             "device_ms": dev_ms})
         if name in adaptive_launches:
             kernels[-1]["adaptive_launches"] = adaptive_launches[name]
+        if name == "wilson_r1":
+            kernels[-1]["tpu_solve_launches"] = tpu_solve_launches
     k_ms, k_plain, k_bound, k_by, k_wrapper, k_dev = halo_times
     kernels.append({
         "name": "wilson_r1_halo", "route": "cuda",

@@ -91,7 +91,10 @@ def load_hierarchy(path: str, fine_stencil: Stencil2D, *, device="cuda"
     caller asks for another) around ``fine_stencil``, the caller's level-0
     operator (it owns the gauge field), which must live there and match
     the file's fine lattice. The coarse levels take their saved
-    coefficients (no Galerkin build) and their saved dtype."""
+    coefficients (no Galerkin build) in the fine stencil's dtype: qmg_tpu
+    with 64-bit types on saves a complex64 hierarchy with some arrays in
+    complex128 (the null vectors, a level's clover, the dense inverse),
+    and one tensor dtype serves every level's fields."""
     data = np.load(path)
     meta = json.loads(bytes(data["__meta__"]).decode())
     if meta["version"] not in (1, 2, FORMAT_VERSION):
@@ -108,8 +111,10 @@ def load_hierarchy(path: str, fine_stencil: Stencil2D, *, device="cuda"
     if lat0 != fine_stencil.lat:
         raise ValueError("fine stencil lattice does not match checkpoint")
 
+    dtype = fine_stencil.coeffs.ref.dtype
+
     def tensor(key):
-        return torch.as_tensor(data[key]).to(device)
+        return torch.as_tensor(data[key]).to(device=device, dtype=dtype)
 
     cs = CoarsestSolveMG(**{
         **meta["coarsest"],
@@ -138,7 +143,7 @@ def load_hierarchy(path: str, fine_stencil: Stencil2D, *, device="cuda"
             hopping=(tensor(f"hopping{lvl}") if f"hopping{lvl}" in data
                      else None),
             shift=shifts[0], eo_shift=shifts[1], dof_shift=shifts[2],
-            dtype=clover.dtype if clover is not None else torch.complex128)
+            dtype=dtype)
         is_chiral, dc = meta["chirality"][lvl]
         st = CoarseOperator2D.from_coeffs(coeffs, t, is_chiral=is_chiral)
         st._default_chirality = DefaultChirality(dc)

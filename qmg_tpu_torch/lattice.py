@@ -56,6 +56,12 @@ class Lattice2D:
     def with_nc(self, nc: int) -> "Lattice2D":
         return Lattice2D(self.x_len, self.y_len, nc)
 
+    def coord_to_pyx(self, x: int, y: int):
+        """(x, y) -> (parity, y, xh) of that site in the eo layout."""
+        if self.volume == 1:
+            return 0, 0, 0
+        return (x + y) % 2, y, (x // 2) % self.xh
+
     def cv_shape(self):
         """(2, Y, X/2, nc) color-vector field."""
         return (2, self.y_len, self.xh, self.nc)

@@ -188,6 +188,16 @@ def _hierarchy_guard(mg: StatefulMultigridMG):
     return check
 
 
+def _outer_verbose(v: solvers.VerboseMG):
+    """The outer solve's print struct: the caller's, its prefix
+    "[QMG-MG-SOLVE-INFO]: Level 0 " unless it gave one; None when the
+    outer solve is silent."""
+    if not v.verbosity:
+        return None
+    return solvers.VerboseMG(v.verbosity, v.precond_verbosity,
+                             v.prefix or "[QMG-MG-SOLVE-INFO]: Level 0 ")
+
+
 def make_solver(mg: StatefulMultigridMG, tol: float = 1e-8,
                 max_iter: int = 400, restart_freq: int = 32,
                 fine_kernel: str | None = "wilson-r1",
@@ -195,12 +205,16 @@ def make_solver(mg: StatefulMultigridMG, tol: float = 1e-8,
                 mesh: Mesh | None = None,
                 outer_type: StencilType = StencilType.ORIGINAL,
                 prepared: bool = False):
-    """Returns solve(b, x0=None, track=True) -> (SolveResult, carry): outer
-    FGCR on the fine operator, from ``x0`` (zero by default),
-    preconditioned by one K-cycle per iteration. ``carry`` holds this
-    solve's per-level operator and iteration counts (outer ones included);
-    with ``track`` they are also added to ``mg.tracker``. A solve refuses
-    to run once the hierarchy changed (``mg.version``).
+    """Returns solve(b, x0=None, track=True, verbose=None) ->
+    (SolveResult, carry): outer FGCR on the fine operator, from ``x0``
+    (zero by default), preconditioned by one K-cycle per iteration.
+    ``carry`` holds this solve's per-level operator and iteration counts
+    (outer ones included); with ``track`` they are also added to
+    ``mg.tracker``. ``verbose`` (a bool, a prefix or a
+    ``solvers.VerboseMG``) prints qmg_tpu's lines: the outer solve's at
+    its verbosity, the K-cycle's per level
+    (``StatefulMultigridMG.make_preconditioner``). A solve refuses to run
+    once the hierarchy changed (``mg.version``).
 
     ``outer_type`` is the outer operator, level 0's ``fine_stencil_app``:
     ORIGINAL, RIGHT_JACOBI or RIGHT_SCHUR (the n19 configuration). The
@@ -320,7 +334,7 @@ def make_solver(mg: StatefulMultigridMG, tol: float = 1e-8,
 
     transformed = outer_type != StencilType.ORIGINAL and not prepared
 
-    def solve(b, x0=None, track: bool = True):
+    def solve(b, x0=None, track: bool = True, verbose=None):
         unchanged()
         if x0 is not None and transformed:
             raise ValueError(f"x0 with outer_type {outer_type.name} needs "
@@ -330,11 +344,12 @@ def make_solver(mg: StatefulMultigridMG, tol: float = 1e-8,
         try:
             for st, fn in zip(stencils, overrides):
                 st.apply_override = fn
-            precond = mg.make_preconditioner(0, reduce=reduce)
+            v = solvers._as_verbose(verbose)
+            precond = mg.make_preconditioner(0, reduce=reduce, verbose=v)
             res, carry = solvers.gcr_var_precond_restart(
                 matvec, rhs, precond, x0=x0, max_iter=max_iter, tol=tol,
                 restart_freq=restart_freq, precond_carry=carry,
-                reduce=reduce)
+                reduce=reduce, verbose=_outer_verbose(v))
         finally:
             for st in stencils:
                 st.apply_override = None

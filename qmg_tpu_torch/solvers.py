@@ -24,6 +24,17 @@ trajectories. ``fixed_trips`` (GCR) runs exactly ``max_iter`` trips with
 no stopping test and no read-back; ``converged`` still reports the
 tolerance test.
 
+``verbose`` (CG and the GCR family) prints as qmg_tpu's solvers do: a
+``Verbosity`` level for the solve and one for its preconditioner's solves
+(``VerboseMG``), DETAIL a line an iteration (``iter {k} relres {r}``),
+SUMMARY one at the end (``{name} summary: {k} iters, relres {r}``), each
+after the struct's prefix. A verbose solve reads its squared residual
+back as a value where a silent one reads back the stopping test's flag,
+and tests it on the host, so its prints cost no read-back an iteration
+and its iterates are the silent solve's; it reads ||b||^2 and the target
+once. Only a fixed-trip GCR, which reads nothing back, reads each
+residual it prints.
+
 The batched solvers (``*_batched``) take fields with a leading rhs axis
 (B, 2, Y, Xh, nc) and give each lane k the trajectory of the same solver
 on field k alone, as qmg_tpu's vmap over its while loops does: a lane that
@@ -39,6 +50,9 @@ the lanes that are active.
 
 from __future__ import annotations
 
+import dataclasses
+import enum
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -46,9 +60,9 @@ import torch
 
 from .linalg import vdot, norm2sq, vdot_lanes, norm2sq_lanes, reductions
 
-__all__ = ["SolveResult", "cg", "cg_restart", "gcr", "gcr_restart",
-           "gcr_var_precond", "gcr_var_precond_restart", "bicgstab",
-           "bicgstab_l", "minres", "richardson", "tfqmr", "Lanes",
+__all__ = ["SolveResult", "Verbosity", "VerboseMG", "cg", "cg_restart", "gcr",
+           "gcr_restart", "gcr_var_precond", "gcr_var_precond_restart",
+           "bicgstab", "bicgstab_l", "minres", "richardson", "tfqmr", "Lanes",
            "BatchedSolveResult", "all_lanes", "gcr_restart_batched",
            "gcr_var_precond_restart_batched", "minres_batched",
            "GCR_STORE_LIMIT_BYTES"]
@@ -68,6 +82,54 @@ class SolveResult(NamedTuple):
     ops_count: int            # operator applications
 
 
+class Verbosity(enum.IntEnum):
+    """Print levels (quantum-linalg's inversion_verbose_struct): NONE
+    prints nothing, SUMMARY one line per completed solve, DETAIL also a
+    line per iteration."""
+    NONE = 0
+    SUMMARY = 1
+    DETAIL = 2
+
+
+@dataclasses.dataclass
+class VerboseMG:
+    """A solve's own print level, an independent one for its
+    preconditioner's solves, and the line prefix (the K-cycle indents two
+    spaces a level and tags '[QMG-MG-SOLVE-INFO]: Level N ')."""
+    verbosity: Verbosity = Verbosity.NONE
+    precond_verbosity: Verbosity = Verbosity.NONE
+    prefix: str = ""
+
+
+def _as_verbose(verbose) -> VerboseMG:
+    """None / False -> NONE; True -> DETAIL for the solve and its
+    preconditioner; a string -> DETAIL with that prefix; a VerboseMG
+    passes through."""
+    if isinstance(verbose, VerboseMG):
+        return verbose
+    if verbose is None or verbose is False:
+        return VerboseMG()
+    if verbose is True:
+        return VerboseMG(Verbosity.DETAIL, Verbosity.DETAIL)
+    return VerboseMG(Verbosity.DETAIL, Verbosity.NONE, str(verbose))
+
+
+def _verbose_print(verbose, k: int, rsq: float, bsq: float):
+    """The DETAIL line of iteration ``k`` (host floats)."""
+    v = _as_verbose(verbose)
+    if v.verbosity >= Verbosity.DETAIL:
+        print(f"{v.prefix}iter {k} relres {math.sqrt(rsq / bsq):.6e}")
+
+
+def _verbose_summary(verbose, name: str, iters: int, rsq: float,
+                     bsq: float):
+    """The SUMMARY line of a completed solve (host floats)."""
+    v = _as_verbose(verbose)
+    if v.verbosity >= Verbosity.SUMMARY:
+        print(f"{v.prefix}{name} summary: {iters} iters, relres "
+              f"{math.sqrt(rsq / bsq):.6e}")
+
+
 def _target(tol, bsq):
     return tol ** 2 * bsq
 
@@ -77,19 +139,57 @@ def _keep_going(rsq, target) -> bool:
     return bool(torch.isfinite(rsq) & (rsq > target))
 
 
+class _Monitor:
+    """A loop's stopping test and its prints. Silent, the test is
+    ``_keep_going``. Verbose, it reads the squared residual back as a
+    value (once per tensor), tests it on the host against the target read
+    once, and the prints reuse that value."""
+
+    def __init__(self, verbose, bsq, target):
+        self.verbose = _as_verbose(verbose)
+        self.on = self.verbose.verbosity > Verbosity.NONE
+        self.target = target
+        if self.on:
+            self.bsq, self.target = float(bsq), float(target)
+        self._last = self._host = None
+
+    def _read(self, rsq) -> float:
+        if rsq is not self._last:
+            self._last, self._host = rsq, float(rsq)
+        return self._host
+
+    def keep_going(self, rsq) -> bool:
+        if not self.on:
+            return _keep_going(rsq, self.target)
+        r = self._read(rsq)
+        return math.isfinite(r) and r > self.target
+
+    def iteration(self, k: int, rsq):
+        if self.verbose.verbosity >= Verbosity.DETAIL:
+            _verbose_print(self.verbose, k, self._read(rsq), self.bsq)
+
+    def summary(self, name: str, k: int, rsq):
+        if self.on:
+            _verbose_summary(self.verbose, name, k, self._read(rsq),
+                             self.bsq)
+
+
 # ---------------------------------------------------------------------------
 # Conjugate gradient (Hermitian positive definite operators: the normal
 # operators of the deflated coarsest).
 # ---------------------------------------------------------------------------
 
-def cg(matvec, b, x0=None, max_iter: int = 1000, tol=1e-8) -> SolveResult:
+def cg(matvec, b, x0=None, max_iter: int = 1000, tol=1e-8,
+       verbose=None) -> SolveResult:
     x = torch.zeros_like(b) if x0 is None else x0
-    target = _target(tol, norm2sq(b))
+    bsq = norm2sq(b)
+    target = _target(tol, bsq)
+    mon = _Monitor(verbose, bsq, target)
     r = b - matvec(x)
     p = r
     rsq = norm2sq(r)
     k = 0
-    while k < max_iter and _keep_going(rsq, target):
+    while k < max_iter and mon.keep_going(rsq):
         ap = matvec(p)
         # Breakdown guard: a stalled solve's <p, Ap> can underflow to 0;
         # the iteration then becomes a no-op.
@@ -102,19 +202,23 @@ def cg(matvec, b, x0=None, max_iter: int = 1000, tol=1e-8) -> SolveResult:
         p = r + (rsq_new / rsq) * p
         rsq = rsq_new
         k += 1
+        mon.iteration(k, rsq)
+    mon.summary("cg", k, rsq)
     return SolveResult(x, k, rsq, rsq <= target, k + 1)
 
 
 def cg_restart(matvec, b, x0=None, max_iter: int = 1000, tol=1e-8,
-               restart_freq: int = 32) -> SolveResult:
+               restart_freq: int = 32, verbose=None) -> SolveResult:
     """CG restarted every ``restart_freq`` iterations from the true
-    residual."""
+    residual. ``verbose`` goes to each restart cycle's ``cg`` (qmg_tpu's
+    cg_restart takes none)."""
     x = torch.zeros_like(b) if x0 is None else x0
     target = _target(tol, norm2sq(b))
     rsq = norm2sq(b - matvec(x))
     k, ops = 0, 1
     while k < max_iter and bool(rsq > target):
-        res = cg(matvec, b, x0=x, max_iter=restart_freq, tol=tol)
+        res = cg(matvec, b, x0=x, max_iter=restart_freq, tol=tol,
+                 verbose=verbose)
         x, rsq = res.x, res.res_sq
         k += res.iters
         ops += res.ops_count
@@ -151,7 +255,7 @@ def _check_store(R: int, b: torch.Tensor):
 
 def _gcr_impl(matvec, b, x0, max_iter: int, tol, restart_len: int,
               precond=None, precond_carry=None, reduce=None,
-              fixed_trips: bool = False):
+              fixed_trips: bool = False, verbose=None):
     vdot, norm2sq, total = reductions(reduce)
     shape = b.shape
     n = b.numel()
@@ -160,6 +264,7 @@ def _gcr_impl(matvec, b, x0, max_iter: int, tol, restart_len: int,
     x = torch.zeros_like(b) if x0 is None else x0
     bsq = norm2sq(b)
     target = _target(tol, bsq)
+    mon = _Monitor(verbose, bsq, target)
     rdt = bsq.dtype
     tiny = torch.finfo(rdt).tiny
     if precond is None:
@@ -174,7 +279,7 @@ def _gcr_impl(matvec, b, x0, max_iter: int, tol, restart_len: int,
     rsq = norm2sq(r)
     j = k = 0
     carry = precond_carry
-    while k < max_iter and (fixed_trips or _keep_going(rsq, target)):
+    while k < max_iter and (fixed_trips or mon.keep_going(rsq)):
         if j >= R:
             # Restart: recompute the true residual, clear the store.
             r = b - matvec(x)
@@ -206,41 +311,48 @@ def _gcr_impl(matvec, b, x0, max_iter: int, tol, restart_len: int,
         apsq[j] = torch.where(broke, 1.0, apsq_new)
         j += 1
         k += 1
+        mon.iteration(k, rsq)
+    mon.summary("gcr", k, rsq)
     return SolveResult(x, k, rsq, rsq <= target, ops), carry
 
 
-def gcr(matvec, b, x0=None, max_iter: int = 1000, tol=1e-8
-        ) -> SolveResult:
+def gcr(matvec, b, x0=None, max_iter: int = 1000, tol=1e-8,
+        verbose=None) -> SolveResult:
     """Unrestarted GCR: keeps up to ``max_iter`` directions."""
     res, _ = _gcr_impl(matvec, b, x0, max_iter, tol,
-                       restart_len=max(int(max_iter), 1))
+                       restart_len=max(int(max_iter), 1), verbose=verbose)
     return res
 
 
 def gcr_restart(matvec, b, x0=None, max_iter: int = 1000, tol=1e-8,
-                restart_freq: int = 32, reduce=None) -> SolveResult:
+                restart_freq: int = 32, reduce=None,
+                verbose=None) -> SolveResult:
     res, _ = _gcr_impl(matvec, b, x0, max_iter, tol,
-                       restart_len=int(restart_freq), reduce=reduce)
+                       restart_len=int(restart_freq), reduce=reduce,
+                       verbose=verbose)
     return res
 
 
 def gcr_var_precond(matvec, b, precond, x0=None, max_iter: int = 1000,
-                    tol=1e-8, precond_carry=None, fixed_trips: bool = False):
+                    tol=1e-8, precond_carry=None, fixed_trips: bool = False,
+                    verbose=None):
     """Unrestarted flexible GCR (``restart_freq = -1`` in a K-cycle)."""
     return _gcr_impl(matvec, b, x0, max_iter, tol,
                      restart_len=max(int(max_iter), 1), precond=precond,
-                     precond_carry=precond_carry, fixed_trips=fixed_trips)
+                     precond_carry=precond_carry, fixed_trips=fixed_trips,
+                     verbose=verbose)
 
 
 def gcr_var_precond_restart(matvec, b, precond, x0=None,
                             max_iter: int = 1000, tol=1e-8,
                             restart_freq: int = 32, precond_carry=None,
-                            reduce=None, fixed_trips: bool = False):
+                            reduce=None, fixed_trips: bool = False,
+                            verbose=None):
     """Restarted flexible GCR: the outer solver of the K-cycle stack."""
     return _gcr_impl(matvec, b, x0, max_iter, tol,
                      restart_len=int(restart_freq), precond=precond,
                      precond_carry=precond_carry, reduce=reduce,
-                     fixed_trips=fixed_trips)
+                     fixed_trips=fixed_trips, verbose=verbose)
 
 
 # ---------------------------------------------------------------------------

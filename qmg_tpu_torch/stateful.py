@@ -230,20 +230,21 @@ class StatefulMultigridMG(MultigridMG):
     def solve(self, b, tol: float = 1e-10, max_iter: int = 1000,
               restart_freq: int = 32,
               outer_type: StencilType = StencilType.ORIGINAL, x0=None,
-              track: bool = True):
+              track: bool = True, verbose=False):
         """qmg_tpu's ``StatefulMultigridMG.solve``: outer flexible GCR on
         level 0's ``outer_type`` operator around the K-cycle, plain applies
         on every level, from ``x0``; ``b``, ``x0`` and the result's ``x``
         are the ``outer_type`` system's own vectors (the even half for
-        RIGHT_SCHUR). With ``track`` the counts go to the trackers. A new
-        ``solve.make_solver`` serves every call, so no solver outlives a
-        change of the hierarchy or of its solve configs. Returns the
-        ``solvers.SolveResult``."""
+        RIGHT_SCHUR). With ``track`` the counts go to the trackers.
+        ``verbose`` prints as qmg_tpu's does (``solve.make_solver``'s
+        solve). A new ``solve.make_solver`` serves every call, so no solver
+        outlives a change of the hierarchy or of its solve configs.
+        Returns the ``solvers.SolveResult``."""
         from .solve import make_solver
         res, _ = make_solver(self, tol=tol, max_iter=max_iter,
                              restart_freq=restart_freq, fine_kernel=None,
                              outer_type=outer_type, prepared=True)(
-            b, x0=x0, track=track)
+            b, x0=x0, track=track, verbose=verbose)
         return res
 
     # --- coarsest deflation ---
@@ -311,7 +312,8 @@ class StatefulMultigridMG(MultigridMG):
     # The K-cycle preconditioner.
     # ------------------------------------------------------------------
 
-    def make_preconditioner(self, level: int = 0, reduce=None):
+    def make_preconditioner(self, level: int = 0, reduce=None,
+                            verbose=False):
         """precond(rhs, carry) -> (lhs, carry): one K-cycle at ``level``:
         presmoothing, restrict, the coarse solve (direct inverse, GCR or
         on a normal operator deflated CG at the coarsest, flexible GCR
@@ -321,7 +323,14 @@ class StatefulMultigridMG(MultigridMG):
         level's fields (``linalg.reductions``). It reaches this level's
         smoothers only: the levels below are held whole by every rank
         (the transfer returns the whole coarse field), and their solves
-        take no reduction."""
+        take no reduction.
+
+        ``verbose`` (a bool, a prefix or a ``solvers.VerboseMG``) makes
+        the coarse solve print as qmg_tpu's does: at the caller's
+        precond_verbosity, at least SUMMARY when the caller prints at all,
+        after the prefix ``"  " * (level + 1) + "[QMG-MG-SOLVE-INFO]: Level
+        {level + 1} "``; the next K-cycle gets the coarse solve's struct.
+        The restarted CG coarsest prints nothing, as in qmg_tpu."""
         n_levels = self.get_num_levels()
         if n_levels == 1:
             return lambda rhs, carry: (rhs, carry)
@@ -342,7 +351,6 @@ class StatefulMultigridMG(MultigridMG):
             coarse_tol = nxt.intermediate_tol
             coarse_restart = nxt.intermediate_restart_freq
             coarse_fixed = nxt.fixed_trips
-            inner_precond = self.make_preconditioner(level + 1)
         else:
             cs = self.coarsest_solve
             coarse_type = StencilType(cs.coarsest_stencil_app)
@@ -351,6 +359,21 @@ class StatefulMultigridMG(MultigridMG):
             coarse_restart = cs.coarsest_restart_freq
         apply_coarse = coarse_stencil.get_apply_function(coarse_type)
         coarsest_normal = coarsest and coarse_type in _NORMAL_TYPES
+        # The coarse solve's print struct (reference verb2,
+        # stateful_multigrid.h:761-776).
+        v = solvers._as_verbose(verbose)
+        vprefix = None
+        if (v.verbosity, v.precond_verbosity) != (solvers.Verbosity.NONE,
+                                                  solvers.Verbosity.NONE):
+            lvl_v = max(v.precond_verbosity, solvers.Verbosity.SUMMARY)
+            vprefix = solvers.VerboseMG(
+                lvl_v, lvl_v if lvl_v >= solvers.Verbosity.DETAIL
+                else solvers.Verbosity.SUMMARY,
+                "  " * (level + 1)
+                + f"[QMG-MG-SOLVE-INFO]: Level {level + 1} ")
+        if not coarsest:
+            inner_precond = self.make_preconditioner(level + 1,
+                                                     verbose=vprefix)
         # The CGNE smoother: MinRes on M M^dag, then M^dag.
         cgne = {StencilType.ORIGINAL: (StencilType.M_MDAGGER,
                                        StencilType.DAGGER),
@@ -390,13 +413,14 @@ class StatefulMultigridMG(MultigridMG):
             kw = dict(x0=e0, max_iter=coarse_max_iter, tol=inner_tol)
             if coarsest_normal:
                 if coarse_restart == -1:
-                    return solvers.cg(mv, r_prep, **kw)
+                    return solvers.cg(mv, r_prep, verbose=vprefix, **kw)
                 return solvers.cg_restart(mv, r_prep,
                                           restart_freq=coarse_restart, **kw)
             if coarse_restart == -1:
-                return solvers.gcr(mv, r_prep, **kw)
+                return solvers.gcr(mv, r_prep, verbose=vprefix, **kw)
             return solvers.gcr_restart(mv, r_prep,
-                                       restart_freq=coarse_restart, **kw)
+                                       restart_freq=coarse_restart,
+                                       verbose=vprefix, **kw)
 
         def precond(rhs, carry):
             # --- presmooth ---
@@ -434,7 +458,8 @@ class StatefulMultigridMG(MultigridMG):
                 sub_iters, sub_ops = res.iters, res.ops_count
             else:
                 kw = dict(max_iter=coarse_max_iter, tol=inner_tol,
-                          precond_carry=carry, fixed_trips=coarse_fixed)
+                          precond_carry=carry, fixed_trips=coarse_fixed,
+                          verbose=vprefix)
                 if coarse_restart == -1:
                     res, carry = solvers.gcr_var_precond(
                         apply_coarse, r_coarse_prep, inner_precond, **kw)

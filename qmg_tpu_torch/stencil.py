@@ -543,6 +543,33 @@ class Stencil2D:
         self.coeffs = self.coeffs.replace(**kw)
         self.invalidate_derived()
 
+    def clear_stencils(self):
+        """Zero the clover and hopping pieces (reference clear_stencils,
+        stencil_2d.h:339-375)."""
+        c = self.coeffs
+        self.coeffs = c.replace(**{
+            name: torch.zeros_like(getattr(c, name))
+            for name in ("clover", "hopping") if getattr(c, name) is not None})
+        self.invalidate_derived()
+
+    def prune_stencils(self, clover: bool = False, hopping: bool = False):
+        """Drop the clover and / or hopping piece (reference
+        prune_stencils, stencil_2d.h:379-404)."""
+        kw = {name: None for name, drop in (("clover", clover),
+                                            ("hopping", hopping)) if drop}
+        if kw:
+            self.coeffs = self.coeffs.replace(**kw)
+            self.invalidate_derived()
+
+    def try_prune_stencils(self, tol: float, clover: bool = True,
+                           hopping: bool = True):
+        """Drop each of the named pieces whose largest magnitude is below
+        ``tol`` (reference try_prune_stencils, stencil_2d.h:407-431)."""
+        def small(piece):
+            return piece is not None and float(piece.abs().max()) < tol
+        self.prune_stencils(clover=clover and small(self.coeffs.clover),
+                            hopping=hopping and small(self.coeffs.hopping))
+
     def invalidate_derived(self):
         self._dagger = None
         self._rbjacobi = None
@@ -625,6 +652,43 @@ class Stencil2D:
         elif t in (StencilType.RBJ_DAGGER, StencilType.RBJ_M_MDAGGER,
                    StencilType.RBJ_MDAGGER_M):
             self.build_rbj_dagger_stencil()
+
+    def print_stencil_site(self, x: int, y: int, prefix: str = "",
+                           which: str = "original"):
+        """Print the stencil at site (x, y): the nonzero shifts, the clover
+        and the four hopping matrices, and for the rbjacobi variants B^-1
+        (reference print_stencil_site, stencil_2d.h:447-635). ``which``
+        is "original", "dagger", "rbjacobi" or "rbj_dagger"."""
+        if which == "original":
+            coeffs, cinv = self.coeffs, None
+        elif which == "dagger":
+            coeffs, cinv = self.dagger_coeffs, None
+        elif which == "rbjacobi":
+            coeffs, cinv = self.rbjacobi.coeffs, self.rbjacobi.cinv
+        elif which == "rbj_dagger":
+            coeffs, cinv = self.rbj_dagger.coeffs, self.rbj_dagger.cinv
+        else:
+            raise ValueError(f"unknown stencil variant {which}")
+        p, yy, xh = self.lat.coord_to_pyx(x, y)
+
+        def rows(mat):
+            for row in mat.cpu().numpy():
+                print(prefix + " ".join(str(v) for v in row))
+        for name, val in (("Shift", coeffs.shift),
+                          ("EO-Shift", coeffs.eo_shift),
+                          ("DOF-Shift", coeffs.dof_shift)):
+            if complex(val) != 0:
+                print(f"{prefix}{name} {complex(val)}")
+        if coeffs.clover is not None:
+            print(f"{prefix}Clover")
+            rows(coeffs.clover[p, yy, xh])
+        if coeffs.hopping is not None:
+            for d, label in enumerate(("+x", "+y", "-x", "-y")):
+                print(f"{prefix}Hopping {label}")
+                rows(coeffs.hopping[d, p, yy, xh])
+        if cinv is not None:
+            print(f"{prefix}Right Block Jacobi Inv Clover")
+            rows(cinv[p, yy, xh])
 
     # --- uniform dispatch ---
     def apply_M(self, x, stype: StencilType = StencilType.ORIGINAL):
