@@ -95,11 +95,11 @@ fallback). Phases, any failure exits non-zero:
      recorded before the rhs axis;
  15. the batched solve: the 512^2 problem of phase 4 with 8 right-hand
      sides (6 gaussian, a point and a wall source) through
-     ``make_batched_solver(fine_kernel="wilson-r1", coarse_apply="small")``
-     and as 8 sequential ``make_solver`` solves with the same options, in
+     ``kcycle.run_batched(fine_kernel="wilson-r1", coarse_apply="small")``:
+     one batched solve and 8 sequential ones with the same options, 3
      turns; each lane's outer iterations within +-1 of its sequential
-     solve, every true residual <= 1e-4, K1's and K6's rhs entries
-     launched; ms per right-hand side of both;
+     solve, every true residual <= 1e-4, finite solutions, K1's and K6's
+     rhs entries launched; ms per right-hand side of both;
  16. the measurement stream at full width:
      ``stream.run_stream(L=512, n_refine=3, batched=True)`` for 3
      configurations (200 thermalization updates, 5 between
@@ -200,6 +200,20 @@ fallback). Phases, any failure exits non-zero:
      same outer count), then with ``schur=True``: true residuals <= 10 tol,
      outer counts within +-2 of qmg_tpu's (``JAX_ITERS_512_TPU_SOLVE``), K1
      launched in the standard solves and not in the Schur one.
+
+ 22. one K-cycle for one and many right-hand sides (the single solve is
+     the batched solve's one-field case): (a) phase 4's 512^2 solve at
+     nrhs = 1, qmg_tpu's outer count +-2, with its device operations
+     counted (``count_device_ops``) and held to +2% of the count before
+     the solvers took the rhs axis (``OPS_512_BEFORE_LANES``); (b) the
+     512^2 n19 Schur problem and (c) the 512^2 ``--deflate 8`` problem,
+     each with NRHS right-hand sides (6 gaussian, a point, a wall)
+     through ``kcycle.run_batched``: a batched solve and the NRHS
+     sequential ones in alternating turns, each lane's outer iterations
+     within +-1 of its sequential solve's (ROADMAP F5), every true
+     residual <= 1e-4, finite solutions; (b) launches no kernel, (c)
+     (K1 + K6) launches the rhs entries of K1 and K6; (d) one ``--outer
+     schur --deflate 8`` solve to a true residual <= 1e-4.
 
 The last two lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}.
@@ -1176,83 +1190,60 @@ def rhs_counts():
     return {k: counts[k] for k in ("wilson_r1_rhs", "dslash_small_rhs")}
 
 
-def batched_phase(torch, dev):
-    """Phase 15. Returns the rhs kernels' launches over the batched
-    solves."""
-    from qmg_tpu_torch.kcycle import (build_problem, true_residual, TOL,
-                                      MAX_ITER, reset_launch_counts)
-    from qmg_tpu_torch.solve import make_solver, make_batched_solver
+def eight_rhs(torch, problem, dev):
+    """The batched phases' NRHS right-hand sides: ``problem``'s own, 5
+    gaussians from QMGRandom(2024), a point and a wall source."""
     from qmg_tpu_torch.rng import QMGRandom
-    problem = build_problem(512, dev)
     lat_shape = tuple(problem["b"].shape)
     rng = QMGRandom(2024)
     rhs = [problem["b"]] + [
         torch.as_tensor(rng.gaussian_cv(problem["op"].lat)).to(
-            device=dev, dtype=torch.complex64) for _ in range(5)]
+            device=dev, dtype=torch.complex64) for _ in range(NRHS - 3)]
     point = torch.zeros(lat_shape, dtype=torch.complex64, device=dev)
     point[0, 0, 0, 0] = 1.0
     wall = torch.zeros(lat_shape, dtype=torch.complex64, device=dev)
     wall[:, 0] = 1.0
-    B = torch.stack(rhs + [point, wall])
-    kw = dict(tol=TOL, max_iter=MAX_ITER, restart_freq=problem["restart"],
-              fine_kernel="wilson-r1", coarse_apply="small")
-    seq = make_solver(problem["mg"], **kw)
-    bat = make_batched_solver(problem["mg"], **kw)
+    return torch.stack(rhs + [point, wall])
 
-    def run_seq():
-        return [seq(B[k])[0] for k in range(NRHS)]
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
+def check_batched(r, label):
+    """The checks of a ``kcycle.run_batched`` report: each lane's outer
+    count within 1 of its sequential solve's (F5), every true residual
+    within ``TRUE_RES_BOUND``, every lane converged, the solutions
+    finite."""
+    check(all(abs(a - b) <= 1 for a, b in zip(r["iters"],
+                                              r["sequential_iters"])),
+          f"{label}: batched lanes' outer iterations {r['iters']} vs "
+          f"sequential {r['sequential_iters']}")
+    worst = max(r["rel_res_true"] + r["sequential_rel_res_true"])
+    check(worst <= TRUE_RES_BOUND and all(r["converged"]),
+          f"{label}: a true residual exceeds {TRUE_RES_BOUND} or a lane did "
+          f"not converge: {r['rel_res_true']} {r['sequential_rel_res_true']}")
+    check(r["x_finite"], f"{label}: batched solution not finite")
 
-    run_seq()                     # warm-up of both modes
-    bat(B)
+
+def batched_phase(torch, dev):
+    """Phase 15: NRHS right-hand sides (``eight_rhs``) on the 512^2
+    problem in one batched solve through K1's and K6's rhs entries, 3
+    turns against their sequential solves (``kcycle.run_batched``).
+    Returns the rhs kernels' launches over the warm-up and the 3 batched
+    solves."""
+    from qmg_tpu_torch.kcycle import (build_problem, run_batched,
+                                      print_batched_report,
+                                      reset_launch_counts)
+    problem = build_problem(512, dev)
+    B = eight_rhs(torch, problem, dev)
     reset_launch_counts()
-    times = {"batched": [], "sequential": []}
-    for mode in ("batched", "sequential", "sequential", "batched",
-                 "batched", "sequential"):
-        out, ms = timed((lambda: bat(B)[0]) if mode == "batched"
-                        else run_seq)
-        times[mode].append(ms)
-        if mode == "batched":
-            res_b = out
-        else:
-            res_s = out
+    r = run_batched(problem, B, "wilson-r1", "small", repeats=3)
     torch.cuda.synchronize()
     counts = rhs_counts()
-    its_b = [int(i) for i in res_b.iters]
-    its_s = [int(r.iters) for r in res_s]
-    true_b = [true_residual(problem["op"], B[k], res_b.x[k])
-              for k in range(NRHS)]
-    true_s = [true_residual(problem["op"], B[k], res_s[k].x)
-              for k in range(NRHS)]
-    med = {m: float(np.median(t)) for m, t in times.items()}
     print(f"--- 512^2 batched solve, nrhs {NRHS} (6 gaussian, a point, a "
-          f"wall), wilson-r1 + small coarse; levels {bat.level_applies}",
-          flush=True)
-    print(f"outer iterations batched {its_b}, sequential {its_s}",
-          flush=True)
-    print("true residuals batched " + ", ".join(f"{r:.3e}" for r in true_b)
-          + "; sequential " + ", ".join(f"{r:.3e}" for r in true_s),
-          flush=True)
-    for m in ("batched", "sequential"):
-        print(f"{m}: ms for the {NRHS} rhs in turns "
-              + ", ".join(f"{t:.1f}" for t in times[m])
-              + f"; median {med[m]:.1f} ms = {med[m] / NRHS:.2f} ms per rhs",
-              flush=True)
-    print(f"batched / sequential per rhs: {med['batched'] / med['sequential']:.3f}"
-          f"; rhs-kernel launches over 3 batched solves: {counts}",
-          flush=True)
-    check(all(abs(a - b) <= 1 for a, b in zip(its_b, its_s)),
-          f"batched lanes' outer iterations {its_b} vs sequential {its_s}")
-    check(max(true_b + true_s) <= TRUE_RES_BOUND,
-          f"a true residual exceeds {TRUE_RES_BOUND}: {true_b} {true_s}")
-    check(bool(torch.isfinite(torch.view_as_real(res_b.x)).all()),
-          "batched solution not finite")
+          "wall)", flush=True)
+    print_batched_report(r)
+    print(f"batched / sequential per rhs: "
+          f"{r['batched_ms'] / r['sequential_ms']:.3f}; rhs-kernel launches "
+          f"over the warm-up and 3 batched solves: {counts}", flush=True)
+    check_batched(r, "phase 15")
     check(counts["wilson_r1_rhs"] > 0 and counts["dslash_small_rhs"] > 0,
           f"the batched solve did not launch the rhs kernels: {counts}")
     return counts
@@ -2011,6 +2002,98 @@ def examples_phase(torch, wk, dev):
     return launches
 
 
+# --- phase 22: one K-cycle for one and many right-hand sides ---
+
+# Device operations (``count_device_ops``: aten operations on the card,
+# views excluded) of one 512^2 rank-1 solve of phase 4's problem on the
+# tree before the solvers took a leading rhs axis (commit e4669ba), from
+# ``python tests/compare_solve_ops.py --other <that tree>`` on the card
+# (PERF.md section 6; the unified code dispatched 29,392): a solve
+# may dispatch at most 2% more.
+OPS_512_BEFORE_LANES = 29680
+OPS_GROWTH_BOUND = 1.02
+LANES_SIZE = 512          # phase 22's lattice
+
+
+def lanes_phase(torch, dev, problem):
+    """Phase 22 (< 60 s): (a) phase 4's 512^2 solve at nrhs = 1 with its
+    device operations counted; (b) the n19 Schur formulation and (c) the
+    ``--deflate 8`` hierarchy with NRHS right-hand sides (``eight_rhs``),
+    each batched against its sequential solves in alternating turns
+    (``kcycle.run_batched``), (c) through K1's and K6's rhs entries; (d)
+    one ``--outer schur --deflate 8`` solve. Returns the rhs kernels'
+    launches over (c)."""
+    from qmg_tpu_torch.kcycle import (build_problem, run_solver,
+                                      run_batched, print_batched_report,
+                                      print_report, reset_launch_counts,
+                                      launch_counts, TOL, MAX_ITER)
+    from qmg_tpu_torch.solve import make_solver
+    t0 = time.perf_counter()
+    # (a) nrhs = 1: the unified solve's operations
+    solve = make_solver(problem["mg"], tol=TOL, max_iter=MAX_ITER,
+                        restart_freq=problem["restart"])
+    solve(problem["b"])
+    (res, _), ops, reads = count_device_ops(
+        torch, lambda: solve(problem["b"]))
+    growth = ops / OPS_512_BEFORE_LANES
+    print(f"--- (a) {LANES_SIZE}^2 wilson-r1 solve at nrhs = 1: {res.iters} "
+          f"outer "
+          f"iterations, {ops} device operations dispatched, {reads} host "
+          f"read-backs; before the rhs axis {OPS_512_BEFORE_LANES} "
+          f"({growth:.4f}x)", flush=True)
+    check(abs(res.iters - JAX_ITERS_512) <= 2,
+          f"nrhs = 1: outer iterations {res.iters} vs qmg_tpu's "
+          f"{JAX_ITERS_512}")
+    check(growth <= OPS_GROWTH_BOUND,
+          f"nrhs = 1 dispatches {ops} device operations, {growth:.4f}x the "
+          f"{OPS_512_BEFORE_LANES} before the rhs axis")
+    launches = None
+    for label, kw, route in (
+            ("(b) n19 Schur", dict(outer="schur"), (None, "plain")),
+            (f"(c) --deflate {DEFLATE_N}", dict(deflate=DEFLATE_N),
+             ("wilson-r1", "small"))):
+        part = build_problem(LANES_SIZE, dev, **kw)
+        B = eight_rhs(torch, part, dev)
+        reset_launch_counts()
+        r = run_batched(part, B, *route, repeats=2)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        print(f"--- {label}, nrhs {NRHS} (6 gaussian, a point, a wall); "
+              f"setup {part['setup_s']:.3f} s", flush=True)
+        print_batched_report(r)
+        print(f"batched / sequential per rhs: "
+              f"{r['batched_ms'] / r['sequential_ms']:.3f}; kernel "
+              f"launches over the phase's batched and sequential solves: "
+              + ", ".join(f"{k} {counts[k]}" for k in (
+                  "wilson_r1_rhs", "dslash_small_rhs", "wilson_r1")),
+              flush=True)
+        check_batched(r, label)
+        if route[0] is None:
+            check(not any(counts.values()),
+                  f"{label}: no kernel applies a Schur operator, yet "
+                  f"{counts}")
+        else:
+            launches = {k: counts[k] for k in ("wilson_r1_rhs",
+                                               "dslash_small_rhs")}
+            check(all(launches.values()),
+                  f"{label}: the batched solve did not launch the rhs "
+                  f"kernels: {launches}")
+        del part, B
+    # (d) one --outer schur --deflate 8 solve
+    part = build_problem(LANES_SIZE, dev, outer="schur", deflate=DEFLATE_N)
+    r = run_solver(part, fine_kernel=None)
+    label = f"(d) {LANES_SIZE}^2 --outer schur --deflate {DEFLATE_N}"
+    print(f"--- {label}", flush=True)
+    print_report(r)
+    check_solve(r, label)
+    check(r["level_applies"][-1] == "mdagger_m"
+          and f"deflated by {DEFLATE_N}" in r["coarsest"],
+          f"{label} solved {r['coarsest']}")
+    elapsed = time.perf_counter() - t0
+    print(f"phase 22 took {elapsed:.1f} s", flush=True)
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2109,7 +2192,6 @@ def main():
     # --- 19. the n22 adaptive setup on phase 4's problem ---
     phase("19. the adaptive setup")
     adaptive_launches = adaptive_phase(torch, dev, problem)
-    del problem
 
     # --- 20. the other operators: K4 at nc = 1, the goldstone entry ---
     phase("20. the other operators")
@@ -2120,6 +2202,11 @@ def main():
     # --- 21. the examples' entry points ---
     phase("21. the examples' entry points")
     tpu_solve_launches = examples_phase(torch, wk, dev)
+
+    # --- 22. one K-cycle for one and many right-hand sides ---
+    phase("22. one K-cycle for one and many right-hand sides")
+    lanes_launches = lanes_phase(torch, dev, problem)
+    del problem
 
     # Each Wilson kernel at its path's shape: K1 the 512^2 solve, K2 the
     # 2048^2 solve, K3 the 2048^2 chain.
@@ -2181,7 +2268,8 @@ def main():
             "launches": rhs_launches[name], "max_abs_err": rhs_worst[kid],
             "ms": k_ms, "plain_ms": k_plain, "bound_ms": k_bound,
             "bound_by": k_by, "library_ms": None, "bound_apply_ms": k_apply,
-            "device_ms": k_dev})
+            "device_ms": k_dev,
+            "batched_deflate_launches": lanes_launches[name]})
     # K4 at nc = 1: the goldstone entry's staggered apply (phase 20), timed
     # at 512^2.
     k_ms, k_plain, k_bound, k_by, k_apply, k_dev = nc1_times

@@ -36,11 +36,29 @@ solves the coarsest level with CG on its normal operator M^dag M
 (MDAGGER_M, no dense inverse) from an initial guess that projects the
 right-hand side onto the N lowest eigenpairs of that operator; the timed
 setup ends with the deflation stage that computes them
-(``StatefulMultigridMG.deflate_coarsest``). ``--no-direct`` keeps the
-iterative coarsest (restarted GCR, or CG with ``--deflate``) instead of
-the dense inverse. ``--deflate`` is refused with ``--outer schur``, ``--shards``
-and ``--distributed``. The report adds the coarsest level's Krylov
-iterations per visit.
+(``StatefulMultigridMG.deflate_coarsest``); with ``--outer schur`` the
+levels above stay RIGHT_SCHUR and the deflation stage runs on that
+hierarchy's coarsest. ``--no-direct`` keeps the iterative coarsest
+(restarted GCR, or CG with ``--deflate``) instead of the dense inverse.
+``--deflate`` is refused with ``--shards`` and ``--distributed``. The
+report adds the coarsest level's Krylov iterations per visit.
+
+``--nrhs N`` (bench.py's ``--nrhs`` mode) solves N right-hand sides in
+one batched solve (``make_batched_solver``): the gaussians bench.py draws
+after the setup, in one outer FGCR whose lanes each follow their own
+sequential trajectory, the rhs axis through K1's and K6's rhs entries
+(``--fine-kernel wilson-r1`` or ``none``, ``--coarse-apply plain`` or
+``small``). ``--fixed-schedule OUTER`` runs exactly OUTER outer trips on
+every lane with the adaptive inner loops, ``OUTER,INNER`` also fixes every
+intermediate level at INNER trips (it needs the dense coarsest);
+``--calibrated`` takes the outer count of one adaptive solve of a probe
+right-hand side (drawn first) plus one, and holds every lane to bench.py's
+contract: rel res_sq = res_sq / (tol^2 ||b||^2) at most 1, and the largest
+at least 1e-2 (no more than a decade of overshoot in the residual). It
+composes with ``--outer schur``, ``--deflate N`` and ``--no-direct``. The
+report gives every lane's outer iterations beside its own sequential
+solve's, its recursive and true residuals, and the batched and sequential
+ms (``--repeats`` alternates them and takes medians).
 
 ``--setup adaptive`` builds the hierarchy by the n22 adaptive setup
 instead (the reference's tests/n22_wilson_kcycle_adaptive, qmg_tpu's
@@ -77,6 +95,7 @@ the report (every rank holds the same one).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import time
 
@@ -89,10 +108,12 @@ from .setup import (KCycleConfig, build_kcycle_hierarchy, SCHUR_CONFIG,
                     AdaptiveConfig)
 from .setup_planes import (gauss_seed_planes, adaptive_seed_planes,
                            make_adaptive_setup_planes)
-from .solve import (make_solver, FINE_KERNELS, state_to_numpy,
-                    state_from_numpy, shard_state)
+from .solve import (make_solver, make_batched_solver,
+                    make_fixed_batched_solver, make_calibrated_batched_solver,
+                    FINE_KERNELS, state_to_numpy, state_from_numpy,
+                    shard_state)
 from .stencil import apply_M, StencilType
-from .linalg import norm2sq, reductions
+from .linalg import norm2sq, norm2sq_lanes, reductions
 from .rng import QMGRandom
 from .parallel import Mesh
 from .shard_dslash import make_sharded_dslash
@@ -132,10 +153,11 @@ OUTERS = {"original": StencilType.ORIGINAL,
           "schur": StencilType.RIGHT_SCHUR}
 
 
-# The combinations of --deflate that the port cannot run yet.
-DEFLATE_LATER = ("the deflated coarsest takes the original formulation on "
-                 "one device: with --outer schur it waits for ROADMAP Queue "
-                 "1 item 9, on a mesh for item 14")
+# The combinations that the port cannot run yet.
+DEFLATE_LATER = ("the deflated coarsest runs on one device: on a mesh it "
+                 "waits for ROADMAP Queue 1 item 14")
+NRHS_LATER = ("batched solves run on one device: on a mesh they wait for "
+              "ROADMAP Queue 1 items 14 and 7")
 SETUPS = ("kcycle", "adaptive")
 ADAPTIVE_LATER = ("the adaptive setup takes the original formulation on one "
                   "device, with no deflation: a sharded setup waits for "
@@ -235,7 +257,7 @@ def build_problem(size: int = 512, device="cuda",
         raise ValueError(f"unknown setup {setup!r}")
     if mesh is not None and outer != "original":
         raise ValueError("a mesh takes the original formulation only")
-    if deflate and (mesh is not None or outer != "original"):
+    if deflate and mesh is not None:
         raise ValueError(DEFLATE_LATER)
     if setup == "adaptive" and (mesh is not None or outer != "original"
                                 or deflate):
@@ -431,6 +453,157 @@ def run_kcycle(size: int = 512, device="cuda",
                       repeats=repeats)
 
 
+def bench_rhs(problem: dict, nrhs: int) -> torch.Tensor:
+    """bench.py's ``--nrhs`` right-hand sides: ``problem``'s own (the first
+    gaussian drawn after the setup) and ``nrhs - 1`` more from the stream
+    after it, (nrhs, *cv_shape) on the problem's device."""
+    lat = Lattice2D(problem["size"], problem["size"], 2)
+    more = [torch.as_tensor(problem["rng"].gaussian_cv(lat)).to(
+        device=problem["device"], dtype=torch.complex64)
+        for _ in range(nrhs - 1)]
+    return torch.stack([problem["b"]] + more)
+
+
+def run_batched(problem: dict, B, fine_kernel: str | None = "wilson-r1",
+                coarse_apply: str = "plain", schedule=None, probe=None,
+                repeats: int = 1, profile: bool = False) -> dict:
+    """One batched solver on ``problem``'s hierarchy in its outer
+    formulation, on the right-hand sides ``B`` (nrhs, *cv_shape), beside
+    the sequential solves of the same fields (``make_solver``, one per
+    lane): a warm-up of each, then ``repeats`` turns of one batched solve
+    and the nrhs sequential ones (medians reported). ``schedule`` is None
+    (adaptive), ``(outer, inner)`` (``make_fixed_batched_solver``: exactly
+    ``outer`` outer trips; ``inner`` not None also fixes every
+    intermediate level at that many trips, for this solver only) or
+    "calibrated" (``make_calibrated_batched_solver`` on ``probe``).
+    ``launches`` are the kernel launches of one batched solve."""
+    device, mg, op = problem["device"], problem["mg"], problem["op"]
+    outer_type = OUTERS[problem["outer"]]
+    kw = dict(tol=TOL, max_iter=MAX_ITER, restart_freq=problem["restart"],
+              fine_kernel=fine_kernel, coarse_apply=coarse_apply,
+              outer_type=outer_type)
+    saved = list(mg.level_solve_list)
+    try:
+        outer_iters = None
+        if schedule == "calibrated":
+            solve, outer_iters = make_calibrated_batched_solver(mg, probe,
+                                                                **kw)
+        elif schedule is not None:
+            outer_iters, inner = schedule
+            if inner is not None:
+                for lvl in range(1, mg.get_num_levels() - 1):
+                    mg.level_solve_list[lvl] = dataclasses.replace(
+                        saved[lvl], fixed_trips=True,
+                        intermediate_iters=int(inner))
+            solve = make_fixed_batched_solver(
+                mg, outer_iters, allow_masked_inner=inner is None, **kw)
+        else:
+            solve = make_batched_solver(mg, **kw)
+        single = make_solver(mg, **kw)
+        solve(B)        # warm-up
+        single(B[0])
+        _sync(device)
+        batched_s, sequential_s, launches = [], [], None
+        for _ in range(repeats):
+            launches0 = launch_counts()
+            t0 = time.perf_counter()
+            res, carry = solve(B)
+            _sync(device)
+            batched_s.append(time.perf_counter() - t0)
+            launches = {k: n - launches0[k]
+                        for k, n in launch_counts().items()}
+            t0 = time.perf_counter()
+            seq = [single(b) for b in B]
+            _sync(device)
+            sequential_s.append(time.perf_counter() - t0)
+        busy_ms, n_kernels = (
+            profile_solve(solve, B, float(np.median(batched_s)) * 1e3)
+            if profile else (None, None))
+    finally:
+        mg.level_solve_list = saved
+    # Each lane's rel res_sq: its squared recursive residual over tol^2
+    # ||rhs||^2 of the system it solved (bench.py's calibrated contract).
+    rel_sq = (res.res_sq / (TOL ** 2 * norm2sq_lanes(
+        op.prepare_M(B, outer_type)))).cpu().numpy()
+    nrhs = B.shape[0]
+    return {
+        "size": problem["size"], "outer": problem["outer"],
+        "device": str(device), "nrhs": nrhs,
+        "levels": [f"{lat.x_len}x{lat.y_len} nc{lat.nc}"
+                   for lat in mg.lattice_list],
+        "fine_kernel": fine_kernel, "coarse_apply": coarse_apply,
+        "level_applies": solve.level_applies,
+        "schedule": ("adaptive" if schedule is None else
+                     f"calibrated {outer_iters}" if schedule == "calibrated"
+                     else "fixed " + ",".join(
+                         str(v) for v in schedule if v is not None)),
+        "iters": res.iters.tolist(),
+        "sequential_iters": [r.iters for r, _ in seq],
+        "converged": res.converged.cpu().tolist(),
+        "rel_res_recursive": (np.sqrt(rel_sq) * TOL).tolist(),
+        "rel_res_sq_of_target": rel_sq.tolist(),
+        "rel_res_true": [true_residual(op, B[k], res.x[k])
+                         for k in range(nrhs)],
+        "sequential_rel_res_true": [true_residual(op, B[k], seq[k][0].x)
+                                    for k in range(nrhs)],
+        "x_finite": bool(torch.isfinite(torch.view_as_real(res.x)).all()),
+        "level_iters": carry["iters"].tolist(),
+        "batched_ms": float(np.median(batched_s)) * 1e3,
+        "sequential_ms": float(np.median(sequential_s)) * 1e3,
+        "batched_ms_all": [t * 1e3 for t in batched_s],
+        "sequential_ms_all": [t * 1e3 for t in sequential_s],
+        "launches": launches,
+        "device_busy_ms": busy_ms,
+        "device_kernels": n_kernels,
+        "setup_s": problem["setup_s"],
+    }
+
+
+def check_calibrated(r: dict):
+    """bench.py's calibrated contract on a ``run_batched`` report: every
+    lane meets the tolerance (rel res_sq <= 1) and the largest is at least
+    1e-2. Returns the failure's message, or None."""
+    rel = np.asarray(r["rel_res_sq_of_target"])
+    if rel.max() > 1.0:
+        return (f"calibrated schedule missed the tolerance: worst rel "
+                f"res_sq {rel.max():.3e} of the target")
+    if rel.max() < 1e-2:
+        return (f"calibrated schedule overshoots by more than a decade: "
+                f"largest rel res_sq {rel.max():.3e} of the target")
+    return None
+
+
+def print_batched_report(r: dict):
+    print(f"kcycle {r['size']}^2 on {r['device']}, outer {r['outer']} "
+          f"({OUTERS[r['outer']].name}), {r['nrhs']} right-hand sides in one "
+          f"batched solve, schedule {r['schedule']}: fine_kernel "
+          f"{r['fine_kernel']}, coarse_apply {r['coarse_apply']}")
+    print("level applies: " + ", ".join(
+        f"{lvl} {name}" for lvl, name in zip(r["levels"],
+                                             r["level_applies"])))
+    print("lane: outer iterations (sequential), recursive relres, rel "
+          "res_sq of the target, true relres (sequential's)")
+    for k in range(r["nrhs"]):
+        print(f"  lane {k}: {r['iters'][k]} ({r['sequential_iters'][k]}), "
+              f"{r['rel_res_recursive'][k]:.3e}, "
+              f"{r['rel_res_sq_of_target'][k]:.3e}, "
+              f"{r['rel_res_true'][k]:.3e} "
+              f"({r['sequential_rel_res_true'][k]:.3e})")
+    print(f"batched solve ms: {r['batched_ms']:.3f} = "
+          f"{r['batched_ms'] / r['nrhs']:.3f} per rhs; sequential "
+          f"{r['sequential_ms']:.3f} = {r['sequential_ms'] / r['nrhs']:.3f} "
+          "per rhs"
+          + (" (medians of alternating turns: batched "
+             + ", ".join(f"{t:.3f}" for t in r["batched_ms_all"])
+             + "; sequential "
+             + ", ".join(f"{t:.3f}" for t in r["sequential_ms_all"]) + ")"
+             if len(r["batched_ms_all"]) > 1 else ""))
+    print(f"setup s: {r['setup_s']:.3f}")
+    print(f"per-lane krylov iterations per level {r['level_iters']}")
+    print("kernel launches per batched solve: " + ", ".join(
+        f"{k} {n}" for k, n in r["launches"].items()))
+
+
 def mesh_from_env(device: str):
     """(mesh, device) of this process in a ``torch.distributed`` job
     started by ``torchrun``: one y-slab per rank, NCCL for a CUDA device
@@ -519,6 +692,16 @@ def main(argv=None):
                         "adaptive (n22)")
     p.add_argument("--n-setup", type=int, default=1, metavar="N",
                    help="adaptive passes of --setup adaptive")
+    p.add_argument("--nrhs", type=int, default=1,
+                   help="solve this many right-hand sides in one batched "
+                        "solve, beside their sequential solves")
+    p.add_argument("--fixed-schedule", default=None, metavar="OUTER[,INNER]",
+                   help="--nrhs mode: exactly OUTER outer trips (adaptive "
+                        "inner loops); OUTER,INNER also fixes every "
+                        "intermediate level at INNER trips")
+    p.add_argument("--calibrated", action="store_true",
+                   help="--nrhs mode: the outer trips of one adaptive "
+                        "probe solve + 1, held to bench.py's contract")
     p.add_argument("--repeats", type=int, default=1,
                    help="timed solves; the median is reported")
     p.add_argument("--profile", action="store_true",
@@ -534,9 +717,9 @@ def main(argv=None):
             raise SystemExit("--outer schur runs on one device: --shards "
                              "and --distributed take the original "
                              "formulation")
-    if args.deflate and (args.outer == "schur" or args.shards is not None
-                         or args.distributed):
+    if args.deflate and (args.shards is not None or args.distributed):
         raise SystemExit(f"--deflate: {DEFLATE_LATER}")
+    schedule = _schedule(args)
     if args.deflate < 0:
         raise SystemExit("--deflate takes a number of eigenpairs >= 0")
     if args.setup == "adaptive" and (
@@ -561,6 +744,8 @@ def main(argv=None):
         raise SystemExit("--shards and --distributed take --fine-kernel "
                          "wilson-r1 (the slab kernel) or none; the other "
                          "kernels are single-device")
+    if schedule is not False:
+        return _main_batched(args, schedule)
     mesh, device, is_root = None, args.device, True
     if args.distributed:
         mesh, device = mesh_from_env(args.device)
@@ -586,6 +771,70 @@ def main(argv=None):
     if is_root:
         print_report(r)
     if not (r["converged"] and np.isfinite(r["rel_res_true"])):
+        raise SystemExit(1)
+
+
+def _schedule(args):
+    """False for one right-hand side, else the batched schedule that
+    ``run_batched`` takes; the flags' refusals."""
+    if args.nrhs < 1:
+        raise SystemExit("--nrhs takes a number of right-hand sides >= 1")
+    if args.nrhs == 1:
+        if args.fixed_schedule or args.calibrated:
+            raise SystemExit("--fixed-schedule and --calibrated belong to "
+                             "the --nrhs mode (--nrhs > 1)")
+        return False
+    if args.shards is not None or args.distributed:
+        raise SystemExit(f"--nrhs: {NRHS_LATER}")
+    if args.calibrated:
+        if args.fixed_schedule:
+            raise SystemExit("--calibrated picks its own outer trip count; "
+                             "drop --fixed-schedule")
+        return "calibrated"
+    if args.fixed_schedule:
+        try:
+            parts = [int(v) for v in args.fixed_schedule.split(",")]
+        except ValueError:
+            parts = []
+        if len(parts) not in (1, 2) or min(parts) < 1:
+            raise SystemExit("--fixed-schedule takes OUTER or OUTER,INNER "
+                             "(positive trip counts)")
+        return (parts[0], parts[1] if len(parts) == 2 else None)
+    return None
+
+
+def _main_batched(args, schedule):
+    """The ``--nrhs`` mode of ``main``."""
+    problem = build_problem(args.size, args.device, args.wilson_coeff,
+                            outer=args.outer, deflate=args.deflate,
+                            direct=not args.no_direct, setup=args.setup,
+                            n_setup=args.n_setup)
+    probe = None
+    if schedule == "calibrated":
+        # bench.py draws the probe first, then the nrhs right-hand sides.
+        probe = problem["b"]
+        lat = Lattice2D(args.size, args.size, 2)
+        problem = dict(problem, b=torch.as_tensor(
+            problem["rng"].gaussian_cv(lat)).to(device=args.device,
+                                                dtype=torch.complex64))
+    B = bench_rhs(problem, args.nrhs)
+    try:
+        r = run_batched(problem, B,
+                        None if args.fine_kernel == "none"
+                        else args.fine_kernel, args.coarse_apply, schedule,
+                        probe, repeats=args.repeats, profile=args.profile)
+    except ValueError as e:
+        raise SystemExit(f"--nrhs: {e}")
+    print_batched_report(r)
+    failed = not (r["x_finite"] and np.isfinite(r["rel_res_true"]).all())
+    if schedule is None:
+        failed |= not all(r["converged"])
+    if schedule == "calibrated":
+        msg = check_calibrated(r)
+        print("calibrated contract: " + (msg or "met (largest rel res_sq "
+                                         "in [1e-2, 1])"))
+        failed |= msg is not None
+    if failed:
         raise SystemExit(1)
 
 

@@ -4,7 +4,7 @@ Fields are complex tensors of any shape; "cv" fields are (2, Y, Xh, nc)
 and "cm" fields (2, Y, Xh, nc, nc) with [..., row, col]. Reductions
 return 0-dim tensors on the field's device, so solver loops sync with the
 host only where they test convergence. The ``*_lanes`` reductions are the
-batched solvers': over every axis but a leading rhs axis, one result per
+Krylov solvers': over every axis but a leading rhs axis, one result per
 lane, ``(B,)``.
 """
 
@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["vdot", "norm2sq", "vdot_lanes", "norm2sq_lanes", "reductions",
+           "lane_reductions",
            "norm", "diffnorm2sq", "norminf", "normalize",
            "orthogonal",
            "site_matvec", "stacked_site_matvec", "site_matmul",
@@ -38,15 +39,18 @@ def norm2sq(a):
     return vdot(a, a).real
 
 
-def vdot_lanes(a, b):
-    """<a[k], b[k]> per lane k of a leading rhs axis -> (B,) complex."""
-    return torch.linalg.vecdot(a.reshape(a.shape[0], -1),
-                               b.reshape(b.shape[0], -1))
+def vdot_lanes(a, b, reduce=None):
+    """<a[k], b[k]> per lane k of a leading rhs axis -> (B,) complex.
+    ``reduce`` sums the partial products over the ranks that share the
+    fields (``reductions``)."""
+    out = torch.linalg.vecdot(a.reshape(a.shape[0], -1),
+                              b.reshape(b.shape[0], -1))
+    return out if reduce is None else reduce(out)
 
 
-def norm2sq_lanes(a):
+def norm2sq_lanes(a, reduce=None):
     """||a[k]||^2 per lane k of a leading rhs axis -> (B,) real."""
-    return vdot_lanes(a, a).real
+    return vdot_lanes(a, a, reduce).real
 
 
 def reductions(reduce=None):
@@ -61,6 +65,16 @@ def reductions(reduce=None):
         return vdot, norm2sq, lambda t: t
     return (lambda a, b: reduce(vdot(a, b)),
             lambda a: reduce(vdot(a, a)).real, reduce)
+
+
+def lane_reductions(reduce=None):
+    """``reductions`` on a leading rhs axis: (vdot_lanes, norm2sq_lanes,
+    sum), each lane's partial results summed over the ranks by
+    ``reduce``."""
+    if reduce is None:
+        return vdot_lanes, norm2sq_lanes, lambda t: t
+    return (lambda a, b: vdot_lanes(a, b, reduce),
+            lambda a: norm2sq_lanes(a, reduce), reduce)
 
 
 def norm(a):

@@ -15,9 +15,12 @@ takes part, as no Schur apply takes an override.
 ``make_calibrated_batched_solver`` (the counterparts of qmg_tpu's
 ``make_batched_planes_solver`` family) solve nrhs right-hand sides in one
 batched K-cycle: every field carries a leading rhs axis, each lane follows
-its own sequential trajectory (``solvers``' batched solvers), and the rhs
+its own sequential trajectory (``solvers``' lane solvers), and the rhs
 axis goes through the kernels (K1 on level 0, K6 on the small coarse
-levels), one launch for all lanes.
+levels), one launch for all lanes. There is one solve: ``make_solver``'s
+is the batched solve's one-field case (no rhs axis: the single solve's
+own shapes and scalars), so every formulation, coarsest solve and
+smoother that a single solve takes, a batch takes too.
 
 ``state_to_numpy`` / ``state_from_numpy`` carry a hierarchy across the two
 packages in the key format of ``qmg_tpu.tpu_compat.mg_state_planes``:
@@ -47,7 +50,7 @@ from . import linalg
 from .operators.wilson import Wilson2D
 from .operators.coarse import CoarseOperator2D
 from .transfer import TransferMG, ShardedTransferMG, DoublingType
-from .stateful import (StatefulMultigridMG, zero_carry, zero_batched_carry,
+from .stateful import (StatefulMultigridMG, zero_batched_carry,
                        DSLASH_KRYLOV, _NORMAL_TYPES)
 from .refine import refine_solve
 from .setup import KCycleConfig, pin_full_precision
@@ -173,6 +176,34 @@ def _takes_small(st: Stencil2D) -> bool:
             and small_fits(st.lat.nc, st.lat.y_len, st.lat.xh))
 
 
+def _overrides(stencils, nrhs, fine_kernel, coarse_apply, coeff_dtype,
+               mesh):
+    """(the levels' apply overrides, their names) for one field (``nrhs``
+    None) or a batch (nrhs, *cv_shape): a single-field kernel (or the
+    gather apply, or the sharded apply on a mesh), at nrhs = 1 handed lane
+    0's view; above it the rhs entries of K1 and K6, one launch for all
+    lanes (the callers refuse the kinds that have none)."""
+    fine = stencils[0]
+    rhs = nrhs if nrhs and nrhs > 1 else None
+    fns, names = [None], [fine_kernel or "plain"]
+    if fine_kernel in WILSON_KERNELS:
+        fns[0] = _wilson_apply(fine, fine_kernel, mesh, rhs)
+    elif fine_kernel is not None:
+        fns[0] = _matrix_apply(fine.coeffs, fine_kernel, coeff_dtype)
+    elif mesh is not None:
+        fns[0] = make_sharded_dslash(fine.coeffs, mesh)
+    if mesh is not None:
+        names[0] += f" on {mesh.ny}x{mesh.nx} blocks"
+    for st in stencils[1:]:
+        fn, name = _coarse_apply(st, coarse_apply, rhs)
+        fns.append(fn)
+        names.append(name)
+    if nrhs == 1:
+        fns = [fn if fn is None else (lambda v, fn=fn: fn(v[0])[None])
+               for fn in fns]
+    return fns, names
+
+
 def _hierarchy_guard(mg: StatefulMultigridMG):
     """A check that ``mg`` has not changed since the call: a solver holds
     the stencils, transfers and overrides of the levels it was made on."""
@@ -207,12 +238,13 @@ def make_solver(mg: StatefulMultigridMG, tol: float = 1e-8,
                 prepared: bool = False):
     """Returns solve(b, x0=None, track=True, verbose=None) ->
     (SolveResult, carry): outer FGCR on the fine operator, from ``x0``
-    (zero by default), preconditioned by one K-cycle per iteration.
-    ``carry`` holds this solve's per-level operator and iteration counts
-    (outer ones included); with ``track`` they are also added to
-    ``mg.tracker``. ``verbose`` (a bool, a prefix or a
-    ``solvers.VerboseMG``) prints qmg_tpu's lines: the outer solve's at
-    its verbosity, the K-cycle's per level
+    (zero by default), preconditioned by one K-cycle per iteration. It is
+    ``make_batched_solver``'s solve on one field without the rhs axis,
+    with every option of the single solve. ``carry`` holds this
+    solve's per-level operator and iteration counts (outer ones included);
+    with ``track`` they are also added to ``mg.tracker``. ``verbose`` (a
+    bool, a prefix or a ``solvers.VerboseMG``) prints qmg_tpu's lines: the
+    outer solve's at its verbosity, the K-cycle's per level
     (``StatefulMultigridMG.make_preconditioner``). A solve refuses to run
     once the hierarchy changed (``mg.version``).
 
@@ -253,6 +285,28 @@ def make_solver(mg: StatefulMultigridMG, tol: float = 1e-8,
     from ``shard_state``'s cut, level 0's inner products are summed over
     the ranks and every rank holds the coarse levels whole.
     """
+    lanes = _lane_solver(mg, tol, max_iter, restart_freq, fine_kernel,
+                         coarse_apply, coeff_dtype, mesh, outer_type,
+                         prepared)
+
+    def solve(b, x0=None, track: bool = True, verbose=None):
+        res, carry = lanes(b, x0=x0, track=track, verbose=verbose,
+                           laned=False)
+        return (solvers._single(res),
+                {name: counts[0] for name, counts in carry.items()})
+
+    solve.level_applies = lanes.level_applies
+    return solve
+
+
+def _lane_solver(mg: StatefulMultigridMG, tol, max_iter, restart_freq,
+                 fine_kernel, coarse_apply, coeff_dtype, mesh, outer_type,
+                 prepared, fixed_outer_iters=None, trace=None):
+    """The solve of ``make_solver`` and ``make_batched_solver``:
+    solve(B, x0=None, track=True, verbose=None, laned=True) ->
+    (BatchedSolveResult, carry) on a batch with a leading rhs axis, or
+    with ``laned=False`` on one field (the batch's one-field case: a carry
+    of one lane, x the field's)."""
     if fine_kernel not in FINE_KERNELS + (None,):
         raise ValueError(f"unknown fine_kernel {fine_kernel!r}")
     if mesh is not None and fine_kernel not in ("wilson-r1", None):
@@ -296,7 +350,6 @@ def make_solver(mg: StatefulMultigridMG, tol: float = 1e-8,
     unchanged = _hierarchy_guard(mg)
     fine = mg.get_stencil(0)
     stencils = [mg.get_stencil(lvl) for lvl in range(n_levels)]
-    overrides, applies = [None], ["plain"]
     reduce = None
     if mesh is not None:
         if mesh.distributed != isinstance(mg.get_transfer(0),
@@ -307,20 +360,9 @@ def make_solver(mg: StatefulMultigridMG, tol: float = 1e-8,
                 "a whole one")
         validate_mg_sharding(mg, mesh)
         reduce = mesh.all_sum if mesh.distributed else None
-    if fine_kernel in WILSON_KERNELS:
-        overrides[0] = _wilson_apply(fine, fine_kernel, mesh)
-    elif fine_kernel is not None:
-        overrides[0] = _matrix_apply(fine.coeffs, fine_kernel, coeff_dtype)
-    elif mesh is not None:
-        overrides[0] = make_sharded_dslash(fine.coeffs, mesh)
-    if fine_kernel is not None:
-        applies[0] = fine_kernel
-    if mesh is not None:
-        applies[0] += f" on {mesh.ny}x{mesh.nx} blocks"
-    for st in stencils[1:]:
-        fn, name = _coarse_apply(st, coarse_apply)
-        overrides.append(fn)
-        applies.append(name)
+    kernels = (fine_kernel, coarse_apply, coeff_dtype, mesh)
+    one_field, applies = _overrides(stencils, None, *kernels)
+    bound = {None: one_field}     # nrhs (None: one field) -> overrides
     applies = [name if t == StencilType.ORIGINAL else t.name.lower()
                for name, t in zip(applies, types)]
 
@@ -333,28 +375,36 @@ def make_solver(mg: StatefulMultigridMG, tol: float = 1e-8,
         matvec = make_sharded_dslash(fine.coeffs, mesh)
 
     transformed = outer_type != StencilType.ORIGINAL and not prepared
+    fixed = fixed_outer_iters is not None
 
-    def solve(b, x0=None, track: bool = True, verbose=None):
+    def solve(b, x0=None, track: bool = True, verbose=None,
+              laned: bool = True):
         unchanged()
         if x0 is not None and transformed:
             raise ValueError(f"x0 with outer_type {outer_type.name} needs "
                              "prepared=True (x0 of the prepared system)")
-        carry = zero_carry(n_levels)
+        nrhs = b.shape[0] if laned else None
+        if nrhs not in bound:
+            bound[nrhs] = _overrides(stencils, nrhs, *kernels)[0]
+        carry = zero_batched_carry(nrhs or 1, n_levels)
         rhs = fine.prepare_M(b, outer_type) if transformed else b
         try:
-            for st, fn in zip(stencils, overrides):
+            for st, fn in zip(stencils, bound[nrhs]):
                 st.apply_override = fn
             v = solvers._as_verbose(verbose)
-            precond = mg.make_preconditioner(0, reduce=reduce, verbose=v)
-            res, carry = solvers.gcr_var_precond_restart(
-                matvec, rhs, precond, x0=x0, max_iter=max_iter, tol=tol,
-                restart_freq=restart_freq, precond_carry=carry,
-                reduce=reduce, verbose=_outer_verbose(v))
+            precond = mg.make_preconditioner(0, reduce=reduce,
+                                             verbose=v).lanes
+            res, carry = solvers._gcr(
+                matvec, rhs, x0,
+                int(fixed_outer_iters) if fixed else max_iter, tol,
+                int(restart_freq), precond=precond, precond_carry=carry,
+                fixed_trips=fixed, reduce=reduce, verbose=_outer_verbose(v),
+                trace=trace, laned=laned)
         finally:
             for st in stencils:
                 st.apply_override = None
-        carry["counts"][0, DSLASH_KRYLOV] += res.ops_count
-        carry["iters"][0] += res.iters
+        carry["counts"][:, 0, DSLASH_KRYLOV] += res.ops_count
+        carry["iters"][:, 0] += res.iters
         if track:
             mg.absorb_carry(carry)
         if transformed:
@@ -369,27 +419,34 @@ def make_batched_solver(mg: StatefulMultigridMG, tol: float = 1e-8,
                         max_iter: int = 400, restart_freq: int = 32,
                         fine_kernel: str | None = "wilson-r1",
                         coarse_apply: str = "plain", mesh: Mesh | None = None,
+                        outer_type: StencilType = StencilType.ORIGINAL,
                         fixed_outer_iters: int | None = None, trace=None):
     """Returns solve(B) -> (BatchedSolveResult, carry) for right-hand sides
-    B (nrhs, 2, Y, Xh, nc): outer FGCR around one K-cycle per iteration,
-    every lane the arithmetic of ``make_solver``'s solve of that field
-    alone (qmg_tpu's vmap of its solve: converged lanes frozen, per-lane
-    iteration and operator counts, the loop running while any lane is
-    active). In complex64 the batch's products may round differently from
-    a single field's, which can move a lane's count where the solve
-    stalls near the precision floor (ROADMAP, Queue 3 F5). ``carry`` holds per-lane counts (nrhs, n_levels, 4) and
-    iterations (nrhs, n_levels), outer ones included; their sum over the
-    lanes goes to ``mg.tracker``.
+    B (nrhs, 2, Y, Xh, nc): outer FGCR around one
+    K-cycle per iteration, every lane the arithmetic of ``make_solver``'s
+    solve of that field alone (qmg_tpu's vmap of its solve: converged
+    lanes frozen, per-lane iteration and operator counts, the loop running
+    while any lane is active). ``make_solver`` is this solve at nrhs = 1,
+    so the batch takes what a single solve takes: ``outer_type``
+    RIGHT_SCHUR (b prepared and x reconstructed per lane, the derived sets
+    built once), the normal-operator (CG, deflated) coarsest and the CGNE
+    smoother. In complex64 the batch's products may round differently
+    from a single field's, which can move a lane's count where the solve
+    stalls near the precision floor (ROADMAP, Queue 3 F5). ``carry`` holds
+    per-lane counts (nrhs, n_levels, 4) and iterations (nrhs, n_levels),
+    outer ones included; their sum over the lanes goes to ``mg.tracker``.
 
     The rhs axis goes through the kernels: ``fine_kernel="wilson-r1"``
     applies level 0 inside the K-cycle with the rank-1 kernel's rhs entry
     (``wilson_r1_rhs_apply``, one launch for all lanes), and
     ``coarse_apply="small"`` the coarse levels that fit it with K6's
-    (``dslash_small_rhs_apply``), each bound once per solver and nrhs.
-    ``None`` and "plain" keep the plain apply, which takes the rhs axis as
-    it is; the outer matvec is always the exact plain apply. The other
-    kernels and ``mesh`` are refused. ``fixed_outer_iters`` runs exactly
-    that many outer trips on every lane with no stopping test
+    (``dslash_small_rhs_apply``), each bound once per solver and nrhs; at
+    nrhs = 1 they take their single-field entries. ``None`` and "plain"
+    keep the plain apply, which takes the rhs axis as it is; the outer
+    matvec is always the exact plain apply. The other kernels, the gather
+    apply and ``mesh`` are refused: they have no rhs axis, as qmg_tpu
+    refuses its Pallas kernels in a batched solve. ``fixed_outer_iters``
+    runs exactly that many outer trips on every lane with no stopping test
     (``make_fixed_batched_solver``). ``trace`` goes to the outer solve
     (``solvers.gcr_var_precond_restart_batched``): called at each restart
     and at the end with every lane's iterations and residuals."""
@@ -397,67 +454,29 @@ def make_batched_solver(mg: StatefulMultigridMG, tol: float = 1e-8,
         raise ValueError(
             f"batched solves take fine_kernel in {BATCHED_FINE_KERNELS}, got "
             f"{fine_kernel!r}: the other fine kernels have no rhs axis yet "
-            "(ROADMAP Queue 1 item 10: an rhs axis for K2, K4, K5 and K7)")
+            "(ROADMAP Queue 2 item 5: an rhs axis for K2, K4, K5 and K7)")
     coarse_apply = "plain" if coarse_apply == "jnp" else coarse_apply
     if coarse_apply not in BATCHED_COARSE_APPLIES:
         raise ValueError(
             f"batched solves take coarse_apply in {BATCHED_COARSE_APPLIES}, "
-            f"got {coarse_apply!r}: the gather apply has no rhs axis "
-            "(ROADMAP Queue 1 item 10)")
+            f"got {coarse_apply!r}: the gather apply has no rhs axis")
     if mesh is not None:
         raise ValueError("batched solves are single-device: mesh= is not "
-                         "ported for them (ROADMAP Queue 1 items 10 and 14)")
-    pin_full_precision()
-    unchanged = _hierarchy_guard(mg)
-    fine = mg.get_stencil(0)
-    if fine_kernel is not None:
-        _check_wilson(fine, fine_kernel)
-    n_levels = mg.get_num_levels()
-    stencils = [mg.get_stencil(lvl) for lvl in range(n_levels)]
-    bound = {}     # nrhs -> the levels' overrides for that batch shape
-    applies = [fine_kernel or "plain"] + [
-        "small" if coarse_apply == "small" and _takes_small(st) else "plain"
-        for st in stencils[1:]]
-
-    def overrides(nrhs: int):
-        if nrhs not in bound:
-            bound[nrhs] = [
-                _wilson_apply(fine, fine_kernel, nrhs=nrhs)
-                if fine_kernel is not None else None] + [
-                _coarse_apply(st, coarse_apply, nrhs)[0]
-                for st in stencils[1:]]
-        return bound[nrhs]
-
-    def matvec(v):
-        return apply_M(fine.coeffs, v)
+                         "ported for them (ROADMAP Queue 1 items 14 and 7, "
+                         "and Queue 2 item 5 for K7's rhs axis)")
+    lanes = _lane_solver(mg, tol, max_iter, restart_freq, fine_kernel,
+                         coarse_apply, None, None, outer_type, False,
+                         fixed_outer_iters, trace)
+    cv_shape = tuple(mg.get_stencil(0).lat.cv_shape())
 
     def solve(b):
-        unchanged()
-        if b.ndim != 5 or tuple(b.shape[1:]) != tuple(fine.lat.cv_shape()):
+        if b.ndim != 5 or tuple(b.shape[1:]) != cv_shape:
             raise ValueError(f"right-hand sides must be (nrhs, "
-                             f"{', '.join(map(str, fine.lat.cv_shape()))}), "
+                             f"{', '.join(map(str, cv_shape))}), "
                              f"got {tuple(b.shape)}")
-        nrhs = b.shape[0]
-        carry = zero_batched_carry(nrhs, n_levels)
-        try:
-            for st, fn in zip(stencils, overrides(nrhs)):
-                st.apply_override = fn
-            precond = mg.make_batched_preconditioner(0)
-            res, carry = solvers.gcr_var_precond_restart_batched(
-                matvec, b, precond,
-                max_iter=(max_iter if fixed_outer_iters is None
-                          else int(fixed_outer_iters)),
-                tol=tol, restart_freq=restart_freq, precond_carry=carry,
-                fixed_trips=fixed_outer_iters is not None, trace=trace)
-        finally:
-            for st in stencils:
-                st.apply_override = None
-        carry["counts"][:, 0, DSLASH_KRYLOV] += res.ops_count
-        carry["iters"][:, 0] += res.iters
-        mg.absorb_carry(carry)
-        return res, carry
+        return lanes(b)
 
-    solve.level_applies = applies
+    solve.level_applies = lanes.level_applies
     return solve
 
 
@@ -698,7 +717,7 @@ def state_from_numpy(state: dict, cfg: KCycleConfig, *, device="cuda",
                                 for k in state):
         raise ValueError("a distributed mesh takes ORIGINAL hierarchies: "
                          "the derived (rbjacobi / Schur) sets are not cut "
-                         "for blocks (ROADMAP Queue 1 item 9)")
+                         "for blocks (ROADMAP Queue 1 items 14 and 7)")
     if dtype is None:
         dtype = (torch.complex64 if state["clover0"].dtype == np.float32
                  else torch.complex128)

@@ -6,16 +6,17 @@ MinRes, Richardson and TFQMR).
 Conventions, as in qmg_tpu:
 
   * matvec is a callable x -> A x on tensors of a fixed shape;
-  * convergence is ||r|| < tol ||b||; ``tol`` may be a float or a 0-dim
-    tensor (the K-cycle's rescaled inner tolerance);
+  * convergence is ||r|| < tol ||b||; ``tol`` may be a float, a 0-dim
+    tensor or a per-lane (B,) one (the K-cycle's rescaled inner
+    tolerance);
   * results carry the iteration count, the final ||r||^2, a convergence
     flag and ops_count, the number of operator applications;
   * flexible solvers take precond(r, carry) -> (z, carry);
-  * ``reduce`` (GCR and MinRes) is for fields that are one rank's block of
-    a lattice cut over ranks: it sums partial inner products over the
-    ranks (``linalg.reductions``). Every stopping test and breakdown guard
-    then branches on a summed value, so all ranks leave a loop at the same
-    iteration.
+  * ``reduce`` (GCR and MinRes) is for fields that are one rank's
+    block of a lattice cut over ranks: it sums partial inner products over
+    the ranks (``linalg.lane_reductions``). Every stopping test and
+    breakdown guard then branches on a summed value, so all ranks leave a
+    loop at the same iteration.
 
 Scalars (inner products, step lengths) stay 0-dim device tensors; a loop
 reads one back to the host only for its stopping test. The breakdown
@@ -35,17 +36,18 @@ and its iterates are the silent solve's; it reads ||b||^2 and the target
 once. Only a fixed-trip GCR, which reads nothing back, reads each
 residual it prints.
 
-The batched solvers (``*_batched``) take fields with a leading rhs axis
-(B, 2, Y, Xh, nc) and give each lane k the trajectory of the same solver
-on field k alone, as qmg_tpu's vmap over its while loops does: a lane that
-has converged is frozen exactly (``torch.where`` on its solution,
-residual and norm), each lane keeps its own iteration and operator count,
-and the loop runs while any lane is active. One read-back per iteration
-brings the lanes' stopping tests to the host together (``Lanes``); the
-per-lane reductions (``linalg.vdot_lanes``) never mix lanes. Active lanes
-started together and never restart, so they share one restart counter. A
-batched preconditioner takes ``precond(r, carry, lanes)`` and counts only
-the lanes that are active.
+Every solve on the K-cycle's path (CG, GCR in all its forms, MinRes) has
+one body, run on a batch with a leading rhs axis (B, ...) or on one field
+without it. On a batch each lane k follows the trajectory of the same
+solver on field k alone, as qmg_tpu's vmap over its while loops does: a
+converged lane is frozen exactly (``torch.where``), each lane keeps its
+own counts, the loop runs while any lane is active, and one read-back an
+iteration brings the lanes' stopping tests to the host (``Lanes``). Active
+lanes started together, so they restart together. A flexible solve takes
+``precond(r, carry, lanes)``. The single-field API (``cg``,
+``gcr_var_precond_restart``, ...) is the one-field case: the field's own
+shapes and 0-dim scalars, no mask, integer counts. The ``*_batched`` names
+take the rhs axis; ``verbose`` prints one lane only.
 """
 
 from __future__ import annotations
@@ -58,7 +60,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .linalg import vdot, norm2sq, vdot_lanes, norm2sq_lanes, reductions
+from .linalg import vdot, norm2sq, reductions, lane_reductions
 
 __all__ = ["SolveResult", "Verbosity", "VerboseMG", "cg", "cg_restart", "gcr",
            "gcr_restart", "gcr_var_precond", "gcr_var_precond_restart",
@@ -140,15 +142,19 @@ def _keep_going(rsq, target) -> bool:
 
 
 class _Monitor:
-    """A loop's stopping test and its prints. Silent, the test is
-    ``_keep_going``. Verbose, it reads the squared residual back as a
-    value (once per tensor), tests it on the host against the target read
-    once, and the prints reuse that value."""
+    """A loop's stopping test and its prints. Silent, the test is one
+    read-back of the lanes' device flags. Verbose (one lane), it reads the
+    squared residual back as a value (once per tensor), tests it on the
+    host against the target read once, and the prints reuse that value."""
 
     def __init__(self, verbose, bsq, target):
         self.verbose = _as_verbose(verbose)
         self.on = self.verbose.verbosity > Verbosity.NONE
         self.target = target
+        if self.on and bsq.numel() > 1:
+            raise ValueError("verbose prints one solve: a batched solve "
+                             "(nrhs > 1) prints nothing, as qmg_tpu's "
+                             "vmapped solve does")
         if self.on:
             self.bsq, self.target = float(bsq), float(target)
         self._last = self._host = None
@@ -158,11 +164,14 @@ class _Monitor:
             self._last, self._host = rsq, float(rsq)
         return self._host
 
-    def keep_going(self, rsq) -> bool:
+    def still(self, lanes, rsq):
+        """The lanes of ``lanes`` whose residual is finite and above the
+        target, None where none is."""
         if not self.on:
-            return _keep_going(rsq, self.target)
+            return _still(lanes, torch.isfinite(rsq) & (rsq > self.target))
         r = self._read(rsq)
-        return math.isfinite(r) and r > self.target
+        # One lane: it goes on as it was, or the loop ends here.
+        return lanes if math.isfinite(r) and r > self.target else None
 
     def iteration(self, k: int, rsq):
         if self.verbose.verbosity >= Verbosity.DETAIL:
@@ -175,12 +184,98 @@ class _Monitor:
 
 
 # ---------------------------------------------------------------------------
+# The rhs axis. Every Krylov solve on the K-cycle's path has one body, run
+# on a batch with a leading rhs axis (B, ...) (``laned``) or on one field
+# without it: the single solve, with its own shapes and 0-dim scalars.
+# ---------------------------------------------------------------------------
+
+class Lanes(NamedTuple):
+    """Which lanes of a batch are active: a (B,) bool tensor on the
+    fields' device and the same mask on the host (NumPy). ``dev`` is None
+    where every lane is active, so that no mask is applied there."""
+    dev: torch.Tensor | None
+    host: np.ndarray
+
+
+class BatchedSolveResult(NamedTuple):
+    x: torch.Tensor           # (B, ...)
+    iters: np.ndarray         # (B,) int64, per lane
+    res_sq: torch.Tensor      # (B,) real (0-dim for one field)
+    converged: torch.Tensor   # (B,) bool (0-dim for one field)
+    ops_count: np.ndarray     # (B,) int64, operator applications per lane
+
+
+def all_lanes(b) -> Lanes:
+    """Every lane of the batch ``b`` active."""
+    return Lanes(None, np.ones(b.shape[0], dtype=bool))
+
+
+# One lane active, built once (its host mask is read, never written).
+_ONE = Lanes(None, np.ones(1, dtype=bool))
+_ONE.host.flags.writeable = False
+
+
+def _axis(b, laned: bool, reduce, active):
+    """(nrhs, its reductions (vdot, norm2sq, sum), its lanes) of a solve
+    on ``b``: the lane reductions on a batch, the single field's 0-dim
+    ones on one field."""
+    if not laned:
+        return 1, reductions(reduce), _ONE if active is None else active
+    return (b.shape[0], lane_reductions(reduce),
+            all_lanes(b) if active is None else active)
+
+
+def _still(lanes: Lanes, keep) -> Lanes | None:
+    """The lanes of ``lanes`` where the device flags ``keep`` hold, by one
+    read-back (one field: the flag that a single solve's stopping test
+    reads), or None where none does."""
+    if lanes.dev is not None:
+        keep = keep & lanes.dev
+    if keep.ndim == 0:
+        return _ONE if bool(keep) else None
+    host = keep.cpu().numpy()
+    if not host.any():
+        return None
+    return Lanes(None if host.all() else keep, host)
+
+
+def _per_lane(mask, like):
+    """A (B,) tensor shaped to broadcast over the fields ``like`` (one
+    field's 0-dim one broadcasts as it is)."""
+    if mask.ndim == 0:
+        return mask
+    return mask.reshape(mask.shape + (1,) * (like.ndim - 1))
+
+
+def _masked(lanes, masked: bool, new, old):
+    """``new`` on the active lanes and ``old`` on the others; ``new``
+    alone where nothing is masked or every lane is active."""
+    if not masked or lanes.dev is None:
+        return new
+    return torch.where(_per_lane(lanes.dev, new), new, old)
+
+
+def _result(x, iters, rsq, target, ops) -> BatchedSolveResult:
+    return BatchedSolveResult(x, iters, rsq, rsq <= target, ops)
+
+
+def _single(res: BatchedSolveResult) -> SolveResult:
+    """A solve of one field (no rhs axis) as the single-field result."""
+    return SolveResult(res.x, int(res.iters[0]), res.res_sq, res.converged,
+                       int(res.ops_count[0]))
+
+
+# ---------------------------------------------------------------------------
 # Conjugate gradient (Hermitian positive definite operators: the normal
 # operators of the deflated coarsest).
 # ---------------------------------------------------------------------------
 
-def cg(matvec, b, x0=None, max_iter: int = 1000, tol=1e-8,
-       verbose=None) -> SolveResult:
+def _cg(matvec, b, x0=None, max_iter: int = 1000, tol=1e-8,
+        active: Lanes = None, verbose=None, laned: bool = True
+        ) -> BatchedSolveResult:
+    """CG, on a batch (``laned``, ``tol`` a float or a (B,) tensor) or one
+    field."""
+    nrhs, (vdot, norm2sq, _), lanes = _axis(b, laned, None, active)
     x = torch.zeros_like(b) if x0 is None else x0
     bsq = norm2sq(b)
     target = _target(tol, bsq)
@@ -188,41 +283,77 @@ def cg(matvec, b, x0=None, max_iter: int = 1000, tol=1e-8,
     r = b - matvec(x)
     p = r
     rsq = norm2sq(r)
+    missed = np.zeros(nrhs, dtype=np.int64)     # trips each lane sat out
     k = 0
-    while k < max_iter and mon.keep_going(rsq):
+    while k < max_iter:
+        lanes = mon.still(lanes, rsq)
+        if lanes is None:
+            break
+        if lanes.dev is not None:
+            missed += ~lanes.host
         ap = matvec(p)
         # Breakdown guard: a stalled solve's <p, Ap> can underflow to 0;
         # the iteration then becomes a no-op.
         den = vdot(p, ap).real
         pos = den > 0
-        alpha = torch.where(pos, rsq / torch.where(pos, den, 1.0), 0.0)
-        x = x + alpha * p
-        r = r - alpha * ap
-        rsq_new = norm2sq(r)
-        p = r + (rsq_new / rsq) * p
-        rsq = rsq_new
+        alpha = _per_lane(torch.where(pos, rsq / torch.where(pos, den, 1.0),
+                                      0.0), p)
+        x = _masked(lanes, True, x + alpha * p, x)
+        r_new = r - alpha * ap
+        rsq_new = norm2sq(r_new)
+        p = _masked(lanes, True, r_new + _per_lane(rsq_new / rsq, p) * p, p)
+        r = _masked(lanes, True, r_new, r)
+        rsq = _masked(lanes, True, rsq_new, rsq)
         k += 1
         mon.iteration(k, rsq)
     mon.summary("cg", k, rsq)
-    return SolveResult(x, k, rsq, rsq <= target, k + 1)
+    iters = k - missed
+    return _result(x, iters, rsq, target, iters + 1)
+
+
+def cg(matvec, b, x0=None, max_iter: int = 1000, tol=1e-8,
+       verbose=None) -> SolveResult:
+    return _single(_cg(matvec, b, x0, max_iter, tol, verbose=verbose,
+                       laned=False))
+
+
+def _cg_restart(matvec, b, x0=None, max_iter: int = 1000, tol=1e-8,
+                restart_freq: int = 32, active: Lanes = None, verbose=None,
+                laned: bool = True) -> BatchedSolveResult:
+    """CG restarted every ``restart_freq`` iterations from the true
+    residual: a lane stops once its residual meets the tolerance or its
+    iterations reach ``max_iter``. ``verbose`` goes to each restart
+    cycle's CG (qmg_tpu's cg_restart takes none)."""
+    nrhs, (_, norm2sq, _), lanes = _axis(b, laned, None, active)
+    x = torch.zeros_like(b) if x0 is None else x0
+    target = _target(tol, norm2sq(b))
+    rsq = norm2sq(b - matvec(x))
+    iters = np.zeros(nrhs, dtype=np.int64)
+    ops = np.ones(nrhs, dtype=np.int64)
+    while True:
+        spent = lanes.host & (iters >= max_iter)
+        if spent.any():
+            left = lanes.host & ~spent
+            lanes = Lanes(None if left.all() else
+                          torch.as_tensor(left, device=b.device), left)
+        if not lanes.host.any():
+            break
+        lanes = _still(lanes, rsq > target)
+        if lanes is None:
+            break
+        res = _cg(matvec, b, x0=x, max_iter=restart_freq, tol=tol,
+                  active=lanes, verbose=verbose, laned=laned)
+        x = _masked(lanes, True, res.x, x)
+        rsq = _masked(lanes, True, res.res_sq, rsq)
+        iters += np.where(lanes.host, res.iters, 0)
+        ops += np.where(lanes.host, res.ops_count, 0)
+    return _result(x, iters, rsq, target, ops)
 
 
 def cg_restart(matvec, b, x0=None, max_iter: int = 1000, tol=1e-8,
                restart_freq: int = 32, verbose=None) -> SolveResult:
-    """CG restarted every ``restart_freq`` iterations from the true
-    residual. ``verbose`` goes to each restart cycle's ``cg`` (qmg_tpu's
-    cg_restart takes none)."""
-    x = torch.zeros_like(b) if x0 is None else x0
-    target = _target(tol, norm2sq(b))
-    rsq = norm2sq(b - matvec(x))
-    k, ops = 0, 1
-    while k < max_iter and bool(rsq > target):
-        res = cg(matvec, b, x0=x, max_iter=restart_freq, tol=tol,
-                 verbose=verbose)
-        x, rsq = res.x, res.res_sq
-        k += res.iters
-        ops += res.ops_count
-    return SolveResult(x, k, rsq, rsq <= target, ops)
+    return _single(_cg_restart(matvec, b, x0, max_iter, tol, restart_freq,
+                               verbose=verbose, laned=False))
 
 
 # ---------------------------------------------------------------------------
@@ -253,12 +384,35 @@ def _check_store(R: int, b: torch.Tensor):
             "raise solvers.GCR_STORE_LIMIT_BYTES")
 
 
-def _gcr_impl(matvec, b, x0, max_iter: int, tol, restart_len: int,
-              precond=None, precond_carry=None, reduce=None,
-              fixed_trips: bool = False, verbose=None):
-    vdot, norm2sq, total = reductions(reduce)
-    shape = b.shape
-    n = b.numel()
+def _orthogonalize(ps, aps, apsq, j: int, z, ap, total):
+    """(z, Az) orthogonalized against the ``j`` stored directions: on one
+    field (1-D vectors, (R, n) stores) matrix-vector products, on a batch
+    ((B, n) vectors, (B, R, n) stores) each lane's by batched products."""
+    if ap.ndim == 1:
+        betas = total(aps[:j].conj() @ ap) / apsq[:j]
+        return z - betas @ ps[:j], ap - betas @ aps[:j]
+    ps, aps = ps[:, :j], aps[:, :j]
+    betas = total((aps.conj() @ ap.unsqueeze(-1)).squeeze(-1)) / apsq[:, :j]
+    return (z - (betas.unsqueeze(1) @ ps).squeeze(1),
+            ap - (betas.unsqueeze(1) @ aps).squeeze(1))
+
+
+def _gcr(matvec, b, x0, max_iter: int, tol, restart_len: int, precond=None,
+         precond_carry=None, active: Lanes = None, fixed_trips: bool = False,
+         reduce=None, verbose=None, trace=None, laned: bool = True):
+    """GCR on a batch with a leading rhs axis (B, ...) (``laned``) or on
+    one field, flexible with ``precond(r, carry, lanes)``. ``tol`` is a
+    float or a 0-dim or (B,) tensor (the K-cycle's per-lane inner
+    tolerance); ``active`` the lanes that take part (all by default): the
+    others are frozen from the start. With ``fixed_trips`` every lane runs
+    ``max_iter`` trips unmasked, as the trip-counted loop does under
+    qmg_tpu's vmap. ``verbose`` prints one lane only.
+    ``trace(k, iters, rsq, true_rsq, bsq)``, when given, is called at every
+    restart and once at the end with the per-lane iteration counts and
+    squared recursive residuals; ``true_rsq`` is the squared true residual
+    at a restart, None at the end. Returns (BatchedSolveResult, carry)."""
+    nrhs, (vdot, norm2sq, total), lanes = _axis(b, laned, reduce, active)
+    n = b.numel() // nrhs
     R = _store_rows(restart_len, max_iter)
     _check_store(R, b)
     x = torch.zeros_like(b) if x0 is None else x0
@@ -268,79 +422,102 @@ def _gcr_impl(matvec, b, x0, max_iter: int, tol, restart_len: int,
     rdt = bsq.dtype
     tiny = torch.finfo(rdt).tiny
     if precond is None:
-        def precond(r, carry):
+        def precond(r, carry, lanes):
             return r, carry
 
     r = b - matvec(x)
-    ops = 1
-    ps = torch.zeros((R, n), dtype=b.dtype, device=b.device)
+    missed = np.zeros(nrhs, dtype=np.int64)     # trips each lane sat out
+    restarts = np.zeros(nrhs, dtype=np.int64)
+    # One field keeps the single solve's 1-D vectors and (R, n) stores.
+    lead = (nrhs,) if laned else ()
+    flat = lead + (n,)
+    ps = torch.zeros(lead + (R, n), dtype=b.dtype, device=b.device)
     aps = torch.zeros_like(ps)
-    apsq = torch.ones((R,), dtype=rdt, device=b.device)
+    apsq = torch.ones(lead + (R,), dtype=rdt, device=b.device)
     rsq = norm2sq(r)
+    masked = not fixed_trips
     j = k = 0
     carry = precond_carry
-    while k < max_iter and (fixed_trips or mon.keep_going(rsq)):
+    while k < max_iter:
+        if masked:
+            lanes = mon.still(lanes, rsq)
+            if lanes is None:
+                break
         if j >= R:
-            # Restart: recompute the true residual, clear the store.
-            r = b - matvec(x)
-            ops += 1
+            # Restart: the true residual, a cleared store. Active lanes
+            # started together, so they restart together.
+            r = _masked(lanes, masked, b - matvec(x), r)
+            restarts += lanes.host
+            if trace is not None:
+                trace(k, k - missed, rsq, norm2sq(r), bsq)
             ps.zero_()
             aps.zero_()
             apsq.fill_(1.0)
             j = 0
-        z, carry = precond(r, carry)
-        ap = matvec(z).reshape(n)
-        z = z.reshape(n)
-        ops += 1
+        if lanes.dev is not None:
+            missed += ~lanes.host
+        z, carry = precond(r, carry, lanes)
+        ap = matvec(z).reshape(flat)
+        z = z.reshape(flat)
         if j > 0:
-            # Orthogonalize (z, Az) against the stored directions.
-            betas = total(aps[:j].conj() @ ap) / apsq[:j]
-            ap = ap - betas @ aps[:j]
-            z = z - betas @ ps[:j]
+            z, ap = _orthogonalize(ps, aps, apsq, j, z, ap, total)
         apsq_new = norm2sq(ap)
         # Breakdown guard: a stalled solve's orthogonalized direction can
         # underflow to 0; the iteration then becomes a no-op.
         broke = ~(apsq_new > tiny)
         alpha = torch.where(broke, 0.0,
                             vdot(ap, r) / torch.where(broke, 1.0, apsq_new))
-        x = x + alpha * z.reshape(shape)
-        r = r - alpha * ap.reshape(shape)
-        rsq = norm2sq(r)
-        ps[j] = z
-        aps[j] = ap
-        apsq[j] = torch.where(broke, 1.0, apsq_new)
+        step = _per_lane(alpha, z)
+        x = _masked(lanes, masked, x + (step * z).reshape(b.shape), x)
+        r = _masked(lanes, masked, r - (step * ap).reshape(b.shape), r)
+        rsq = _masked(lanes, masked, norm2sq(r), rsq)
+        row = (slice(None), j) if laned else j
+        ps[row] = z
+        aps[row] = ap
+        apsq[row] = torch.where(broke, 1.0, apsq_new)
         j += 1
         k += 1
         mon.iteration(k, rsq)
     mon.summary("gcr", k, rsq)
-    return SolveResult(x, k, rsq, rsq <= target, ops), carry
+    iters = k - missed
+    if trace is not None:
+        trace(k, iters, rsq, None, bsq)
+    return _result(x, iters, rsq, target, iters + restarts + 1), carry
+
+
+def _single_precond(precond):
+    """A single-field precond(r, carry) in the lane form."""
+    return lambda r, carry, lanes: precond(r, carry)
 
 
 def gcr(matvec, b, x0=None, max_iter: int = 1000, tol=1e-8,
         verbose=None) -> SolveResult:
     """Unrestarted GCR: keeps up to ``max_iter`` directions."""
-    res, _ = _gcr_impl(matvec, b, x0, max_iter, tol,
-                       restart_len=max(int(max_iter), 1), verbose=verbose)
-    return res
+    res, _ = _gcr(matvec, b, x0, max_iter, tol,
+                  restart_len=max(int(max_iter), 1), verbose=verbose,
+                  laned=False)
+    return _single(res)
 
 
 def gcr_restart(matvec, b, x0=None, max_iter: int = 1000, tol=1e-8,
                 restart_freq: int = 32, reduce=None,
                 verbose=None) -> SolveResult:
-    res, _ = _gcr_impl(matvec, b, x0, max_iter, tol,
-                       restart_len=int(restart_freq), reduce=reduce,
-                       verbose=verbose)
-    return res
+    res, _ = _gcr(matvec, b, x0, max_iter, tol,
+                  restart_len=int(restart_freq), reduce=reduce,
+                  verbose=verbose, laned=False)
+    return _single(res)
 
 
 def gcr_var_precond(matvec, b, precond, x0=None, max_iter: int = 1000,
                     tol=1e-8, precond_carry=None, fixed_trips: bool = False,
                     verbose=None):
     """Unrestarted flexible GCR (``restart_freq = -1`` in a K-cycle)."""
-    return _gcr_impl(matvec, b, x0, max_iter, tol,
-                     restart_len=max(int(max_iter), 1), precond=precond,
-                     precond_carry=precond_carry, fixed_trips=fixed_trips,
-                     verbose=verbose)
+    res, carry = _gcr(matvec, b, x0, max_iter, tol,
+                      restart_len=max(int(max_iter), 1),
+                      precond=_single_precond(precond),
+                      precond_carry=precond_carry, fixed_trips=fixed_trips,
+                      verbose=verbose, laned=False)
+    return _single(res), carry
 
 
 def gcr_var_precond_restart(matvec, b, precond, x0=None,
@@ -349,149 +526,20 @@ def gcr_var_precond_restart(matvec, b, precond, x0=None,
                             reduce=None, fixed_trips: bool = False,
                             verbose=None):
     """Restarted flexible GCR: the outer solver of the K-cycle stack."""
-    return _gcr_impl(matvec, b, x0, max_iter, tol,
-                     restart_len=int(restart_freq), precond=precond,
-                     precond_carry=precond_carry, reduce=reduce,
-                     fixed_trips=fixed_trips, verbose=verbose)
-
-
-# ---------------------------------------------------------------------------
-# Batched (multi-RHS) GCR and MinRes: a leading rhs axis, per-lane
-# trajectories.
-# ---------------------------------------------------------------------------
-
-class Lanes(NamedTuple):
-    """Which lanes of a batch are active: a (B,) bool tensor on the
-    fields' device and the same mask on the host (NumPy)."""
-    dev: torch.Tensor
-    host: np.ndarray
-
-
-class BatchedSolveResult(NamedTuple):
-    x: torch.Tensor           # (B, ...)
-    iters: np.ndarray         # (B,) int64, per lane
-    res_sq: torch.Tensor      # (B,) real
-    converged: torch.Tensor   # (B,) bool
-    ops_count: np.ndarray     # (B,) int64, operator applications per lane
-
-
-def all_lanes(b) -> Lanes:
-    """Every lane of the batch ``b`` active."""
-    n = b.shape[0]
-    return Lanes(torch.ones(n, dtype=torch.bool, device=b.device),
-                 np.ones(n, dtype=bool))
-
-
-def _lanes(keep) -> Lanes:
-    """A device mask and its one read-back."""
-    return Lanes(keep, keep.cpu().numpy())
-
-
-def _per_lane(mask, like):
-    """A (B,) tensor shaped to broadcast over the fields ``like``."""
-    return mask.reshape(mask.shape + (1,) * (like.ndim - 1))
-
-
-def _masked(lanes, masked: bool, new, old):
-    """``new`` on the active lanes and ``old`` on the others; ``new``
-    alone where nothing is masked or every lane is active."""
-    if not masked or lanes.host.all():
-        return new
-    return torch.where(_per_lane(lanes.dev, new), new, old)
-
-
-def _gcr_batched(matvec, b, max_iter: int, tol, restart_len: int,
-                 precond=None, precond_carry=None, active: Lanes = None,
-                 fixed_trips: bool = False, trace=None):
-    """``_gcr_impl`` on a leading rhs axis. ``tol`` is a float or a (B,)
-    tensor (the K-cycle's per-lane inner tolerance); ``active`` the lanes
-    that take part (the caller's active lanes; all by default): the
-    others are frozen from the start. With ``fixed_trips`` every lane
-    runs ``max_iter`` trips unmasked, as the trip-counted loop does under
-    qmg_tpu's vmap. ``trace(k, iters, rsq, true_rsq, bsq)``, when given,
-    is called at every restart and once at the end with the per-lane
-    iteration counts and squared recursive residuals; ``true_rsq`` is
-    the squared true residual at a restart, None at the end."""
-    nrhs = b.shape[0]
-    n = b[0].numel()
-    R = _store_rows(restart_len, max_iter)
-    _check_store(R, b)
-    active = all_lanes(b) if active is None else active
-    x = torch.zeros_like(b)
-    bsq = norm2sq_lanes(b)
-    target = _target(tol, bsq)
-    rdt = bsq.dtype
-    tiny = torch.finfo(rdt).tiny
-    if precond is None:
-        def precond(r, carry, lanes):
-            return r, carry
-
-    r = b - matvec(x)
-    ops = np.ones(nrhs, dtype=np.int64)
-    iters = np.zeros(nrhs, dtype=np.int64)
-    ps = torch.zeros((nrhs, R, n), dtype=b.dtype, device=b.device)
-    aps = torch.zeros_like(ps)
-    apsq = torch.ones((nrhs, R), dtype=rdt, device=b.device)
-    rsq = norm2sq_lanes(r)
-    if fixed_trips:
-        lanes = active
-    else:
-        lanes = _lanes(active.dev & torch.isfinite(rsq) & (rsq > target))
-    j = k = 0
-    carry = precond_carry
-    while k < max_iter and (fixed_trips or lanes.host.any()):
-        if j >= R:
-            # Restart: the true residual, a cleared store. Active lanes
-            # started together, so they restart together.
-            r = _masked(lanes, not fixed_trips, b - matvec(x), r)
-            ops += lanes.host
-            if trace is not None:
-                trace(k, iters.copy(), rsq, norm2sq_lanes(r), bsq)
-            ps.zero_()
-            aps.zero_()
-            apsq.fill_(1.0)
-            j = 0
-        z, carry = precond(r, carry, lanes)
-        ap = matvec(z).reshape(nrhs, n)
-        z = z.reshape(nrhs, n)
-        if j > 0:
-            # Orthogonalize each lane's (z, Az) against its stored
-            # directions: (B, j) coefficients from batched products.
-            betas = (aps[:, :j].conj() @ ap.unsqueeze(-1)).squeeze(-1) \
-                / apsq[:, :j]
-            ap = ap - (betas.unsqueeze(1) @ aps[:, :j]).squeeze(1)
-            z = z - (betas.unsqueeze(1) @ ps[:, :j]).squeeze(1)
-        apsq_new = norm2sq_lanes(ap)
-        broke = ~(apsq_new > tiny)
-        alpha = torch.where(
-            broke, 0.0,
-            vdot_lanes(ap, r) / torch.where(broke, 1.0, apsq_new))
-        step = _per_lane(alpha, z)
-        x = _masked(lanes, not fixed_trips,
-                    x + (step * z).reshape(b.shape), x)
-        r = _masked(lanes, not fixed_trips,
-                    r - (step * ap).reshape(b.shape), r)
-        rsq = _masked(lanes, not fixed_trips, norm2sq_lanes(r), rsq)
-        ps[:, j] = z
-        aps[:, j] = ap
-        apsq[:, j] = torch.where(broke, 1.0, apsq_new)
-        j += 1
-        k += 1
-        ops += lanes.host
-        iters += lanes.host
-        if not fixed_trips:
-            lanes = _lanes(lanes.dev & torch.isfinite(rsq) & (rsq > target))
-    if trace is not None:
-        trace(k, iters.copy(), rsq, None, bsq)
-    return BatchedSolveResult(x, iters, rsq, rsq <= target, ops), carry
+    res, carry = _gcr(matvec, b, x0, max_iter, tol,
+                      restart_len=int(restart_freq),
+                      precond=_single_precond(precond),
+                      precond_carry=precond_carry, reduce=reduce,
+                      fixed_trips=fixed_trips, verbose=verbose, laned=False)
+    return _single(res), carry
 
 
 def gcr_restart_batched(matvec, b, max_iter: int = 1000, tol=1e-8,
                         restart_freq: int = 32, active: Lanes = None
                         ) -> BatchedSolveResult:
     """Restarted GCR on a leading rhs axis (the iterative coarsest)."""
-    res, _ = _gcr_batched(matvec, b, max_iter, tol, int(restart_freq),
-                          active=active)
+    res, _ = _gcr(matvec, b, None, max_iter, tol, int(restart_freq),
+                  active=active)
     return res
 
 
@@ -500,11 +548,11 @@ def gcr_var_precond_restart_batched(matvec, b, precond, max_iter: int = 1000,
                                     precond_carry=None, active: Lanes = None,
                                     fixed_trips: bool = False, trace=None):
     """Restarted flexible GCR on a leading rhs axis: the outer and inner
-    solver of the batched K-cycle. ``precond(r, carry, lanes)``; ``trace``
-    as ``_gcr_batched`` takes it."""
-    return _gcr_batched(matvec, b, max_iter, tol, int(restart_freq),
-                        precond=precond, precond_carry=precond_carry,
-                        active=active, fixed_trips=fixed_trips, trace=trace)
+    solver of the K-cycle, ``precond(r, carry, lanes)``; ``trace`` as
+    ``_gcr`` takes it. Returns (BatchedSolveResult, carry)."""
+    return _gcr(matvec, b, None, max_iter, tol, int(restart_freq),
+                precond=precond, precond_carry=precond_carry, active=active,
+                fixed_trips=fixed_trips, trace=trace)
 
 
 # ---------------------------------------------------------------------------
@@ -620,28 +668,54 @@ def _fixed_minres(max_iter: int, tol) -> bool:
             and tol <= 1e-14)
 
 
-def minres(matvec, b, x0=None, max_iter: int = 2, tol=1e-15,
-           omega: float = 1.0, reduce=None) -> SolveResult:
-    vdot, norm2sq, _ = reductions(reduce)
+def _minres(matvec, b, x0=None, max_iter: int = 2, tol=1e-15,
+            omega: float = 1.0, active: Lanes = None, reduce=None,
+            laned: bool = True) -> BatchedSolveResult:
+    """MinRes on a batch (``laned``) or one field. The fixed smoother
+    (max_iter <= 4 and a never-met float tolerance) runs its steps on
+    every lane unmasked, with no stopping test (the caller drops what
+    inactive lanes compute); otherwise converged lanes freeze as in
+    ``_gcr``."""
+    nrhs, (vdot, norm2sq, _), lanes = _axis(b, laned, reduce, active)
     x = torch.zeros_like(b) if x0 is None else x0
-    bsq = norm2sq(b)
-    target = _target(tol, bsq)
+    target = _target(tol, norm2sq(b))
     r = b - matvec(x)
     rsq = norm2sq(r)
-    k, ops = 0, 1
     fixed = _fixed_minres(max_iter, tol)
-    while k < max_iter and (fixed or bool(rsq > target)):
+    missed = np.zeros(nrhs, dtype=np.int64)     # steps each lane sat out
+    k = 0
+    while k < max_iter:
+        if not fixed:
+            lanes = _still(lanes, rsq > target)
+            if lanes is None:
+                break
+        if lanes.dev is not None:
+            missed += ~lanes.host
         ar = matvec(r)
         arsq = norm2sq(ar)
         pos = arsq > 0
         alpha = torch.where(pos, vdot(ar, r) / torch.where(pos, arsq, 1.0),
                             0.0)
-        x = x + omega * alpha * r
-        r = r - omega * alpha * ar
-        rsq = norm2sq(r)
+        step = _per_lane(omega * alpha, r)
+        x = _masked(lanes, not fixed, x + step * r, x)
+        r = _masked(lanes, not fixed, r - step * ar, r)
+        rsq = _masked(lanes, not fixed, norm2sq(r), rsq)
         k += 1
-        ops += 1
-    return SolveResult(x, k, rsq, rsq <= target, ops)
+    iters = k - missed
+    return _result(x, iters, rsq, target, iters + 1)
+
+
+def minres(matvec, b, x0=None, max_iter: int = 2, tol=1e-15,
+           omega: float = 1.0, reduce=None) -> SolveResult:
+    return _single(_minres(matvec, b, x0, max_iter, tol, omega,
+                           reduce=reduce, laned=False))
+
+
+def minres_batched(matvec, b, max_iter: int = 2, tol=1e-15,
+                   omega: float = 1.0, active: Lanes = None
+                   ) -> BatchedSolveResult:
+    """MinRes on a leading rhs axis."""
+    return _minres(matvec, b, None, max_iter, tol, omega, active)
 
 
 def richardson(matvec, b, x0=None, max_iter: int = 10, tol=1e-10,
@@ -708,40 +782,3 @@ def tfqmr(matvec, b, x0=None, max_iter: int = 1000, tol=1e-8
         k += 1
         ops += 2
     return SolveResult(x, k, tau * tau, tau * tau <= target, ops)
-
-
-def minres_batched(matvec, b, max_iter: int = 2, tol=1e-15,
-                   omega: float = 1.0, active: Lanes = None
-                   ) -> BatchedSolveResult:
-    """``minres`` on a leading rhs axis. The fixed smoother (max_iter <= 4
-    and a never-met float tolerance) runs its steps on every lane
-    unmasked, as the sequential one runs them without a test (the caller
-    drops what inactive lanes compute); otherwise converged lanes freeze
-    as in ``_gcr_batched``."""
-    nrhs = b.shape[0]
-    active = all_lanes(b) if active is None else active
-    x = torch.zeros_like(b)
-    target = _target(tol, norm2sq_lanes(b))
-    r = b - matvec(x)
-    rsq = norm2sq_lanes(r)
-    ops = np.ones(nrhs, dtype=np.int64)
-    iters = np.zeros(nrhs, dtype=np.int64)
-    fixed = _fixed_minres(max_iter, tol)
-    lanes = active if fixed else _lanes(active.dev & (rsq > target))
-    k = 0
-    while k < max_iter and (fixed or lanes.host.any()):
-        ar = matvec(r)
-        arsq = norm2sq_lanes(ar)
-        pos = arsq > 0
-        alpha = torch.where(pos, vdot_lanes(ar, r)
-                            / torch.where(pos, arsq, 1.0), 0.0)
-        step = _per_lane(omega * alpha, r)
-        x = _masked(lanes, not fixed, x + step * r, x)
-        r = _masked(lanes, not fixed, r - step * ar, r)
-        rsq = _masked(lanes, not fixed, norm2sq_lanes(r), rsq)
-        k += 1
-        ops += lanes.host
-        iters += lanes.host
-        if not fixed:
-            lanes = _lanes(lanes.dev & (rsq > target))
-    return BatchedSolveResult(x, iters, rsq, rsq <= target, ops)

@@ -33,11 +33,13 @@ a solver made by ``solve.make_solver`` refuses to run once it moved.
 ``solve`` is qmg_tpu's ``StatefulMultigridMG.solve`` over
 ``solve.make_solver`` with plain applies.
 
-``make_batched_preconditioner(level)`` is the same K-cycle (ORIGINAL
-levels only) on fields with a leading rhs axis (B, 2, Y, Xh, nc):
-precond(rhs, carry, lanes), each lane with its own carry
-(``zero_batched_carry``: counts (B, n_levels, 4), iters (B, n_levels)),
-only the active ``lanes`` counted.
+There is one K-cycle: ``make_preconditioner(level).lanes`` is
+precond(rhs, carry, lanes) on a batch of fields with a leading rhs axis
+(B, ...), each lane with its own carry (``zero_batched_carry``: counts (B,
+n_levels, 4), iters (B, n_levels)) and only the active ``lanes`` counted,
+or on one field without the axis (a carry of one lane); every level type,
+coarsest solve and smoother takes both. The single-field precond(rhs,
+carry) is its one-field case.
 """
 
 from __future__ import annotations
@@ -122,6 +124,14 @@ def zero_batched_carry(nrhs: int, n_levels: int):
     n_levels)."""
     return {"counts": np.zeros((nrhs, n_levels, 4), dtype=np.int64),
             "iters": np.zeros((nrhs, n_levels), dtype=np.int64)}
+
+
+def _live(lanes, laned: bool):
+    """The lanes of a carry to count: one field's lane 0 (a scalar index),
+    every lane (a slice), or the mask of the active ones."""
+    if not laned:
+        return 0
+    return slice(None) if lanes.dev is None else lanes.host
 
 
 class StatefulMultigridMG(MultigridMG):
@@ -314,26 +324,51 @@ class StatefulMultigridMG(MultigridMG):
 
     def make_preconditioner(self, level: int = 0, reduce=None,
                             verbose=False):
-        """precond(rhs, carry) -> (lhs, carry): one K-cycle at ``level``:
-        presmoothing, restrict, the coarse solve (direct inverse, GCR or
-        on a normal operator deflated CG at the coarsest, flexible GCR
-        around the next K-cycle above it), prolong, postsmoothing.
+        """precond(rhs, carry) -> (lhs, carry): one K-cycle at ``level`` on
+        one field, ``carry`` from ``zero_carry``. It is the one-field case
+        of ``precond.lanes``, the K-cycle itself: precond.lanes(rhs, carry,
+        lanes) -> (lhs, carry) on a batch with a leading rhs axis (B, ...)
+        or on one field (a field of the level's rank has no rhs axis),
+        ``carry`` from ``zero_batched_carry`` and ``lanes``
+        (``solvers.Lanes``) the lanes that the calling solve still
+        iterates; only those are counted.
+
+        One K-cycle: presmoothing, restrict, the coarse solve (direct
+        inverse, GCR or on a normal operator deflated CG at the coarsest,
+        flexible GCR around the next K-cycle above it), prolong,
+        postsmoothing. Every step is the same on each lane: the smoothers
+        and Krylov solves are ``solvers``' lane ones (a per-lane inner
+        tolerance, converged lanes frozen), the direct coarsest is one
+        product of the dense inverse with the B columns, and the deflation
+        guess projects each lane's column.
 
         ``reduce`` sums inner products over the ranks that share this
-        level's fields (``linalg.reductions``). It reaches this level's
-        smoothers only: the levels below are held whole by every rank
-        (the transfer returns the whole coarse field), and their solves
-        take no reduction.
+        level's fields (``linalg.lane_reductions``). It reaches this
+        level's smoothers only: the levels below are held whole by every
+        rank (the transfer returns the whole coarse field), and their
+        solves take no reduction.
 
         ``verbose`` (a bool, a prefix or a ``solvers.VerboseMG``) makes
-        the coarse solve print as qmg_tpu's does: at the caller's
-        precond_verbosity, at least SUMMARY when the caller prints at all,
-        after the prefix ``"  " * (level + 1) + "[QMG-MG-SOLVE-INFO]: Level
-        {level + 1} "``; the next K-cycle gets the coarse solve's struct.
-        The restarted CG coarsest prints nothing, as in qmg_tpu."""
+        the coarse solve print as qmg_tpu's does, one lane only: at the
+        caller's precond_verbosity, at least SUMMARY when the caller prints
+        at all, after the prefix ``"  " * (level + 1) + "[QMG-MG-SOLVE-INFO]:
+        Level {level + 1} "``; the next K-cycle gets the coarse solve's
+        struct. The restarted CG coarsest prints nothing, as in qmg_tpu."""
+        kcycle = self._kcycle(level, reduce, verbose)
+
+        def precond(rhs, carry):
+            lane = {name: counts[None] for name, counts in carry.items()}
+            lhs, _ = kcycle(rhs, lane, solvers.all_lanes(lane["iters"]))
+            return lhs, carry
+
+        precond.lanes = kcycle
+        return precond
+
+    def _kcycle(self, level: int, reduce=None, verbose=False):
+        """The K-cycle on a leading rhs axis (``make_preconditioner``)."""
         n_levels = self.get_num_levels()
         if n_levels == 1:
-            return lambda rhs, carry: (rhs, carry)
+            return lambda rhs, carry, lanes: (rhs, carry)
 
         fine_stencil = self.get_stencil(level)
         coarse_stencil = self.get_stencil(level + 1)
@@ -342,8 +377,12 @@ class StatefulMultigridMG(MultigridMG):
         fine_type = StencilType(level_solve.fine_stencil_app)
         fine_schur = fine_type == StencilType.RIGHT_SCHUR
         apply_fine = fine_stencil.get_apply_function(fine_type)
+        # A field of this level has ``rank`` dims; one more is a batch's
+        # rhs axis.
+        rank = len(fine_stencil.solve_size_shape(fine_type))
 
         coarsest = level == n_levels - 2
+        coarse_fixed = False
         if not coarsest:
             nxt = self.get_level_solve(level + 1)
             coarse_type = StencilType(nxt.fine_stencil_app)
@@ -359,6 +398,9 @@ class StatefulMultigridMG(MultigridMG):
             coarse_restart = cs.coarsest_restart_freq
         apply_coarse = coarse_stencil.get_apply_function(coarse_type)
         coarsest_normal = coarsest and coarse_type in _NORMAL_TYPES
+        # restart_freq = -1: unrestarted, the store holds every direction.
+        coarse_store = (max(int(coarse_max_iter), 1) if coarse_restart == -1
+                        else coarse_restart)
         # The coarse solve's print struct (reference verb2,
         # stateful_multigrid.h:761-776).
         v = solvers._as_verbose(verbose)
@@ -372,8 +414,7 @@ class StatefulMultigridMG(MultigridMG):
                 "  " * (level + 1)
                 + f"[QMG-MG-SOLVE-INFO]: Level {level + 1} ")
         if not coarsest:
-            inner_precond = self.make_preconditioner(level + 1,
-                                                     verbose=vprefix)
+            inner_precond = self._kcycle(level + 1, verbose=vprefix)
         # The CGNE smoother: MinRes on M M^dag, then M^dag.
         cgne = {StencilType.ORIGINAL: (StencilType.M_MDAGGER,
                                        StencilType.DAGGER),
@@ -381,103 +422,109 @@ class StatefulMultigridMG(MultigridMG):
                                            StencilType.RBJ_DAGGER)
                 }.get(fine_type)
 
-        def smoother(rhs, n_iters, s_tol, use_cgne, dslash_type, carry):
+        def smoother(rhs, n_iters, s_tol, use_cgne, dslash_type, carry,
+                     lanes, laned):
+            kw = dict(max_iter=n_iters, tol=s_tol, omega=0.85, active=lanes,
+                      reduce=reduce, laned=laned)
             if use_cgne and cgne is not None:
-                res = solvers.minres(fine_stencil.get_apply_function(cgne[0]),
-                                     rhs, max_iter=n_iters, tol=s_tol,
-                                     omega=0.85, reduce=reduce)
+                res = solvers._minres(
+                    fine_stencil.get_apply_function(cgne[0]), rhs, **kw)
                 z = fine_stencil.apply_M(res.x, cgne[1])
                 ops = 2 * res.ops_count + 1
             else:
-                res = solvers.minres(apply_fine, rhs, max_iter=n_iters,
-                                     tol=s_tol, omega=0.85, reduce=reduce)
+                res = solvers._minres(apply_fine, rhs, **kw)
                 z, ops = res.x, res.ops_count
-            carry["counts"][level, dslash_type] += ops
+            live = _live(lanes, laned)
+            carry["counts"][live, level, dslash_type] += ops[live]
             return z, carry
 
-        def coarsest_solve(r_prep, inner_tol):
+        def deflation_guess(r_prep, nrhs):
+            """Each lane's projection onto the kept eigenpairs, or None."""
+            if not (coarsest_normal and self.coarsest_solve.deflate
+                    and self.coarsest_evecs is not None):
+                return None
+            vecs = self.coarsest_evecs.reshape(
+                self.coarsest_evecs.shape[0], -1)
+            cols = r_prep.reshape(nrhs, -1)
+            coef = (cols @ vecs.conj().T) / self.coarsest_evals
+            return (coef @ vecs).reshape(r_prep.shape)
+
+        def coarsest_solve(r_prep, inner_tol, lanes, laned, nrhs):
             """The iterative coarsest solve, from the deflation guess."""
             cs = self.coarsest_solve
-            e0 = None
-            if (coarsest_normal and cs.deflate
-                    and self.coarsest_evecs is not None):
-                vecs = self.coarsest_evecs.reshape(
-                    self.coarsest_evecs.shape[0], -1)
-                coef = (vecs.conj() @ r_prep.reshape(-1)) \
-                    / self.coarsest_evals
-                e0 = (coef @ vecs).reshape(r_prep.shape)
             mv = apply_coarse
             if coarsest_normal and cs.normal_shift != 0.0:
                 def mv(x):
                     return apply_coarse(x) + cs.normal_shift * x
-            kw = dict(x0=e0, max_iter=coarse_max_iter, tol=inner_tol)
+            kw = dict(x0=deflation_guess(r_prep, nrhs),
+                      max_iter=coarse_max_iter, tol=inner_tol, active=lanes,
+                      laned=laned)
             if coarsest_normal:
                 if coarse_restart == -1:
-                    return solvers.cg(mv, r_prep, verbose=vprefix, **kw)
-                return solvers.cg_restart(mv, r_prep,
-                                          restart_freq=coarse_restart, **kw)
-            if coarse_restart == -1:
-                return solvers.gcr(mv, r_prep, verbose=vprefix, **kw)
-            return solvers.gcr_restart(mv, r_prep,
-                                       restart_freq=coarse_restart,
-                                       verbose=vprefix, **kw)
+                    return solvers._cg(mv, r_prep, verbose=vprefix, **kw)
+                return solvers._cg_restart(mv, r_prep,
+                                           restart_freq=coarse_restart, **kw)
+            res, _ = solvers._gcr(mv, r_prep, restart_len=coarse_store,
+                                  verbose=vprefix, **kw)
+            return res
 
-        def precond(rhs, carry):
+        def precond(rhs, carry, lanes):
+            laned = rhs.ndim > rank
+            nb, nrhs = int(laned), rhs.shape[0] if laned else 1
+            live = _live(lanes, laned)
             # --- presmooth ---
             if level_solve.pre_iters > 0:
                 z1, carry = smoother(rhs, level_solve.pre_iters,
                                      level_solve.pre_tol,
                                      level_solve.pre_cgne, DSLASH_PRESMOOTH,
-                                     carry)
+                                     carry, lanes, laned)
                 r1 = rhs - apply_fine(z1)
-                carry["counts"][level, DSLASH_PRESMOOTH] += 1
+                carry["counts"][live, level, DSLASH_PRESMOOTH] += 1
             else:
                 z1 = rhs
                 r1 = rhs
 
-            # --- restrict + prepare (a Schur level's field is the even
-            # half: restrict [r1, 0]) ---
-            full = (torch.stack([r1, torch.zeros_like(r1)]) if fine_schur
-                    else r1)
+            # --- restrict + prepare, a tolerance per lane (a Schur
+            # level's field is the even half: restrict [r1, 0]) ---
+            full = (torch.stack([r1, torch.zeros_like(r1)], dim=nb)
+                    if fine_schur else r1)
             r_coarse = transfer.restrict_f2c(full)
-            rnorm = torch.sqrt(norm2sq(r_coarse))
+            norms = norm2sq_lanes if laned else norm2sq
+            rnorm = torch.sqrt(norms(r_coarse))
             r_coarse_prep = coarse_stencil.prepare_M(r_coarse, coarse_type)
-            rnorm_prep = torch.sqrt(norm2sq(r_coarse_prep))
+            rnorm_prep = torch.sqrt(norms(r_coarse_prep))
             inner_tol = coarse_tol * rnorm / rnorm_prep
 
             # --- coarse solve ---
             if (coarsest and self.coarsest_solve.direct
                     and self.coarsest_dinv is not None):
                 dinv = self.coarsest_dinv.to(r_coarse_prep.dtype)
-                e_coarse = (dinv @ r_coarse_prep.reshape(-1)).reshape(
-                    r_coarse_prep.shape)
-                sub_iters, sub_ops = 1, 1
+                e_coarse = ((r_coarse_prep.reshape(nrhs, -1) @ dinv.T)
+                            if laned else dinv @ r_coarse_prep.reshape(-1)
+                            ).reshape(r_coarse_prep.shape)
+                sub_iters = sub_ops = np.ones(nrhs, dtype=np.int64)
             elif coarsest:
-                res = coarsest_solve(r_coarse_prep, inner_tol)
+                res = coarsest_solve(r_coarse_prep, inner_tol, lanes, laned,
+                                     nrhs)
                 e_coarse = res.x
                 sub_iters, sub_ops = res.iters, res.ops_count
             else:
-                kw = dict(max_iter=coarse_max_iter, tol=inner_tol,
-                          precond_carry=carry, fixed_trips=coarse_fixed,
-                          verbose=vprefix)
-                if coarse_restart == -1:
-                    res, carry = solvers.gcr_var_precond(
-                        apply_coarse, r_coarse_prep, inner_precond, **kw)
-                else:
-                    res, carry = solvers.gcr_var_precond_restart(
-                        apply_coarse, r_coarse_prep, inner_precond,
-                        restart_freq=coarse_restart, **kw)
+                res, carry = solvers._gcr(
+                    apply_coarse, r_coarse_prep, None, coarse_max_iter,
+                    inner_tol, coarse_store, precond=inner_precond,
+                    precond_carry=carry, active=lanes,
+                    fixed_trips=coarse_fixed, verbose=vprefix, laned=laned)
                 e_coarse = res.x
                 sub_iters, sub_ops = res.iters, res.ops_count
-            carry["counts"][level + 1, DSLASH_KRYLOV] += sub_ops
-            carry["iters"][level + 1] += sub_iters
+            carry["counts"][live, level + 1, DSLASH_KRYLOV] += sub_ops[live]
+            carry["iters"][live, level + 1] += sub_iters[live]
 
             # --- reconstruct + prolong (keep the even half on a Schur
             # level) ---
             e_rec = coarse_stencil.reconstruct_M(e_coarse, r_coarse,
                                                  coarse_type)
             z2 = transfer.prolong_c2f(e_rec)
-            lhs = z1 + (z2[0] if fine_schur else z2)
+            lhs = z1 + (z2.select(nb, 0) if fine_schur else z2)
 
             # --- postsmooth ---
             if level_solve.post_iters > 0:
@@ -485,9 +532,9 @@ class StatefulMultigridMG(MultigridMG):
                 z3, carry = smoother(r2, level_solve.post_iters,
                                      level_solve.post_tol,
                                      level_solve.post_cgne,
-                                     DSLASH_POSTSMOOTH, carry)
+                                     DSLASH_POSTSMOOTH, carry, lanes, laned)
                 lhs = lhs + z3
-                carry["counts"][level, DSLASH_POSTSMOOTH] += 1
+                carry["counts"][live, level, DSLASH_POSTSMOOTH] += 1
             return lhs, carry
 
         return precond
@@ -518,123 +565,3 @@ class StatefulMultigridMG(MultigridMG):
         return ([StencilType(self.get_level_solve(lvl).fine_stencil_app)
                  for lvl in range(self.get_num_levels() - 1)]
                 + [StencilType(self.coarsest_solve.coarsest_stencil_app)])
-
-    def make_batched_preconditioner(self, level: int = 0):
-        """``make_preconditioner`` on a leading rhs axis: precond(rhs,
-        carry, lanes) -> (lhs, carry) with rhs (B, ...), ``carry`` from
-        ``zero_batched_carry`` and ``lanes`` (``solvers.Lanes``) the lanes
-        that the calling solve still iterates. Every operation is the
-        sequential K-cycle's, lane by lane: the smoothers and Krylov
-        solves are ``solvers``' batched ones (a per-lane inner tolerance,
-        converged lanes frozen), the direct coarsest is one product of the
-        dense inverse with the B columns, and only active lanes are
-        counted."""
-        n_levels = self.get_num_levels()
-        if any(t != StencilType.ORIGINAL for t in self.level_types()):
-            raise NotImplementedError(
-                "batched K-cycles take ORIGINAL levels only: the Schur, "
-                "rbjacobi and normal-operator (CG, deflated) branches wait "
-                "for one K-cycle shared by both solvers (ROADMAP Queue 1 "
-                "item 10)")
-        if any(self.get_level_solve(lvl).pre_cgne
-               or self.get_level_solve(lvl).post_cgne
-               for lvl in range(n_levels - 1)):
-            raise NotImplementedError(
-                "batched K-cycles take the MinRes smoother only: the CGNE "
-                "smoother waits for one K-cycle shared by both solvers "
-                "(ROADMAP Queue 1 item 10)")
-        if n_levels == 1:
-            return lambda rhs, carry, lanes: (rhs, carry)
-
-        coarse_stencil = self.get_stencil(level + 1)
-        transfer = self.get_transfer(level)
-        level_solve = self.get_level_solve(level)
-        apply_fine = self.get_stencil(level).apply_M
-        apply_coarse = coarse_stencil.apply_M
-
-        coarsest = level == n_levels - 2
-        coarse_fixed = False
-        if not coarsest:
-            nxt = self.get_level_solve(level + 1)
-            coarse_max_iter = nxt.intermediate_iters
-            coarse_tol = nxt.intermediate_tol
-            coarse_restart = nxt.intermediate_restart_freq
-            coarse_fixed = nxt.fixed_trips
-            inner_precond = self.make_batched_preconditioner(level + 1)
-        else:
-            cs = self.coarsest_solve
-            coarse_max_iter = cs.coarsest_iters
-            coarse_tol = cs.coarsest_tol
-            coarse_restart = cs.coarsest_restart_freq
-        if coarse_restart == -1:
-            # Unrestarted: the store holds every direction.
-            coarse_restart = max(int(coarse_max_iter), 1)
-
-        def smoother(rhs, n_iters, s_tol, dslash_type, carry, lanes):
-            res = solvers.minres_batched(apply_fine, rhs, max_iter=n_iters,
-                                         tol=s_tol, omega=0.85,
-                                         active=lanes)
-            live = lanes.host
-            carry["counts"][live, level, dslash_type] += res.ops_count[live]
-            return res.x, carry
-
-        def precond(rhs, carry, lanes):
-            live = lanes.host
-            # --- presmooth ---
-            if level_solve.pre_iters > 0:
-                z1, carry = smoother(rhs, level_solve.pre_iters,
-                                     level_solve.pre_tol, DSLASH_PRESMOOTH,
-                                     carry, lanes)
-                r1 = rhs - apply_fine(z1)
-                carry["counts"][live, level, DSLASH_PRESMOOTH] += 1
-            else:
-                z1 = rhs
-                r1 = rhs
-
-            # --- restrict + prepare: a tolerance per lane ---
-            r_coarse = transfer.restrict_f2c(r1)
-            rnorm = torch.sqrt(norm2sq_lanes(r_coarse))
-            r_coarse_prep = coarse_stencil.prepare_M(r_coarse)
-            rnorm_prep = torch.sqrt(norm2sq_lanes(r_coarse_prep))
-            inner_tol = coarse_tol * rnorm / rnorm_prep
-
-            # --- coarse solve ---
-            if (coarsest and self.coarsest_solve.direct
-                    and self.coarsest_dinv is not None):
-                dinv = self.coarsest_dinv.to(r_coarse_prep.dtype)
-                cols = r_coarse_prep.reshape(r_coarse_prep.shape[0], -1)
-                e_coarse = (dinv @ cols.T).T.reshape(r_coarse_prep.shape)
-                sub_iters = sub_ops = np.ones(len(live), dtype=np.int64)
-            elif coarsest:
-                res = solvers.gcr_restart_batched(
-                    apply_coarse, r_coarse_prep, max_iter=coarse_max_iter,
-                    tol=inner_tol, restart_freq=coarse_restart,
-                    active=lanes)
-                e_coarse = res.x
-                sub_iters, sub_ops = res.iters, res.ops_count
-            else:
-                res, carry = solvers.gcr_var_precond_restart_batched(
-                    apply_coarse, r_coarse_prep, inner_precond,
-                    max_iter=coarse_max_iter, tol=inner_tol,
-                    restart_freq=coarse_restart, precond_carry=carry,
-                    active=lanes, fixed_trips=coarse_fixed)
-                e_coarse = res.x
-                sub_iters, sub_ops = res.iters, res.ops_count
-            carry["counts"][live, level + 1, DSLASH_KRYLOV] += sub_ops[live]
-            carry["iters"][live, level + 1] += sub_iters[live]
-
-            # --- reconstruct + prolong ---
-            e_rec = coarse_stencil.reconstruct_M(e_coarse, r_coarse)
-            lhs = z1 + transfer.prolong_c2f(e_rec)
-
-            # --- postsmooth ---
-            if level_solve.post_iters > 0:
-                r2 = rhs - apply_fine(lhs)
-                z3, carry = smoother(r2, level_solve.post_iters,
-                                     level_solve.post_tol,
-                                     DSLASH_POSTSMOOTH, carry, lanes)
-                lhs = lhs + z3
-                carry["counts"][live, level, DSLASH_POSTSMOOTH] += 1
-            return lhs, carry
-
-        return precond

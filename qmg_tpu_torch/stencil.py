@@ -280,7 +280,16 @@ def apply_M(coeffs: StencilCoeffs, x):
                     mats.append(piece)
                     nbrs += [cshift_pull(x, d, nb) for d in dirs]
             mats = torch.cat(mats)
-        out = linalg.stacked_site_matvec(mats, torch.stack(nbrs))
+        if nb:
+            # Stacked with the batch axes merged into the parity axis: on
+            # the card torch.cat copies the inputs of a stack beyond 5-D
+            # one at a time.
+            stacked = torch.stack([n.reshape((-1,) + n.shape[nb + 1:])
+                                   for n in nbrs]).reshape(
+                                       (len(nbrs),) + x.shape)
+        else:
+            stacked = torch.stack(nbrs)
+        out = linalg.stacked_site_matvec(mats, stacked)
         return out + apply_shift(coeffs, x)
     return (apply_clover(coeffs, x) + apply_hopping(coeffs, x)
             + apply_twolink(coeffs, x) + apply_corner(coeffs, x)

@@ -12,7 +12,7 @@ outer iterations of a K1 solve on it with its true relative residual and
 per-level Krylov iterations, the Richardson-only hierarchy's count (for
 the phase-19 and fresh seeds), and over the setup the squared norms at or
 below float32's smallest normal number (each one is a direction on which
-the GCR breakdown guard of ``solvers._gcr_impl`` fires, or a residual
+the GCR breakdown guard of ``solvers._gcr`` fires, or a residual
 that vanished) and the smallest squared norm seen.
 
     python tests/adaptive_seed_probe.py [--size 512] [--device cuda]
@@ -37,15 +37,15 @@ from qmg_tpu_torch.kcycle import (build_problem, adaptive_problem,  # noqa
 
 
 class NormWatch:
-    """Wraps ``solvers.reductions`` so that every squared norm a solver
+    """Wraps ``solvers.lane_reductions`` so that every squared norm a solver
     takes is also counted on the device: how many are <= float32's
     smallest normal number, and the smallest."""
 
     def __init__(self, device):
         self.device = device
         self.reset()
-        self._reductions = solvers.reductions
-        solvers.reductions = self._wrapped
+        self._reductions = solvers.lane_reductions
+        solvers.lane_reductions = self._wrapped
 
     def reset(self):
         self.tiny = torch.zeros((), dtype=torch.int64, device=self.device)
@@ -57,8 +57,8 @@ class NormWatch:
 
         def watched(v):
             out = norm2sq(v)
-            self.tiny += (out <= torch.finfo(out.dtype).tiny).long()
-            self.least = torch.minimum(self.least, out.double())
+            self.tiny += (out <= torch.finfo(out.dtype).tiny).long().sum()
+            self.least = torch.minimum(self.least, out.double().min())
             return out
         return vdot, watched, total
 

@@ -2,13 +2,17 @@
 Queue 3, F5): the same hierarchy through qmg_tpu's
 ``make_batched_planes_solver`` and through the port's
 ``make_batched_solver``, and alone through each package's single solve.
+The port's single solve (``make_solver``) is its batched solve of a
+one-lane batch, so its line and the one-lane batch's must agree; the two
+lanes of the batch differ from it only where the batch's products round
+differently.
 
 The problem is the n16 stream's at L^2 (m = -0.06, tol 2e-6, seed 1337;
 ``--n-refine``, default 2): ``n_updates`` non-compact heatbath updates
 from the cold start, the port's setup on that configuration from seeds
 drawn after them (``setup_planes``), complex64 throughout, and two
-identical point sources at the origin (spin 0) as the batch. Both packages solve the one float32
-state (``state_to_numpy``; qmg_tpu patches it into a ``structure_only``
+identical point sources at the origin (spin 0) as the batch. Both
+packages solve the one float32 state (``state_to_numpy``; qmg_tpu patches it into a ``structure_only``
 scaffold). Prints each lane's outer iterations, recursive and true
 relative residuals for both packages, and the single solves' counts.
 
@@ -85,17 +89,21 @@ def main():
     # the rank-1 Wilson kernel and K6 (their plain twins on the CPU).
     for fine, coarse in ((None, "plain"), ("wilson-r1", "small")):
         route = f"{fine or 'plain'} + {coarse}"
-        res, _ = make_batched_solver(tmg, fine_kernel=fine,
-                                     coarse_apply=coarse, **kw)(B)
+        batched = make_batched_solver(tmg, fine_kernel=fine,
+                                      coarse_apply=coarse, **kw)
+        res, _ = batched(B)
         for k in range(2):
             print(f"port batched ({route}) lane {k}: {int(res.iters[k])} "
                   f"outer, recursive {float(torch.sqrt(res.res_sq[k])):.3e}"
                   f", true {true_residual(op, B[k], res.x[k]):.3e}",
                   flush=True)
         one, _ = make_solver(tmg, fine_kernel=fine, coarse_apply=coarse,
-                             **kw)(src)
+                             **kw)(src, track=False)
+        lane, _ = batched(B[:1])
         print(f"port single ({route}): {one.iters} outer, true "
-              f"{true_residual(op, src, one.x):.3e}", flush=True)
+              f"{true_residual(op, src, one.x):.3e}; one-lane batch: "
+              f"{int(lane.iters[0])} outer, true "
+              f"{true_residual(op, src, lane.x[0]):.3e}", flush=True)
 
     jlat = JLattice2D(L, L, 2)
     jop = JWilson2D(jlat, MASS, jnp.ones((2, 2, L, L // 2), jnp.complex64),

@@ -1,7 +1,8 @@
 """Port vs qmg_tpu on the CGNE smoother and the normal-operator solves
 (complex128): the K-cycle whose smoothers run MinRes on M M^dag and then
 M^dag (``LevelSolveMG(pre_cgne=, post_cgne=)``) at qmg_tpu's outer and
-per-level counts, on ORIGINAL and on right-block-Jacobi levels; and the
+per-level counts, on ORIGINAL and on right-block-Jacobi levels, and
+batched lane by lane; and the
 n17 / n21 normal solves of qmg_tpu's tests/test_n17_n18_n21_variants.py
 (CGNR and CGNE on M and on its rbjacobi form reconstruct one solution) at
 qmg_tpu's counts.
@@ -23,14 +24,16 @@ from qmg_tpu import u1 as ju1, solvers as jsolvers, checkpoint as jcheckpoint
 from qmg_tpu.operators import Wilson2D as JWilson2D
 from qmg_tpu.stencil import StencilType as JStencilType
 from qmg_tpu.rng import QMGRandom as JQMGRandom
+from qmg_tpu.tpu_compat import mg_state_planes
 
 from qmg_tpu_torch import solvers as tsolvers, checkpoint as tcheckpoint
 from qmg_tpu_torch.lattice import Lattice2D as TLattice2D
 from qmg_tpu_torch.operators import Wilson2D as TWilson2D
 from qmg_tpu_torch.setup import (KCycleConfig as TKCycleConfig,
                                  build_kcycle_hierarchy as tbuild)
-from qmg_tpu_torch.solve import make_solver, make_batched_solver
+from qmg_tpu_torch.solve import make_solver
 from qmg_tpu_torch.stencil import StencilType, DERIVED_BUILDS
+from torch_lanes import three_rhs, check_lanes, check_qmg_tpu
 
 torch.set_num_threads(1)
 
@@ -108,17 +111,30 @@ def test_cgne_kcycle_matches_qmg_tpu(hierarchy, fine, pre, post):
     assert float(rel) < 1e-8
 
 
-def test_batched_refuses_cgne(hierarchy):
-    _, tmg, _, b = hierarchy
-    saved = list(tmg.level_solve_list)
-    tmg.level_solve_list = [dataclasses.replace(ls, pre_cgne=True)
-                            for ls in saved]
+def test_batched_cgne_matches_single_and_qmg_tpu(hierarchy):
+    """The batched K-cycle with the CGNE smoother before and after on the
+    fine level (one smoother closure serves every level; the coarse
+    levels' CGNE would only lengthen qmg_tpu's jit), on a gaussian, a
+    point and a wall source: each lane the port's single solve
+    (iterations, carries, ops exactly; x to 1e-10) and qmg_tpu's
+    ``make_batched_planes_solver`` on the same hierarchy (iterations; x
+    to 1e-10)."""
+    _, tmg, jmg, b = hierarchy
+    saved_t = list(tmg.level_solve_list)
+    saved_j = list(jmg.level_solve_list)
+    tmg.level_solve_list = [dataclasses.replace(saved_t[0], pre_cgne=True,
+                                                post_cgne=True)] + saved_t[1:]
+    jmg.level_solve_list = [dataclasses.replace(saved_j[0], pre_cgne=True,
+                                                post_cgne=True)] + saved_j[1:]
     try:
-        with pytest.raises(NotImplementedError, match="CGNE"):
-            make_batched_solver(tmg, fine_kernel=None)(
-                torch.as_tensor(np.stack([b, b])))
+        B = three_rhs(b)
+        kw = dict(tol=1e-9, max_iter=300, restart_freq=32)
+        res = check_lanes(tmg, B, **kw)
+        check_qmg_tpu(jmg, mg_state_planes(jmg, dtype=np.float64), B, res,
+                      **kw)
     finally:
-        tmg.level_solve_list = saved
+        tmg.level_solve_list = saved_t
+        jmg.level_solve_list = saved_j
 
 
 # --- n17 / n21: the normal solves on a noised-clover Wilson operator ------

@@ -3,7 +3,8 @@ tests/test_deflation.py; bench.py ``--mode kcycle --setup device
 --deflate N``): ``deflate_coarsest``'s eigenvalues within 1e-10 and the
 projector onto the kept eigenvectors, the deflated K-cycle (CG on
 M^dag M from the deflation guess) at qmg_tpu's outer and per-level counts
-at 16^2 and 32^2, ``normal_shift``, the refusals, the setup's deflation
+at 16^2 and 32^2, on the n19 Schur levels, and batched lane by lane,
+``normal_shift``, the refusals, the setup's deflation
 stage against qmg_tpu's ``make_kcycle_setup_planes(deflate_low=...,
 deflate_high=...)``, the ``cevals`` / ``cevecs`` state exchange both ways,
 and the entry point.
@@ -44,11 +45,12 @@ from qmg_tpu_torch.setup import (KCycleConfig as TKCycleConfig,
                                  build_kcycle_hierarchy as tbuild)
 from qmg_tpu_torch.setup_planes import (make_kcycle_setup_planes,
                                         gauss_seed_planes)
-from qmg_tpu_torch.solve import (make_solver, make_batched_solver,
-                                 state_from_numpy, state_to_numpy)
+from qmg_tpu_torch.solve import (make_solver, state_from_numpy,
+                                 state_to_numpy)
 from qmg_tpu_torch.stencil import StencilType
 from qmg_tpu_torch.kcycle import (run_kcycle, true_residual, kcycle_config,
                                   main as kcycle_main, MASS, TOL)
+from torch_lanes import three_rhs, check_lanes, check_qmg_tpu
 
 torch.set_num_threads(1)
 
@@ -221,11 +223,58 @@ def test_deflate_requires_normal_op(pair16):
     assert mg.coarsest_evecs is None
 
 
-def test_batched_refuses_normal_coarsest(pair16):
-    tmg = pair16[3]
-    b = torch.as_tensor(np.stack([pair16[5]] * 2))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        make_batched_solver(tmg, fine_kernel=None)(b)
+def test_batched_deflated_matches_single_and_qmg_tpu(pair16):
+    """The batched deflated solve (CG on M^dag M from the deflation guess,
+    per lane) of a gaussian, a point and a wall source on qmg_tpu's
+    deflated state: each lane the port's single solve (iterations,
+    carries, ops exactly; x to 1e-10) and qmg_tpu's
+    ``make_batched_planes_solver`` (iterations; x to 1e-10)."""
+    _, jmg, _, _, tcfg, b = pair16
+    state = mg_state_planes(jmg, dtype=np.float64)
+    tmg = state_from_numpy(state, tcfg, device="cpu")
+    B = three_rhs(b)
+    kw = dict(tol=1e-9, max_iter=300, restart_freq=32)
+    res = check_lanes(tmg, B, **kw)
+    check_qmg_tpu(jmg, state, B, res, **kw)
+
+
+def test_schur_deflated_kcycle_matches_qmg_tpu(tmp_path):
+    """``--outer schur --deflate``: the port's n19 levels (RIGHT_SCHUR) over
+    an M^dag M coarsest deflated by 4 low and 2 high pairs at 16^2
+    (complex128), handed to qmg_tpu through a checkpoint with the port's
+    eigenpairs (their parity with qmg_tpu's: the tests above): qmg_tpu's
+    ``mg.solve(outer_type=RIGHT_SCHUR)`` outer and per-level counts and a
+    true residual < 1e-8."""
+    from qmg_tpu_torch.setup import SCHUR_CONFIG
+    lat = Lattice2D(16, 16, 2)
+    rng = JQMGRandom(1337)
+    g = ju1.gauss_gauge_u1(lat, rng, 6.0)
+    top = TWilson2D(TLattice2D(16, 16, 2), DEFL_MASS, g,
+                    dtype=torch.complex128)
+    tmg = tbuild(top.lat, top, TKCycleConfig(
+        n_refine=1, coarse_dof=8,
+        **dict(SCHUR_CONFIG, coarsest_stencil_app=MDM)), rng)
+    tmg.deflate_coarsest(LOW, HIGH)
+    b = rng.gaussian_cv(lat)
+    path = str(tmp_path / "schur16.npz")
+    tcheckpoint.save_hierarchy(tmg, path)
+    jop = JWilson2D(lat, DEFL_MASS, jnp.asarray(g))
+    jmg = jcheckpoint.load_hierarchy(path, jop)
+    jmg.coarsest_evals = jnp.asarray(tmg.coarsest_evals.numpy())
+    jmg.coarsest_evecs = jnp.asarray(tmg.coarsest_evecs.numpy())
+    jschur = JStencilType.RIGHT_SCHUR
+    c0, i0 = _tracker(jmg)
+    jres = jmg.solve(jop.prepare_M(jnp.asarray(b), jschur), tol=1e-9,
+                     max_iter=300, restart_freq=32, outer_type=jschur)
+    c1, i1 = _tracker(jmg)
+    res, carry = make_solver(tmg, tol=1e-9, max_iter=300, restart_freq=32,
+                             fine_kernel=None,
+                             outer_type=StencilType.RIGHT_SCHUR)(
+                                 torch.as_tensor(b))
+    assert tmg.level_types() == [StencilType.RIGHT_SCHUR, MDM]
+    assert_same_counts((jres, c1 - c0, i1 - i0), (res, carry))
+    assert carry["iters"][-1] > 0
+    assert true_residual(top, torch.as_tensor(b), res.x) < 1e-8
 
 
 def test_state_exchange_both_ways(pair16):
@@ -337,8 +386,8 @@ def test_setup_stage_refusals():
 
 def test_entry_point_deflate(capsys):
     """``kcycle --deflate 4`` (and ``--no-direct``) on the CPU: the CG
-    coarsest on M^dag M deflated by 4 pairs, converged to tol; the
-    combinations not ported are refused."""
+    coarsest on M^dag M deflated by 4 pairs, converged to tol; a mesh is
+    refused."""
     kcycle_main(["--size", "32", "--device", "cpu", "--deflate", "4"])
     out = capsys.readouterr().out
     assert "2x2 nc8 mdagger_m" in out
@@ -351,7 +400,7 @@ def test_entry_point_deflate(capsys):
     assert r["level_applies"][-1] == "mdagger_m"
     r = run_kcycle(32, "cpu", fine_kernel=None, direct=False)
     assert r["converged"] and r["coarsest"] == "original"
-    for argv in (["--outer", "schur"], ["--shards", "2"], ["--distributed"]):
+    for argv in (["--shards", "2"], ["--distributed"]):
         with pytest.raises(SystemExit, match="ROADMAP"):
             kcycle_main(["--size", "16", "--device", "cpu", "--deflate", "4"]
                         + argv)

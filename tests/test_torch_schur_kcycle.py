@@ -3,9 +3,9 @@ tests/test_n19_schur_kcycle.py; bench.py ``--mode kcycle --outer
 schur``): null vectors on the rbjacobi operator by restarted GCR, rbjacobi
 coarsening, RIGHT_SCHUR on every level. The hierarchy built by both
 packages from the same seeds, the outer and per-level operator counts,
-the direct coarsest on the half space, the state exchange both ways with
-the derived sets (``rbjcinv{l}`` ... ``schurf{l}``), the derived sets
-built once, and the refusals.
+the direct coarsest on the half space, the batched Schur solve lane by
+lane, the state exchange both ways with the derived sets (``rbjcinv{l}``
+... ``schurf{l}``), the derived sets built once, and the refusals.
 
 Run as a script it prints qmg_tpu's and the port's outer iteration counts
 with bench.py's ``--outer schur`` configuration at one size in complex64
@@ -43,6 +43,7 @@ from qmg_tpu_torch.stencil import StencilType, DERIVED_BUILDS
 from qmg_tpu_torch.kcycle import (kcycle_config, true_residual, run_kcycle,
                                   main as kcycle_main, MASS)
 from qmg_tpu_torch.parallel import Mesh
+from torch_lanes import three_rhs, check_lanes, check_qmg_tpu
 
 torch.set_num_threads(1)
 
@@ -221,6 +222,21 @@ def test_pinned_schur_solve_counts(pinned_32):
                          res.x) < 1e-9
 
 
+def test_batched_schur_matches_single_and_qmg_tpu(n19_pair):
+    """The batched n19 solve of a gaussian, a point and a wall source on
+    qmg_tpu's hierarchy (its float64 planes state, derived sets included):
+    each lane the port's single Schur solve (iterations, carries, ops
+    exactly; x to 1e-10) and qmg_tpu's ``make_batched_planes_solver(...,
+    outer_type=RIGHT_SCHUR)`` (iterations; x to 1e-10)."""
+    _, jmg, _, _, tcfg, b = n19_pair
+    state = _jax_state(jmg, np.float64)
+    tmg = state_from_numpy(state, tcfg, device="cpu")
+    B = three_rhs(b)
+    kw = dict(tol=1e-10, max_iter=400, restart_freq=32)
+    res = check_lanes(tmg, B, outer_type=SCHUR, **kw)
+    check_qmg_tpu(jmg, state, B, res, outer_type=JSCHUR, **kw)
+
+
 # --- the state exchange ---------------------------------------------------
 
 @pytest.fixture(scope="module")
@@ -351,10 +367,8 @@ def test_schur_solver_refusals(jax_bench_32):
             make_solver(tmg, outer_type=SCHUR, **kw)
     with pytest.raises(ValueError, match="fine_stencil_app"):
         make_solver(tmg, fine_kernel=None)          # ORIGINAL outer
-    with pytest.raises(NotImplementedError, match="ORIGINAL levels"):
-        make_batched_solver(tmg, fine_kernel=None)(
-            torch.zeros((2,) + tmg.get_lattice(0).cv_shape(),
-                        dtype=torch.complex64))
+    with pytest.raises(ValueError, match="fine_stencil_app"):
+        make_batched_solver(tmg, fine_kernel=None)  # ORIGINAL outer
 
 
 def test_unported_types_refused():
