@@ -83,10 +83,12 @@ fallback). Phases, any failure exits non-zero:
      this process (``make_solver(mesh=Mesh(4, 1))``): outer count within
      +-1 of the rank-1 path's, true residual <= 1e-4, 4 K7 launches for
      every fine apply of the K-cycle and no K1 launch;
- 13. the 512^2 solve on a ``torch.distributed`` mesh of one rank on NCCL
-     (a ``file://`` store in a temporary directory): the group plumbing,
-     ``all_reduce`` / ``all_gather`` and the self-halo branch on the
-     card; outer count within +-1 of qmg_tpu's;
+ 13. the 512^2 problem on a ``torch.distributed`` mesh of one rank on
+     NCCL (a ``file://`` store in a temporary directory), built by the
+     sharded setup and solved with K7: the group plumbing, ``all_reduce``
+     / ``all_gather`` and the self-halo branch on the card; outer count
+     within +-1 of qmg_tpu's; the setup summed and gathered, sent no
+     halo, and ran the digest check of the coarse levels;
  14. the rhs-axis kernels: K1's rhs entry at 512^2 and 2048^2 and K6's at
      32^2 nc8 and 8^2 nc8, nrhs 8, against their twins (max relative
      error <= 1e-5) and lane by lane bit for bit against the single-field
@@ -214,6 +216,17 @@ fallback). Phases, any failure exits non-zero:
      residual <= 1e-4, finite solutions; (b) launches no kernel, (c)
      (K1 + K6) launches the rhs entries of K1 and K6; (d) one ``--outer
      schur --deflate 8`` solve to a true residual <= 1e-4.
+
+ 23. the mesh, the sharded setup and every formulation, on an in-process
+     ``Mesh(4, 1)`` (``kcycle.build_problem(mesh=)``, whose setup is
+     ``make_kcycle_setup_planes(mesh=)``), in at most 90 s: (a) 2048^2
+     with K7 on level 0: outer count within +-1 of phase 7's unsharded
+     2048^2 solve, true residual <= 1e-4, K7 launched and K1 not, the
+     setup's seconds beside the unsharded one's; (b) the 512^2 n19 Schur
+     solve, qmg_tpu's count +-1, no kernel; (c) 512^2 with 8 right-hand
+     sides in one batched solve beside their sequential mesh solves (each
+     lane within +-1, F5); (d) 512^2 ``--deflate 8`` with K7, qmg_tpu's
+     count +-1. K7's launches over (a) join its row of the summary.
 
 The last two lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}.
@@ -828,7 +841,10 @@ def halo_phase(torch, wk, dev):
 
 
 def nccl_phase(torch, dev):
-    """Phase 13: the 512^2 solve on a distributed mesh of one rank."""
+    """Phase 13: the 512^2 problem on a distributed mesh of one rank,
+    built by the sharded setup (``kcycle.build_problem(mesh=)``: the
+    solvers' sums and the coarse gather on NCCL, the digest check of the
+    coarse levels), then solved with K7 on level 0."""
     import tempfile
     import torch.distributed as dist
     from qmg_tpu_torch.parallel import Mesh
@@ -847,8 +863,8 @@ def nccl_phase(torch, dev):
             counts = launch_counts()
         finally:
             dist.destroy_process_group()
-    print("--- 512^2 wilson-r1 on a distributed mesh of 1 rank (NCCL)",
-          flush=True)
+    print("--- 512^2 sharded setup + wilson-r1 on a distributed mesh of 1 "
+          "rank (NCCL)", flush=True)
     print_report(r)
     print(f"bytes handed to the collectives: {mesh.sent}; launches "
           f"{counts}", flush=True)
@@ -861,6 +877,9 @@ def nccl_phase(torch, dev):
     check(mesh.sent["sum"] > 0 and mesh.sent["gather"] > 0
           and mesh.sent["halo"] == 0,
           f"one rank must reduce and gather but send no halo: {mesh.sent}")
+    check(mesh.sent["digest"] > 0 and problem["setup"] == "sharded kcycle",
+          f"the sharded setup and its digest check of the coarse levels "
+          f"did not run: {problem['setup']}, {mesh.sent}")
 
 
 def check_solve(r, label):
@@ -1181,6 +1200,94 @@ def rhs_kernel_phase(torch, wk, dk, dev):
         times.setdefault("K6rhs", (ms, plain_ms, b_ms, b_by, apply_ms,
                                    dev_ms))
     return worst, times
+
+
+MESH_SHAPE = (4, 1)       # phase 23's in-process mesh
+MESH_BIG = 2048           # phase 23(a)'s lattice (n_refine 4)
+MESH_SIZE = 512           # phase 23(b)-(d)'s lattice
+MESH_BUDGET_S = 90
+
+
+def mesh_phase(torch, dev, direct_big):
+    """Phase 23: the mesh, the sharded setup and every formulation, on an
+    in-process ``Mesh(4, 1)`` (the setup too: ``kcycle.build_problem(...,
+    mesh=)``, ``make_kcycle_setup_planes(mesh=)``): (a) 2048^2 with K7 on
+    level 0, its outer count within one of ``direct_big``'s (phase 7's
+    unsharded 2048^2 solve) and its setup seconds beside that one's; (b)
+    the 512^2 n19 Schur solve; (c) 512^2 with NRHS right-hand sides in one
+    batched solve beside their sequential mesh solves; (d) 512^2
+    ``--deflate 8`` with K7. Returns K7's launches over (a)."""
+    from qmg_tpu_torch.parallel import Mesh
+    from qmg_tpu_torch.kcycle import (build_problem, run_solver,
+                                      run_batched, print_report,
+                                      print_batched_report,
+                                      reset_launch_counts, launch_counts)
+    t0 = time.perf_counter()
+    mesh = Mesh(*MESH_SHAPE)
+    shape = f"{MESH_SHAPE[0]}x{MESH_SHAPE[1]}"
+
+    def mesh_solve(label, size, kw, solver_kw):
+        reset_launch_counts()
+        part = build_problem(size, dev, mesh=mesh, **kw)
+        r = run_solver(part, **solver_kw)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        print(f"--- {label}", flush=True)
+        print_report(r)
+        print(f"launches over the sharded setup and the solves: {counts}",
+              flush=True)
+        check_solve(r, label)
+        return r, counts
+
+    # (a) 2048^2, K7 on level 0 after the sharded setup
+    label = f"(a) {MESH_BIG}^2 sharded setup + wilson-r1 on {shape} blocks"
+    r_a, c_a = mesh_solve(label, MESH_BIG, {}, {})
+    check(abs(r_a["iters"] - direct_big["iters"]) <= 1,
+          f"{label}: outer iterations {r_a['iters']} vs the unsharded "
+          f"{direct_big['iters']}")
+    check(c_a["wilson_r1_halo"] > 0 and c_a["wilson_r1"] == 0,
+          f"{label}: K7 must run alone on level 0: {c_a}")
+    print(f"{MESH_BIG}^2 setup s: sharded on {shape} blocks "
+          f"{r_a['setup_s']:.3f}, unsharded {direct_big['setup_s']:.3f}; "
+          f"outer iterations {r_a['iters']} (unsharded "
+          f"{direct_big['iters']}); K7 launches {c_a['wilson_r1_halo']}",
+          flush=True)
+    # (b) the n19 Schur solve
+    label = f"(b) {MESH_SIZE}^2 n19 Schur on {shape} blocks"
+    r_b, c_b = mesh_solve(label, MESH_SIZE, dict(outer="schur"),
+                          dict(fine_kernel=None))
+    check(abs(r_b["iters"] - JAX_ITERS_512_SCHUR) <= 1,
+          f"{label}: outer iterations {r_b['iters']} vs qmg_tpu's "
+          f"{JAX_ITERS_512_SCHUR}")
+    check(not any(c_b.values()), f"{label}: no kernel applies a Schur "
+          f"operator, yet {c_b}")
+    # (c) NRHS right-hand sides in one batched solve on the mesh
+    label = f"(c) {MESH_SIZE}^2 nrhs {NRHS} batched on {shape} blocks"
+    part = build_problem(MESH_SIZE, dev, mesh=mesh)
+    r_c = run_batched(part, eight_rhs(torch, part, dev), None, "plain")
+    torch.cuda.synchronize()
+    print(f"--- {label}; setup {part['setup_s']:.3f} s", flush=True)
+    print_batched_report(r_c)
+    check_batched(r_c, label)
+    same = sum(a == b for a, b in zip(r_c["iters"], r_c["sequential_iters"]))
+    print(f"{label}: {same} of {NRHS} lanes at their sequential mesh "
+          "solve's count, the others within one", flush=True)
+    del part
+    # (d) the deflated coarsest, K7 on level 0
+    label = f"(d) {MESH_SIZE}^2 --deflate {DEFLATE_N} on {shape} blocks"
+    r_d, c_d = mesh_solve(label, MESH_SIZE, dict(deflate=DEFLATE_N), {})
+    check(abs(r_d["iters"] - JAX_ITERS_512_DEFLATE) <= 1,
+          f"{label}: outer iterations {r_d['iters']} vs qmg_tpu's "
+          f"{JAX_ITERS_512_DEFLATE}")
+    check(f"deflated by {DEFLATE_N}" in r_d["coarsest"]
+          and c_d["wilson_r1_halo"] > 0,
+          f"{label}: solved {r_d['coarsest']} with {c_d}")
+    elapsed = time.perf_counter() - t0
+    print(f"phase 23 took {elapsed:.1f} s (budget {MESH_BUDGET_S} s)",
+          flush=True)
+    check(elapsed <= MESH_BUDGET_S,
+          f"phase 23 took {elapsed:.1f} s, over its {MESH_BUDGET_S} s")
+    return c_a["wilson_r1_halo"]
 
 
 def rhs_counts():
@@ -2208,6 +2315,10 @@ def main():
     lanes_launches = lanes_phase(torch, dev, problem)
     del problem
 
+    # --- 23. the mesh: sharded setup and every formulation ---
+    phase("23. the mesh: sharded setup and every formulation")
+    mesh_launches = mesh_phase(torch, dev, direct_big)
+
     # Each Wilson kernel at its path's shape: K1 the 512^2 solve, K2 the
     # 2048^2 solve, K3 the 2048^2 chain.
     kernels = []
@@ -2237,7 +2348,8 @@ def main():
         "launches": path_launches["wilson_r1_halo"],
         "max_abs_err": halo_worst, "ms": k_ms, "plain_ms": k_plain,
         "bound_ms": k_bound, "bound_by": k_by, "library_ms": None,
-        "wrapper_ms": k_wrapper, "device_ms": k_dev})
+        "wrapper_ms": k_wrapper, "device_ms": k_dev,
+        "sharded_setup_path_launches": mesh_launches})
     # K6 twice: its interleaved entry (the solve's coarse levels) and its
     # split entry (the 32^2 nc8 "small-split" chain).
     for name, kid, line in (("dslash", "K4", 76), ("dslash_split", "K5", 351),

@@ -5,8 +5,8 @@
 
 Gauge field ``gauss_gauge_u1`` at beta = 6 from ``QMGRandom(1337)``;
 Wilson2D at m = -0.06 (``--wilson-coeff`` w, default 1) in complex64; the
-host-driven setup
-(``build_kcycle_hierarchy``) on the device; then a warm-up solve and a
+host-driven setup (``make_kcycle_setup_planes`` from the seeds of
+``gauss_seed_planes``) on the device; then a warm-up solve and a
 timed solve to tol 1e-5 (max 200 outer iterations). Inside the K-cycle
 level 0 takes ``--fine-kernel`` (default the rank-1 Wilson kernel, which
 needs w = 1; ``wilson-phase`` is the Wilson kernel for any w; ``matrix``,
@@ -27,9 +27,9 @@ operator by restarted GCR, rbjacobi coarsening, and on every level the
 even-half Schur complement of the rbjacobi operator (RIGHT_SCHUR), b
 prepared and x reconstructed inside the solve. No kernel applies a
 Schur operator, so ``--fine-kernel`` defaults to ``none`` and
-``--coarse-apply`` to ``plain`` there, and other values, ``--shards`` and
-``--distributed`` are refused. The true residual is that of the
-reconstructed full x against the exact ORIGINAL operator.
+``--coarse-apply`` to ``plain`` there, and other values are refused. The
+true residual is that of the reconstructed full x against the exact
+ORIGINAL operator.
 
 ``--deflate N`` (bench.py ``--mode kcycle --setup device --deflate N``)
 solves the coarsest level with CG on its normal operator M^dag M
@@ -40,8 +40,7 @@ setup ends with the deflation stage that computes them
 levels above stay RIGHT_SCHUR and the deflation stage runs on that
 hierarchy's coarsest. ``--no-direct`` keeps the iterative coarsest
 (restarted GCR, or CG with ``--deflate``) instead of the dense inverse.
-``--deflate`` is refused with ``--shards`` and ``--distributed``. The
-report adds the coarsest level's Krylov iterations per visit.
+The report adds the coarsest level's Krylov iterations per visit.
 
 ``--nrhs N`` (bench.py's ``--nrhs`` mode) solves N right-hand sides in
 one batched solve (``make_batched_solver``): the gaussians bench.py draws
@@ -71,7 +70,8 @@ skips the n13 setup's draws), and the setup's gaussians come from the
 same stream after the right-hand side. The timed setup covers all of it;
 the report adds its stages. It takes the original formulation on one
 device (no ``--outer schur``, ``--deflate``, ``--shards`` or
-``--distributed``).
+``--distributed``), as qmg_tpu's ``make_adaptive_setup_planes`` takes no
+mesh.
 
 Every report ends with the reference's per-level operator report
 (``[QMG-OPS-STATS]``: NULLVEC, the setup's work, and KRYLOV, PRESMOOTH
@@ -79,7 +79,9 @@ and POSTSMOOTH over the run's solves) and ``[QMG-ITER-STATS]``
 (``query_average_iterations``).
 
 Level 0 can be cut into y-slabs (``parallel.Mesh``; fine kernel
-``wilson-r1``, the slab kernel, or ``none``):
+``wilson-r1``, the slab kernel, or ``none``), for the setup and the
+solve, in every formulation (``--outer schur``, ``--deflate``, ``--nrhs``,
+whose batched solve takes ``--fine-kernel none``, its default there):
 
     python -m qmg_tpu_torch.kcycle --size 2048 --shards 4
     torchrun --nproc-per-node N -m qmg_tpu_torch.kcycle --distributed
@@ -87,9 +89,13 @@ Level 0 can be cut into y-slabs (``parallel.Mesh``; fine kernel
 ``--shards NY`` holds the NY slabs in this process, on the one device.
 ``--distributed`` takes one slab per process of a ``torch.distributed``
 job, from the environment that ``torchrun`` sets (NCCL for ``--device
-cuda``, each rank on the card of its LOCAL_RANK; gloo for ``cpu``): rank
-0 runs the setup, hands every rank its cut of the hierarchy and prints
-the report (every rank holds the same one).
+cuda``, each rank on the card of its LOCAL_RANK; gloo for ``cpu``). The
+setup is the sharded one (``make_kcycle_setup_planes(mesh=)``) from the
+seeds of ``gauss_seed_planes`` on the same stream, so the hierarchy and b
+are the unsharded ones: every rank builds its slab of level 0 and the
+coarse levels whole, and checks them against the other ranks' copies.
+Rank 0 prints the report, with the setup's seconds and the bytes each
+collective moved (``Mesh.sent``).
 """
 
 from __future__ import annotations
@@ -104,18 +110,17 @@ import torch
 
 from .lattice import Lattice2D
 from .operators.wilson import Wilson2D
-from .setup import (KCycleConfig, build_kcycle_hierarchy, SCHUR_CONFIG,
-                    AdaptiveConfig)
+from .setup import KCycleConfig, SCHUR_CONFIG, AdaptiveConfig
 from .setup_planes import (gauss_seed_planes, adaptive_seed_planes,
-                           make_adaptive_setup_planes)
+                           make_adaptive_setup_planes,
+                           make_kcycle_setup_planes)
 from .solve import (make_solver, make_batched_solver,
                     make_fixed_batched_solver, make_calibrated_batched_solver,
-                    FINE_KERNELS, state_to_numpy, state_from_numpy,
-                    shard_state)
+                    FINE_KERNELS)
 from .stencil import apply_M, StencilType
-from .linalg import norm2sq, norm2sq_lanes, reductions
+from .linalg import norm2sq, reductions, lane_reductions
 from .rng import QMGRandom
-from .parallel import Mesh
+from .parallel import Mesh, shard_field
 from .shard_dslash import make_sharded_dslash
 from .wilson_kernel import (wilson_r1_apply, wilson_r1_rhs_apply,
                             wilson_r1_halo_apply, wilson_phase_apply,
@@ -153,15 +158,10 @@ OUTERS = {"original": StencilType.ORIGINAL,
           "schur": StencilType.RIGHT_SCHUR}
 
 
-# The combinations that the port cannot run yet.
-DEFLATE_LATER = ("the deflated coarsest runs on one device: on a mesh it "
-                 "waits for ROADMAP Queue 1 item 14")
-NRHS_LATER = ("batched solves run on one device: on a mesh they wait for "
-              "ROADMAP Queue 1 items 14 and 7")
 SETUPS = ("kcycle", "adaptive")
-ADAPTIVE_LATER = ("the adaptive setup takes the original formulation on one "
-                  "device, with no deflation: a sharded setup waits for "
-                  "ROADMAP Queue 1 item 14")
+ADAPTIVE_ONLY = ("the adaptive setup takes the original formulation on one "
+                 "device, with no deflation, as qmg_tpu's "
+                 "make_adaptive_setup_planes does: it takes no mesh")
 OPS_NAMES = ("NULLVEC", "KRYLOV", "PRESMOOTH", "POSTSMOOTH")
 
 
@@ -243,58 +243,59 @@ def build_problem(size: int = 512, device="cuda",
                   direct: bool = True, setup: str = "kcycle",
                   n_setup: int = 1) -> dict:
     """The gauge field, the fine operator (Wilson coefficient
-    ``wilson_coeff``), the hierarchy of the ``outer`` formulation (setup
-    timed) and the right-hand side (drawn after the setup, as bench.py
-    does); ``rng`` is the stream after it. ``mesh`` is the mesh the
-    solvers will cut level 0 over; a distributed one makes this rank's cut
-    of the problem (``_cut_for_rank``). ``deflate`` and ``direct`` as in
-    ``kcycle_config``; a deflated setup ends with the deflation stage.
-    ``setup="adaptive"`` builds the hierarchy of the same problem by the
-    n22 setup with ``n_setup`` passes (``adaptive_problem``)."""
+    ``wilson_coeff``), the hierarchy of the ``outer`` formulation and the
+    right-hand side (drawn after the setup, as bench.py does); ``rng`` is
+    the stream after it. The setup is ``make_kcycle_setup_planes`` from
+    the seeds of ``gauss_seed_planes``, the numbers that
+    ``build_kcycle_hierarchy`` draws from the same stream level by level
+    (timed: ``setup_s``). ``mesh`` is the mesh the solvers will cut level
+    0 over, and the setup's too: on a distributed one ``op`` and ``b`` are
+    the rank's blocks and ``cut`` takes a whole field to the rank's block;
+    in process they are whole and the hierarchy is the unsharded one.
+    ``deflate`` and ``direct`` as in ``kcycle_config``; a deflated setup
+    ends with the deflation stage. ``setup="adaptive"`` builds the
+    hierarchy of the same problem by the n22 setup with ``n_setup``
+    passes (``adaptive_problem``)."""
     if outer not in OUTERS:
         raise ValueError(f"unknown outer formulation {outer!r}")
     if setup not in SETUPS:
         raise ValueError(f"unknown setup {setup!r}")
-    if mesh is not None and outer != "original":
-        raise ValueError("a mesh takes the original formulation only")
-    if deflate and mesh is not None:
-        raise ValueError(DEFLATE_LATER)
     if setup == "adaptive" and (mesh is not None or outer != "original"
                                 or deflate):
-        raise ValueError(ADAPTIVE_LATER)
-    if mesh is not None and mesh.distributed:
-        return _cut_for_rank(size, device, wilson_coeff, mesh, direct)
+        raise ValueError(ADAPTIVE_ONLY)
     lat = Lattice2D(size, size, 2)
     rng = QMGRandom(SEED)
     gauge = u1.gauss_gauge_u1(lat, rng, BETA)
     cfg, restart = kcycle_config(size, outer, deflate, direct)
+    seeds = gauss_seed_planes(lat, cfg, rng)
+
+    def cut(whole):
+        if mesh is None or not mesh.distributed:
+            return whole
+        (block,) = shard_field(whole, mesh, whole.ndim - 3)
+        return block.contiguous()
+
     if setup == "adaptive":
-        # The n13 problem's right-hand side: skip the n13 setup's draws.
-        gauss_seed_planes(lat, cfg, rng)
+        # The n13 problem's right-hand side, after the n13 setup's draws.
         b = torch.as_tensor(rng.gaussian_cv(lat)).to(device=device,
                                                       dtype=torch.complex64)
         return adaptive_problem(
             {"size": size, "device": device, "gauge": gauge, "b": b,
              "rng": rng, "restart": restart, "mesh": None,
-             "outer": "original", "wilson_coeff": wilson_coeff},
-            n_setup, direct)
-
-    _sync(device)
-    t0 = time.perf_counter()
-    op = Wilson2D(lat, MASS, gauge, wilson_coeff, dtype=torch.complex64,
-                  device=device)
-    mg = build_kcycle_hierarchy(lat, op, cfg, rng)
-    if deflate:
-        mg.deflate_coarsest(deflate, 0)
-    _sync(device)
-    setup_s = time.perf_counter() - t0
-    b = torch.as_tensor(rng.gaussian_cv(lat)).to(device=device,
-                                                  dtype=torch.complex64)
-    return {"size": size, "device": device, "op": op, "mg": mg, "b": b,
-            "restart": restart, "setup_s": setup_s, "mesh": mesh,
-            "outer": outer, "gauge": gauge, "rng": rng,
-            "wilson_coeff": wilson_coeff, "setup": "kcycle",
-            "stages": None}
+             "outer": "original", "wilson_coeff": wilson_coeff,
+             "cut": cut}, n_setup, direct)
+    setup_fn = make_kcycle_setup_planes(lat, cfg, MASS, wilson_coeff,
+                                        dtype=torch.complex64, device=device,
+                                        deflate_low=deflate, mesh=mesh)
+    mg = setup_fn(gauge, *seeds)
+    b = cut(torch.as_tensor(rng.gaussian_cv(lat)).to(device=device,
+                                                      dtype=torch.complex64))
+    return {"size": size, "device": device, "op": mg.get_stencil(0),
+            "mg": mg, "b": b, "restart": restart,
+            "setup_s": setup_fn.seconds, "mesh": mesh, "outer": outer,
+            "gauge": gauge, "rng": rng, "wilson_coeff": wilson_coeff,
+            "setup": "kcycle" if mesh is None else "sharded kcycle",
+            "stages": None, "cut": cut}
 
 
 def adaptive_problem(problem: dict, n_setup: int = 1, direct: bool = True,
@@ -326,33 +327,6 @@ def adaptive_problem(problem: dict, n_setup: int = 1, direct: bool = True,
     return dict(problem, op=mg.get_stencil(0), mg=mg,
                 setup_s=time.perf_counter() - t0, setup="adaptive",
                 n_setup=n_setup, stages=setup_fn.stages, seeds=seeds)
-
-
-def _cut_for_rank(size: int, device, wilson_coeff: float, mesh: Mesh,
-                  direct: bool = True) -> dict:
-    """The problem on a distributed mesh: rank 0 runs the whole setup (the
-    setup itself is not sharded) and broadcasts the hierarchy's state and
-    the right-hand side; every rank loads its cut, so that all ranks hold
-    the same coarse levels bit for bit. ``op`` and ``b`` are the rank's
-    blocks."""
-    import torch.distributed as dist
-    payload = [None]
-    if dist.get_rank(mesh.group) == 0:
-        whole = build_problem(size, device, wilson_coeff, direct=direct)
-        payload = [(state_to_numpy(whole["mg"]), whole["b"].cpu().numpy(),
-                    whole["setup_s"])]
-        del whole
-    dist.broadcast_object_list(payload, dist.get_global_rank(mesh.group, 0),
-                               group=mesh.group, device=torch.device(device))
-    state, b, setup_s = payload[0]
-    (cut,), (b_loc,) = shard_state(state, mesh, b)
-    cfg, restart = kcycle_config(size, direct=direct)
-    mg = state_from_numpy(cut, cfg, device=device, mesh=mesh)
-    b_loc = torch.as_tensor(b_loc).to(device=device, dtype=torch.complex64)
-    return {"size": size, "device": device, "op": mg.get_stencil(0),
-            "mg": mg, "b": b_loc.contiguous(), "restart": restart,
-            "setup_s": setup_s, "mesh": mesh, "outer": "original",
-            "setup": "kcycle", "stages": None}
 
 
 def run_solver(problem: dict, fine_kernel: str | None = "wilson-r1",
@@ -456,10 +430,11 @@ def run_kcycle(size: int = 512, device="cuda",
 def bench_rhs(problem: dict, nrhs: int) -> torch.Tensor:
     """bench.py's ``--nrhs`` right-hand sides: ``problem``'s own (the first
     gaussian drawn after the setup) and ``nrhs - 1`` more from the stream
-    after it, (nrhs, *cv_shape) on the problem's device."""
+    after it, (nrhs, *cv_shape) on the problem's device (the rank's
+    blocks on a distributed mesh)."""
     lat = Lattice2D(problem["size"], problem["size"], 2)
-    more = [torch.as_tensor(problem["rng"].gaussian_cv(lat)).to(
-        device=problem["device"], dtype=torch.complex64)
+    more = [problem["cut"](torch.as_tensor(problem["rng"].gaussian_cv(
+        lat)).to(device=problem["device"], dtype=torch.complex64))
         for _ in range(nrhs - 1)]
     return torch.stack([problem["b"]] + more)
 
@@ -478,10 +453,11 @@ def run_batched(problem: dict, B, fine_kernel: str | None = "wilson-r1",
     "calibrated" (``make_calibrated_batched_solver`` on ``probe``).
     ``launches`` are the kernel launches of one batched solve."""
     device, mg, op = problem["device"], problem["mg"], problem["op"]
+    mesh = problem["mesh"]
     outer_type = OUTERS[problem["outer"]]
     kw = dict(tol=TOL, max_iter=MAX_ITER, restart_freq=problem["restart"],
               fine_kernel=fine_kernel, coarse_apply=coarse_apply,
-              outer_type=outer_type)
+              outer_type=outer_type, mesh=mesh)
     saved = list(mg.level_solve_list)
     try:
         outer_iters = None
@@ -523,12 +499,14 @@ def run_batched(problem: dict, B, fine_kernel: str | None = "wilson-r1",
         mg.level_solve_list = saved
     # Each lane's rel res_sq: its squared recursive residual over tol^2
     # ||rhs||^2 of the system it solved (bench.py's calibrated contract).
+    _, norm2sq_lanes, _ = lane_reductions(
+        mesh.all_sum if mesh is not None and mesh.distributed else None)
     rel_sq = (res.res_sq / (TOL ** 2 * norm2sq_lanes(
         op.prepare_M(B, outer_type)))).cpu().numpy()
     nrhs = B.shape[0]
     return {
         "size": problem["size"], "outer": problem["outer"],
-        "device": str(device), "nrhs": nrhs,
+        "device": str(device), "nrhs": nrhs, "mesh": mesh,
         "levels": [f"{lat.x_len}x{lat.y_len} nc{lat.nc}"
                    for lat in mg.lattice_list],
         "fine_kernel": fine_kernel, "coarse_apply": coarse_apply,
@@ -542,9 +520,10 @@ def run_batched(problem: dict, B, fine_kernel: str | None = "wilson-r1",
         "converged": res.converged.cpu().tolist(),
         "rel_res_recursive": (np.sqrt(rel_sq) * TOL).tolist(),
         "rel_res_sq_of_target": rel_sq.tolist(),
-        "rel_res_true": [true_residual(op, B[k], res.x[k])
+        "rel_res_true": [true_residual(op, B[k], res.x[k], mesh)
                          for k in range(nrhs)],
-        "sequential_rel_res_true": [true_residual(op, B[k], seq[k][0].x)
+        "sequential_rel_res_true": [true_residual(op, B[k], seq[k][0].x,
+                                                  mesh)
                                     for k in range(nrhs)],
         "x_finite": bool(torch.isfinite(torch.view_as_real(res.x)).all()),
         "level_iters": carry["iters"].tolist(),
@@ -574,6 +553,8 @@ def check_calibrated(r: dict):
 
 
 def print_batched_report(r: dict):
+    if r["mesh"] is not None:
+        print(f"level 0 cut over {r['mesh']}")
     print(f"kcycle {r['size']}^2 on {r['device']}, outer {r['outer']} "
           f"({OUTERS[r['outer']].name}), {r['nrhs']} right-hand sides in one "
           f"batched solve, schedule {r['schedule']}: fine_kernel "
@@ -599,6 +580,8 @@ def print_batched_report(r: dict):
              + ", ".join(f"{t:.3f}" for t in r["sequential_ms_all"]) + ")"
              if len(r["batched_ms_all"]) > 1 else ""))
     print(f"setup s: {r['setup_s']:.3f}")
+    if r["mesh"] is not None:
+        print(f"bytes handed to the collectives: {r['mesh'].sent}")
     print(f"per-lane krylov iterations per level {r['level_iters']}")
     print("kernel launches per batched solve: " + ", ".join(
         f"{k} {n}" for k, n in r["launches"].items()))
@@ -637,6 +620,8 @@ def print_report(r: dict):
           + f", true (c128, full x, ORIGINAL operator) "
           f"{r['rel_res_true']:.3e}")
     print(f"setup s: {r['setup_s']:.3f} ({r['setup']} setup)")
+    if r["mesh"] is not None:
+        print(f"bytes handed to the collectives: {r['mesh'].sent}")
     if r["setup_stages"]:
         print("setup stages s: " + ", ".join(
             f"{label} {sec:.3f}" for label, sec in r["setup_stages"]))
@@ -713,23 +698,21 @@ def main(argv=None):
             raise SystemExit("--outer schur takes --fine-kernel none and "
                              "--coarse-apply plain: no kernel applies a "
                              "Schur operator")
-        if args.shards is not None or args.distributed:
-            raise SystemExit("--outer schur runs on one device: --shards "
-                             "and --distributed take the original "
-                             "formulation")
-    if args.deflate and (args.shards is not None or args.distributed):
-        raise SystemExit(f"--deflate: {DEFLATE_LATER}")
     schedule = _schedule(args)
     if args.deflate < 0:
         raise SystemExit("--deflate takes a number of eigenpairs >= 0")
     if args.setup == "adaptive" and (
             args.outer == "schur" or args.deflate or args.shards is not None
             or args.distributed):
-        raise SystemExit(f"--setup adaptive: {ADAPTIVE_LATER}")
+        raise SystemExit(f"--setup adaptive: {ADAPTIVE_ONLY}")
     if args.n_setup < 0:
         raise SystemExit("--n-setup takes a number of passes >= 0")
+    sharded = args.distributed or args.shards is not None
     if args.fine_kernel is None:
-        args.fine_kernel = "none" if args.outer == "schur" else "wilson-r1"
+        # No kernel applies a Schur operator, and K7 takes no rhs axis.
+        args.fine_kernel = ("none" if args.outer == "schur"
+                            or (sharded and schedule is not False)
+                            else "wilson-r1")
     if args.coarse_apply is None:
         args.coarse_apply = "plain"
     is_cuda = torch.device(args.device).type == "cuda"
@@ -737,15 +720,12 @@ def main(argv=None):
         raise SystemExit("--device cuda requested but no CUDA device")
     if args.profile and not is_cuda:
         raise SystemExit("--profile measures the card; use --device cuda")
-    sharded = args.distributed or args.shards is not None
     if args.distributed and args.shards is not None:
         raise SystemExit("--shards and --distributed exclude each other")
     if sharded and args.fine_kernel not in ("wilson-r1", "none"):
         raise SystemExit("--shards and --distributed take --fine-kernel "
                          "wilson-r1 (the slab kernel) or none; the other "
                          "kernels are single-device")
-    if schedule is not False:
-        return _main_batched(args, schedule)
     mesh, device, is_root = None, args.device, True
     if args.distributed:
         mesh, device = mesh_from_env(args.device)
@@ -753,6 +733,8 @@ def main(argv=None):
     elif args.shards is not None:
         mesh = Mesh(args.shards, 1)
     try:
+        if schedule is not False:
+            return _main_batched(args, schedule, mesh, device, is_root)
         r = run_kcycle(args.size, device,
                        None if args.fine_kernel == "none"
                        else args.fine_kernel,
@@ -784,8 +766,6 @@ def _schedule(args):
             raise SystemExit("--fixed-schedule and --calibrated belong to "
                              "the --nrhs mode (--nrhs > 1)")
         return False
-    if args.shards is not None or args.distributed:
-        raise SystemExit(f"--nrhs: {NRHS_LATER}")
     if args.calibrated:
         if args.fixed_schedule:
             raise SystemExit("--calibrated picks its own outer trip count; "
@@ -803,20 +783,22 @@ def _schedule(args):
     return None
 
 
-def _main_batched(args, schedule):
-    """The ``--nrhs`` mode of ``main``."""
-    problem = build_problem(args.size, args.device, args.wilson_coeff,
-                            outer=args.outer, deflate=args.deflate,
-                            direct=not args.no_direct, setup=args.setup,
-                            n_setup=args.n_setup)
+def _main_batched(args, schedule, mesh=None, device=None, is_root=True):
+    """The ``--nrhs`` mode of ``main``, with level 0 cut over ``mesh``
+    when there is one."""
+    device = device or args.device
+    problem = build_problem(args.size, device, args.wilson_coeff,
+                            mesh=mesh, outer=args.outer,
+                            deflate=args.deflate, direct=not args.no_direct,
+                            setup=args.setup, n_setup=args.n_setup)
     probe = None
     if schedule == "calibrated":
         # bench.py draws the probe first, then the nrhs right-hand sides.
         probe = problem["b"]
         lat = Lattice2D(args.size, args.size, 2)
-        problem = dict(problem, b=torch.as_tensor(
-            problem["rng"].gaussian_cv(lat)).to(device=args.device,
-                                                dtype=torch.complex64))
+        problem = dict(problem, b=problem["cut"](torch.as_tensor(
+            problem["rng"].gaussian_cv(lat)).to(device=device,
+                                                dtype=torch.complex64)))
     B = bench_rhs(problem, args.nrhs)
     try:
         r = run_batched(problem, B,
@@ -825,7 +807,8 @@ def _main_batched(args, schedule):
                         probe, repeats=args.repeats, profile=args.profile)
     except ValueError as e:
         raise SystemExit(f"--nrhs: {e}")
-    print_batched_report(r)
+    if is_root:
+        print_batched_report(r)
     failed = not (r["x_finite"] and np.isfinite(r["rel_res_true"]).all())
     if schedule is None:
         failed |= not all(r["converged"])

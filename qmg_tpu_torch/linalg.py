@@ -91,13 +91,16 @@ def norminf(a):
     return a.abs().max()
 
 
-def normalize(a):
-    return a / norm(a)
+def normalize(a, reduce=None):
+    """a / ||a||; ``reduce`` as in ``reductions``."""
+    _, nrm2, _ = reductions(reduce)
+    return a / torch.sqrt(nrm2(a))
 
 
-def orthogonal(a, b):
-    """a - <b, a>/<b, b> * b."""
-    return a - (vdot(b, a) / norm2sq(b)) * b
+def orthogonal(a, b, reduce=None):
+    """a - <b, a>/<b, b> * b; ``reduce`` as in ``reductions``."""
+    dot, nrm2, _ = reductions(reduce)
+    return a - (dot(b, a) / nrm2(b)) * b
 
 
 def site_matvec(mat, vec):

@@ -28,7 +28,7 @@ import torch
 
 from ..lattice import Lattice2D, DIR_XP1, DIR_YP1, DIR_XM1, DIR_YM1
 from ..stencil import (Stencil2D, StencilCoeffs, make_coeffs, apply_clover,
-                       apply_hopping, DefaultChirality)
+                       apply_hopping, DefaultChirality, Pulls, WHOLE)
 from ..transfer import TransferMG, DoublingType
 from .. import linalg
 
@@ -43,10 +43,15 @@ class CoarseSigmaType:
 
 
 def build_coarse_coeffs(coarse_lat: Lattice2D, fine_coeffs: StencilCoeffs,
-                        transfer: TransferMG) -> StencilCoeffs:
+                        transfer: TransferMG, pulls: Pulls = WHOLE
+                        ) -> StencilCoeffs:
     """Probe-build the coarse clover + hopping from a fine coefficient set
     (``stencil.coeffs``, or ``stencil.rbjacobi.coeffs`` to coarsen the
-    right-block-Jacobi operator)."""
+    right-block-Jacobi operator). On the blocks of a mesh, ``pulls`` are
+    the mesh's and ``transfer`` a ``ShardedTransferMG``: the probes are
+    whole, prolonged onto the blocks, each piece applied with the halos
+    of the prolonged probe batch, and the responses restricted and
+    joined (gathered over the ranks) into the whole coarse level."""
     if not fine_coeffs.is_distance1():
         # The probe responses are sorted into coarse clover and hopping by
         # fine parity, which is exact only when every coupling flips it.
@@ -83,7 +88,8 @@ def build_coarse_coeffs(coarse_lat: Lattice2D, fine_coeffs: StencilCoeffs,
                            shift=fine_coeffs.shift, dtype=dtype)
 
     if coarse_lat.volume == 1:
-        clover = clover + response(lambda f: apply_hopping(fine_coeffs, f))
+        clover = clover + response(
+            lambda f: apply_hopping(fine_coeffs, f, pulls=pulls))
         return make_coeffs(coarse_lat, clover=clover, hopping=hopping,
                            shift=fine_coeffs.shift, dtype=dtype)
 
@@ -92,7 +98,8 @@ def build_coarse_coeffs(coarse_lat: Lattice2D, fine_coeffs: StencilCoeffs,
         folds = coarse_lat.get_dim_mu(dim_of_dir[d]) == 1
         for parity in (0, 1):
             res = response(
-                lambda f, d=d: apply_hopping(fine_coeffs, f, direction=d),
+                lambda f, d=d: apply_hopping(fine_coeffs, f, direction=d,
+                                             pulls=pulls),
                 parity)
             other = 1 - parity
             clover[parity] += res[parity]
@@ -124,7 +131,8 @@ class CoarseOperator2D(Stencil2D):
                  build_extra: int = BUILD_ORIGINAL):
         fine_coeffs = (fine_stencil.rbjacobi.coeffs if use_rbjacobi
                        else fine_stencil.coeffs)
-        coeffs = build_coarse_coeffs(coarse_lat, fine_coeffs, transfer)
+        coeffs = build_coarse_coeffs(coarse_lat, fine_coeffs, transfer,
+                                     fine_stencil.pulls)
         self._init(coeffs, transfer, is_chiral, use_rbjacobi)
         if build_extra in (self.BUILD_DAGGER, self.BUILD_DAGGER_RBJACOBI,
                            self.BUILD_ALL):

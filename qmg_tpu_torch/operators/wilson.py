@@ -37,16 +37,41 @@ def wilson_spin_matrices(w: float, *, dtype, device="cpu"):
                  for m in mats)
 
 
-def wilson_coeff_arrays(lat: Lattice2D, gauge, w: float, *, dtype, device):
-    """(clover, hopping) of the Wilson operator for a (2, 2, Y, Xh) gauge."""
-    gauge = torch.as_tensor(gauge).to(device=device, dtype=dtype)
-    ux, uy = gauge[0], gauge[1]
+def wilson_coeff_arrays(lat: Lattice2D, gauge, w: float, *, dtype, device,
+                        block=None):
+    """(clover, hopping) of the Wilson operator for a (2, 2, Y, Xh) gauge.
+
+    With ``block`` = (ny, nx, iy, ix), those of block (iy, ix) of the
+    lattice cut into ny x nx blocks (``parallel.shard_coeffs`` of the
+    whole, bit for bit): only the block's links and the one row below and
+    the one packed column to the left that its -y and -x hops read are
+    taken from ``gauge`` and moved to ``device``."""
+    gauge = torch.as_tensor(gauge)
+    if block is None:
+        gauge = gauge.to(device=device, dtype=dtype)
+        ux, uy = gauge[0], gauge[1]
+        ux_m = torch.conj(cshift_pull(ux, DIR_XM1))
+        uy_m = torch.conj(cshift_pull(uy, DIR_YM1))
+    else:
+        ny, nx, iy, ix = block
+        y_loc, xh_loc = lat.y_len // ny, lat.xh // nx
+        lat = Lattice2D(2 * xh_loc, y_loc, lat.nc)
+        rows = (torch.arange(iy * y_loc - 1, (iy + 1) * y_loc)
+                % gauge.shape[2]).to(gauge.device)
+        cols = (torch.arange(ix * xh_loc - 1, (ix + 1) * xh_loc)
+                % gauge.shape[3]).to(gauge.device)
+        # ux with the packed column to the left, uy with the row below.
+        # The padded -x pull keeps the lattice's row parity (the block's
+        # first row is even), and the -y pull masks no row.
+        ux = gauge[0][:, rows[1:]][:, :, cols].to(device=device, dtype=dtype)
+        uy = gauge[1][:, rows][:, :, cols[1:]].to(device=device, dtype=dtype)
+        ux_m = torch.conj(cshift_pull(ux, DIR_XM1))[:, :, 1:]
+        uy_m = torch.conj(cshift_pull(uy, DIR_YM1))[:, 1:]
+        ux, uy = ux[:, :, 1:], uy[:, 1:]
     sx_p, sy_p, sx_m, sy_m = wilson_spin_matrices(w, dtype=dtype,
                                                   device=device)
     clover = 2.0 * w * linalg.identity_like(
         torch.zeros(lat.cm_shape(), dtype=dtype, device=device))
-    ux_m = torch.conj(cshift_pull(ux, DIR_XM1))
-    uy_m = torch.conj(cshift_pull(uy, DIR_YM1))
     hopping = torch.stack([ux[..., None, None] * sx_p,
                            uy[..., None, None] * sy_p,
                            ux_m[..., None, None] * sx_m,
@@ -64,6 +89,19 @@ class Wilson2D(Stencil2D):
                                               dtype=dtype, device=device)
         super().__init__(make_coeffs(lat, clover=clover, hopping=hopping,
                                      shift=mass, dtype=dtype))
+
+    @classmethod
+    def from_arrays(cls, lat: Lattice2D, mass, clover, hopping,
+                    wilson_coeff: float = 1.0) -> "Wilson2D":
+        """A Wilson operator on (clover, hopping) that
+        ``wilson_coeff_arrays`` built at ``wilson_coeff`` (a block's, or
+        joined from the blocks), taken as they are."""
+        op = cls.__new__(cls)
+        op.wilson_coeff = float(wilson_coeff)
+        Stencil2D.__init__(op, make_coeffs(lat, clover=clover,
+                                           hopping=hopping, shift=mass,
+                                           dtype=clover.dtype))
+        return op
 
     @classmethod
     def from_coeffs(cls, coeffs: StencilCoeffs) -> "Wilson2D":

@@ -26,7 +26,11 @@ blocks of the transfer (``validate_mg_sharding``).
 Only level 0 is sharded. qmg_tpu's ``replicate_coarse_levels`` pins the
 coarse levels' arrays as replicated placements of one SPMD program; here
 every rank simply holds those arrays whole, so there is no placement to
-make and no counterpart of that function.
+make and no counterpart of that function. What SPMD guarantees, that the
+copies are one array, every rank has to hold to itself: it builds or
+loads its coarse levels, and a sharded coarse solve diverges if they
+differ in one bit. ``check_replicated`` compares every rank's float64
+digest of each such array and raises on the first that differs.
 """
 
 from __future__ import annotations
@@ -41,21 +45,23 @@ from .stencil import StencilCoeffs
 
 __all__ = ["Mesh", "make_mesh", "shard_field", "unshard_field",
            "shard_coeffs", "shardable_dims", "validate_mg_sharding",
-           "replication_crossover"]
+           "validate_level_sharding", "replication_crossover",
+           "check_replicated"]
 
 
 class Mesh:
     """A (ny, nx) mesh of lattice blocks, in-process or distributed.
 
     ``sent`` counts the bytes this process handed to each collective
-    ("halo", "sum", "gather"); an in-process mesh sends nothing.
+    ("halo", "sum", "gather", and "digest" for ``check_replicated``); an
+    in-process mesh sends nothing.
     """
 
     def __init__(self, ny: int, nx: int = 1, group=None):
         if ny < 1 or nx < 1:
             raise ValueError(f"mesh shape ({ny}, {nx}) must be positive")
         self.ny, self.nx, self.group = int(ny), int(nx), group
-        self.sent = {"halo": 0, "sum": 0, "gather": 0}
+        self.sent = {"halo": 0, "sum": 0, "gather": 0, "digest": 0}
         if group is None:
             self.blocks = [(iy, ix) for iy in range(ny) for ix in range(nx)]
             return
@@ -213,12 +219,21 @@ def shardable_dims(lat: Lattice2D, mesh: Mesh) -> bool:
 
 
 def validate_mg_sharding(mg, mesh: Mesh, level: int = 0) -> None:
-    """Check that the hierarchy can shard at ``level`` over ``mesh``: the
-    lattice tiles the mesh with an even local row count, and the
-    transfer's aggregation blocks align with the block boundaries, so
-    that every block holds whole aggregates. Raises ValueError otherwise.
-    """
-    lat = mg.get_lattice(level)
+    """Check that the hierarchy can shard at ``level`` over ``mesh``
+    (``validate_level_sharding`` of its lattice and the next one). Raises
+    ValueError otherwise."""
+    coarse = (mg.get_lattice(level + 1)
+              if level < mg.get_num_levels() - 1 else None)
+    validate_level_sharding(mg.get_lattice(level), coarse, mesh, level)
+
+
+def validate_level_sharding(lat: Lattice2D, coarse, mesh: Mesh,
+                            level: int = 0) -> None:
+    """Check that the lattice ``lat`` of ``level`` can shard over
+    ``mesh``: it tiles the mesh with an even local row count, and the
+    transfer to ``coarse`` (the next lattice, or None) has aggregation
+    blocks that align with the block boundaries, so that every block
+    holds whole aggregates. Raises ValueError otherwise."""
     my, mx = mesh.shape
     if lat.y_len % my or lat.xh % mx:
         raise ValueError(
@@ -227,8 +242,7 @@ def validate_mg_sharding(mg, mesh: Mesh, level: int = 0) -> None:
     if (lat.y_len // my) % 2:
         raise ValueError("Y_loc must be even so local row parity equals "
                          "global row parity")
-    if level < mg.get_num_levels() - 1:
-        coarse = mg.get_lattice(level + 1)
+    if coarse is not None:
         by = lat.y_len // coarse.y_len
         bx = lat.x_len // coarse.x_len
         if bx % 2:
@@ -252,3 +266,41 @@ def replication_crossover(mg, mesh: Mesh) -> int:
         if lat.y_len % my or lat.xh % mx or (lat.y_len // my) % 2:
             return lvl
     return mg.get_num_levels()
+
+
+def _digest(t) -> torch.Tensor:
+    """A float64 digest of a tensor, on its device: the plain, the
+    weighted and the squared sums of its real components, the weights
+    an irrational-step cosine of the position, so that two tensors that
+    differ anywhere differ here too but for a coincidence."""
+    v = (torch.view_as_real(t) if t.is_complex() else t)
+    v = v.to(torch.float64).reshape(-1)
+    w = torch.cos(torch.arange(v.numel(), dtype=torch.float64,
+                               device=v.device) * 0.7548776662466927)
+    return torch.stack([v.sum(), (v * w).sum(), (v * v).sum()])
+
+
+def check_replicated(mesh: Mesh, arrays: dict) -> int:
+    """Check that every rank of a distributed ``mesh`` holds the same
+    ``arrays`` (name -> tensor, the same names on every rank): each
+    rank's digests (``_digest``) are all-gathered and compared, and the
+    first array whose digests differ raises a ValueError that names it,
+    on every rank alike. The gathered bytes go to ``mesh.sent["digest"]``.
+    An in-process mesh holds one copy and checks nothing. Returns the
+    number of arrays checked."""
+    if not mesh.distributed or not arrays:
+        return 0
+    import torch.distributed as dist
+    names = sorted(arrays)
+    mine = torch.stack([_digest(arrays[n]) for n in names])
+    parts = [torch.empty_like(mine) for _ in range(mesh.ny * mesh.nx)]
+    dist.all_gather(parts, mine, group=mesh.group)
+    mesh.sent["digest"] += mine.numel() * mine.element_size()
+    for i, name in enumerate(names):
+        rows = torch.stack([p[i] for p in parts])
+        if not bool((rows == rows[0]).all()):
+            raise ValueError(
+                f"the ranks hold different copies of {name}: every rank "
+                "must hold bit-identical coarse levels (digests "
+                f"{rows.cpu().tolist()})")
+    return len(names)

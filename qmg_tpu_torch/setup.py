@@ -72,14 +72,17 @@ def generate_null_vectors(stencil: Stencil2D, n_vec: int, rng=None,
                           max_iter: int = 500, tol: float = 5e-5, *,
                           gaussians=None,
                           stype: StencilType = StencilType.ORIGINAL,
-                          solver: str = "bicgstab_l"):
+                          solver: str = "bicgstab_l", reduce=None):
     """Algebraic near-null vectors via the residual equation on the
     ``stype`` operator (a full-field type), solved with BiCGstab(6)
     (``solver="bicgstab_l"``) or GCR restarted every 64 iterations
     (``"gcr_restart"``), from gaussians drawn from ``rng`` or the given
     ``gaussians`` (n_vec, *cv_shape) (an array or a tensor; exactly one of
     the two). Returns (vectors (n_vec, *cv_shape), total operator
-    applications)."""
+    applications). A stencil that holds one rank's block of a lattice
+    cut over ranks (``Stencil2D.pulls`` a mesh's) solves on that block,
+    its inner products summed over the ranks by ``reduce``
+    (``parallel.Mesh.all_sum``)."""
     if solver not in ("bicgstab_l", "gcr_restart"):
         raise ValueError(f"unknown null-vector solver {solver}")
     lat = stencil.lat
@@ -90,30 +93,32 @@ def generate_null_vectors(stencil: Stencil2D, n_vec: int, rng=None,
     for i in range(n_vec):
         g = draw(i)
         for v in vecs:
-            g = orthogonal(g, v)
+            g = orthogonal(g, v, reduce)
         rhs = -matvec(g)
         total_ops += 1
         if solver == "bicgstab_l":
             res = solvers.bicgstab_l(matvec, rhs, max_iter=max_iter,
-                                     tol=tol, l=6)
+                                     tol=tol, l=6, reduce=reduce)
         else:
             res = solvers.gcr_restart(matvec, rhs, max_iter=max_iter,
-                                      tol=tol, restart_freq=64)
+                                      tol=tol, restart_freq=64,
+                                      reduce=reduce)
         total_ops += res.ops_count
         v = g + res.x
         for w in vecs:
-            v = orthogonal(v, w)
+            v = orthogonal(v, w, reduce)
         vecs.append(v)
     return torch.stack(vecs), total_ops
 
 
-def chiral_double(stencil: Stencil2D, vectors):
-    """n vectors -> 2n: chiral ups first, then downs, each normalized."""
+def chiral_double(stencil: Stencil2D, vectors, reduce=None):
+    """n vectors -> 2n: chiral ups first, then downs, each normalized (on
+    a rank's block, its norms summed over the ranks by ``reduce``)."""
     ups, downs = [], []
     for i in range(vectors.shape[0]):
         up, down = stencil.chiral_projection_both(vectors[i])
-        ups.append(normalize(up))
-        downs.append(normalize(down))
+        ups.append(normalize(up, reduce))
+        downs.append(normalize(down, reduce))
     return torch.stack(ups + downs)
 
 
@@ -273,9 +278,23 @@ def build_kcycle_hierarchy(lat0: Lattice2D, fine_op: Stencil2D,
                          f"{len(seeds)}")
     pin_full_precision()
     mg = StatefulMultigridMG(lat0, fine_op, cfg.coarsest_solve())
-    ref = fine_op.coeffs.ref
-    lat_prev = lat0
-    for i, lat_i in enumerate(cfg.coarse_lattices(lat0), start=1):
+    push_kcycle_levels(mg, cfg, 1, rng, seeds, structure_only)
+    if structure_only:
+        return mg
+    if cfg.coarsest_direct:
+        mg.prepare_direct_coarsest()
+    return mg
+
+
+def push_kcycle_levels(mg: StatefulMultigridMG, cfg: KCycleConfig,
+                       first: int, rng=None, seeds=None,
+                       structure_only: bool = False):
+    """Push ``build_kcycle_hierarchy``'s levels ``first`` ...
+    ``cfg.n_refine`` onto ``mg``, which holds the levels above them."""
+    lats = [mg.get_lattice(0)] + cfg.coarse_lattices(mg.get_lattice(0))
+    ref = mg.get_stencil(first - 1).coeffs.ref
+    lat_prev = lats[first - 1]
+    for i, lat_i in enumerate(lats[first:], start=first):
         if structure_only:
             transfer, coarse = _scaffold_level(lat_prev, lat_i, cfg, ref)
             mg.push_level(lat_i, transfer, cfg.level_solve(),
@@ -302,11 +321,6 @@ def build_kcycle_hierarchy(lat0: Lattice2D, fine_op: Stencil2D,
                                           else PRECOND_ORIGINAL),
                       build_extra=cfg.build_extra, nvecs=raw)
         lat_prev = lat_i
-    if structure_only:
-        return mg
-    if cfg.coarsest_direct:
-        mg.prepare_direct_coarsest()
-    return mg
 
 
 # ---------------------------------------------------------------------------

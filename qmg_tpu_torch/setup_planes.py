@@ -23,7 +23,26 @@ Drawn ahead, the seeds are the numbers that ``build_kcycle_hierarchy(...,
 rng)`` would draw level by level from the same stream, so both builds give
 the same hierarchy. The TPU-only options (``per_level_jit``,
 ``channels_first``, ``matmul_precision``) have no counterpart and are
-refused; the sharded setup (``mesh``) is a later slice and is refused too.
+refused.
+
+``mesh`` (a ``parallel.Mesh``) cuts level 0 into blocks for the whole
+setup, as qmg_tpu's ``make_kcycle_setup_planes(mesh=)`` does, with one
+code path over the mesh's held blocks (``shard_dslash.mesh_pulls``): each
+block's Wilson coefficients from its own rows of the host gauge and the
+one row and column its -y and -x hops read; the null vectors solved on
+the blocks (the level-0 stencil takes the mesh's pulls, the solvers'
+inner products are summed over the ranks); chiral doubling and block
+orthonormalization inside each block (aggregates lie inside blocks); the
+Galerkin probes prolonged onto the blocks, each piece applied with the
+halos of the probe batch, the responses restricted and joined (gathered
+over the ranks) into the whole level 1 on every rank; the n19 derived
+sets of level 0 built on the blocks with one- and two-row halos. Levels
+>= 1, the dense inverse and the deflation stage run as they are, on
+every rank, which the digest check of ``parallel.check_replicated`` then
+holds to one copy. Unlike qmg_tpu, no level below 0 is cut; the state is
+the same. A distributed mesh returns the rank's hierarchy (what
+``solve.state_from_numpy(shard_state(...)[rank], cfg, mesh=mesh)`` builds
+from the whole one), an in-process mesh the whole hierarchy.
 
 The n22 adaptive setup has the same form:
 
@@ -47,12 +66,20 @@ import numpy as np
 import torch
 
 from .lattice import Lattice2D
-from .operators.wilson import Wilson2D
+from .operators.wilson import Wilson2D, wilson_coeff_arrays
 from .setup import (KCycleConfig, build_kcycle_hierarchy, AdaptiveConfig,
                     build_adaptive_hierarchy, adaptive_pass,
-                    finalize_adaptive, check_pass_seeds)
-from .stencil import StencilType
-from .stateful import _NORMAL_TYPES
+                    finalize_adaptive, check_pass_seeds,
+                    generate_null_vectors, chiral_double, push_kcycle_levels,
+                    pin_full_precision)
+from .stencil import StencilType, WHOLE
+from .stateful import _NORMAL_TYPES, StatefulMultigridMG, DSLASH_NULLVEC
+from .transfer import (TransferMG, ShardedTransferMG, DoublingType,
+                       block_lattices)
+from .multigrid import PRECOND_ORIGINAL, PRECOND_RIGHT_BLOCK_JACOBI
+from .parallel import (Mesh, shard_field, unshard_field, check_replicated,
+                       validate_level_sharding)
+from .shard_dslash import mesh_pulls
 
 __all__ = ["gauss_seed_planes", "make_kcycle_setup_planes",
            "adaptive_seed_planes", "make_adaptive_setup_planes"]
@@ -62,7 +89,6 @@ TPU_ONLY = ("per_level_jit", "channels_first", "matmul_precision")
 # limit: the inverse is probed, densified and inverted on the host, and
 # the dimension grows 16x for each level the hierarchy stops short.
 MAX_DIRECT_DIM = 4096
-LATER = {"mesh": "ROADMAP Queue 1 item 14 (the sharded setup)"}
 
 
 def _refuse(options: dict, fname: str):
@@ -72,10 +98,19 @@ def _refuse(options: dict, fname: str):
             raise ValueError(f"{name} is a TPU workaround of qmg_tpu's "
                              "traced setup; the eager setup on the device "
                              "takes no such option")
-        if name in LATER:
-            raise ValueError(f"{name} is not ported yet: {LATER[name]}")
         raise TypeError(f"{fname}() got an unexpected keyword argument "
                         f"{name!r}")
+
+
+def check_setup_mesh(lat0: Lattice2D, cfg, mesh: Mesh):
+    """The refusals of a mesh for the setup, qmg_tpu's: level 0 must tile
+    the mesh with an even local row count and hold whole aggregation
+    blocks of an even x blocking (``parallel.validate_level_sharding``:
+    "does not tile", "does not align"), and every block an even number of
+    coarse columns (``transfer.block_lattices``)."""
+    coarse = cfg.coarse_lattices(lat0)[0]
+    validate_level_sharding(lat0, coarse, mesh)
+    block_lattices(lat0, coarse, mesh)
 
 
 def _check_direct(lat0: Lattice2D, cfg, direct: bool) -> int:
@@ -105,20 +140,26 @@ def gauss_seed_planes(lat0: Lattice2D, cfg: KCycleConfig, rng):
 def make_kcycle_setup_planes(lat0: Lattice2D, cfg: KCycleConfig, mass,
                              w: float = 1.0, *, dtype=torch.complex64,
                              device="cuda", deflate_low: int = 0,
-                             deflate_high: int = 0, **options):
+                             deflate_high: int = 0, mesh: Mesh | None = None,
+                             **options):
     """Returns ``setup_fn(gauge, *seeds) -> StatefulMultigridMG``: the n13
     setup of a Wilson operator (mass ``mass``, Wilson coefficient ``w``,
     ``dtype``) on ``device`` from a (2, 2, Y, Xh) U(1) gauge field (an
     array or a tensor) and one seed stack per level
     (``gauss_seed_planes``), then, with ``deflate_low`` / ``deflate_high``,
     the deflation stage (which needs a normal ``cfg.coarsest_stencil_app``
-    and a coarsest level of at most ``MAX_DIRECT_DIM`` dimensions).
-    qmg_tpu's options that this setup has no use for raise
-    ``ValueError``."""
+    and a coarsest level of at most ``MAX_DIRECT_DIM`` dimensions). With
+    ``mesh`` level 0 is cut into the mesh's blocks (the module's
+    docstring; ``check_setup_mesh`` says what it refuses); the inputs stay
+    the whole host arrays. Each call leaves ``setup_fn.seconds``, the
+    setup's wall time with the device synchronized. qmg_tpu's options
+    that this setup has no use for raise ``ValueError``."""
     _refuse(options, "make_kcycle_setup_planes")
     if lat0.nc != 2:
         raise ValueError("make_kcycle_setup_planes builds the Wilson n13 "
                          f"flow; fine nc must be 2, got {lat0.nc}")
+    if mesh is not None:
+        check_setup_mesh(lat0, cfg, mesh)
     n_coarsest = _check_direct(lat0, cfg, cfg.coarsest_direct)
     if deflate_low or deflate_high:
         if StencilType(cfg.coarsest_stencil_app) not in _NORMAL_TYPES:
@@ -135,13 +176,83 @@ def make_kcycle_setup_planes(lat0: Lattice2D, cfg: KCycleConfig, mass,
         if len(seeds) != cfg.n_refine:
             raise ValueError(f"need {cfg.n_refine} gauss seed arrays, got "
                              f"{len(seeds)}")
-        op = Wilson2D(lat0, mass, gauge, w, dtype=dtype, device=device)
-        mg = build_kcycle_hierarchy(lat0, op, cfg, seeds=list(seeds))
+        t0 = _synced_clock(device)
+        if mesh is None:
+            op = Wilson2D(lat0, mass, gauge, w, dtype=dtype, device=device)
+            mg = build_kcycle_hierarchy(lat0, op, cfg, seeds=list(seeds))
+        else:
+            mg = _sharded_hierarchy(lat0, cfg, mass, w, gauge, seeds, dtype,
+                                    device, mesh)
         if deflate_low or deflate_high:
             mg.deflate_coarsest(deflate_low, deflate_high)
+        if mesh is not None:
+            check_replicated(mesh, mg.replicated_arrays())
+        setup_fn.seconds = _synced_clock(device) - t0
         return mg
 
+    setup_fn.seconds = None
     return setup_fn
+
+
+def _sharded_hierarchy(lat0: Lattice2D, cfg: KCycleConfig, mass, w, gauge,
+                       seeds, dtype, device, mesh: Mesh):
+    """``build_kcycle_hierarchy`` with level 0 cut over ``mesh`` (the
+    module's docstring), up to the dense inverse."""
+    pin_full_precision()
+    lat1 = cfg.coarse_lattices(lat0)[0]
+    reduce = mesh.all_sum if mesh.distributed else None
+    # Level 0 on the held blocks: a distributed rank's block operator, the
+    # whole one (joined from its blocks) in process, both with the mesh's
+    # pulls.
+    arrays = [wilson_coeff_arrays(lat0, gauge, w, dtype=dtype, device=device,
+                                  block=(mesh.ny, mesh.nx, iy, ix))
+              for iy, ix in mesh.blocks]
+    fine_blk, coarse_blk = block_lattices(lat0, lat1, mesh)
+    if mesh.distributed:
+        (clover, hopping), = arrays
+        held = fine_blk
+    else:
+        clover = unshard_field([c for c, _ in arrays], mesh, 1)
+        hopping = unshard_field([h for _, h in arrays], mesh, 2)
+        held = lat0
+    op = Wilson2D.from_arrays(held, mass, clover, hopping, w)
+    op.pulls = mesh_pulls(mesh)
+    mg = StatefulMultigridMG(lat0, op, cfg.coarsest_solve())
+    # Level 1: null vectors on the blocks, doubled and block-orthonormalized
+    # inside each block, then the Galerkin build (push_level) through the
+    # blocks' transfer.
+    gaussians = torch.as_tensor(seeds[0])
+    if mesh.distributed:
+        (gaussians,) = shard_field(gaussians, mesh, 2)
+    vecs, ops = generate_null_vectors(
+        op, cfg.coarse_dof // 2, max_iter=cfg.nullvec_max_iter,
+        tol=cfg.nullvec_tol, gaussians=gaussians, stype=cfg.nullvec_stype,
+        solver=cfg.nullvec_solver, reduce=reduce)
+    mg.add_tracker_count(DSLASH_NULLVEC, ops, 0)
+    raw = chiral_double(op, vecs, reduce)
+    raws = [raw] if mesh.distributed else shard_field(raw, mesh, 2)
+    nvbs = [TransferMG(fine_blk, coarse_blk, r,
+                       doubling=DoublingType.PROJECTION,
+                       coarse_row0=iy * coarse_blk.y_len)._nvb
+            for (iy, _), r in zip(mesh.blocks, raws)]
+    transfer = ShardedTransferMG(lat0, lat1, nvbs, mesh)
+    mg.push_level(lat1, transfer, cfg.level_solve(), build_stencil=True,
+                  is_chiral=True,
+                  build_stencil_from=(PRECOND_RIGHT_BLOCK_JACOBI
+                                      if cfg.precond_coarsen_rbjacobi
+                                      else PRECOND_ORIGINAL),
+                  build_extra=cfg.build_extra, nvecs=raw)
+    # The derived sets level 0 solves with, built on the blocks.
+    op.prebuild_derived(cfg.fine_stencil_app)
+    push_kcycle_levels(mg, cfg, 2, seeds=list(seeds))
+    if not mesh.distributed:
+        whole = transfer.whole()
+        mg.transfer_list[0] = whole
+        mg.get_stencil(1).in_transfer = whole
+        op.pulls = WHOLE
+    if cfg.coarsest_direct:
+        mg.prepare_direct_coarsest()
+    return mg
 
 
 def adaptive_seed_planes(lat0: Lattice2D, acfg: AdaptiveConfig, rng):

@@ -8,7 +8,8 @@ own on a distributed one, where the edges travel through
 
   * ``make_sharded_dslash(coeffs, mesh)``: any distance-1 stencil on a
     (ny, nx) mesh, exact (the arithmetic of ``stencil.apply_M`` site by
-    site);
+    site), on fields with any leading batch axes (the probe batch of the
+    Galerkin build, the rhs axis of a batched solve);
   * ``make_sharded_wilson(coeffs, mesh, mass)``: the rank-1 Wilson kernel
     on the y-slabs of a (ny, 1) mesh, one launch of
     ``wilson_kernel.wilson_r1_halo_apply`` per slab with the neighbouring
@@ -17,6 +18,14 @@ own on a distributed one, where the edges travel through
 Both take the whole lattice's coefficients and fields on an in-process
 mesh, and the rank's block of each (``parallel.shard_coeffs``,
 ``shard_field``) on a distributed one.
+
+``cshift_pull_sharded`` and ``cshift_pull_half_sharded`` are every pull of
+``cshift`` on blocks: distance 1, distance 2 (+-2y with a two-row halo)
+and the corners (two distance-1 pulls). ``mesh_pulls(mesh)`` wraps them
+as a ``stencil.Pulls`` on fields that are whole (in-process: cut into
+block views, pulled with the neighbours' edges, joined) or the rank's
+block (distributed): a stencil with these pulls applies, prepares,
+reconstructs and builds its derived sets block by block.
 """
 
 from __future__ import annotations
@@ -24,33 +33,40 @@ from __future__ import annotations
 import torch
 
 from .lattice import DIR_XP1, DIR_YP1, DIR_XM1, DIR_YM1
-from .cshift import ALL_DIRS
-from .stencil import StencilCoeffs, apply_clover, apply_shift
+from .cshift import (ALL_DIRS, DIR_XP2, DIR_XM2, DIR_YP2, DIR_YM2,
+                     _CORNER_PARTS)
+from .stencil import StencilCoeffs, Pulls, apply_clover, apply_shift
 from .parallel import Mesh, shard_coeffs, shard_field, unshard_field
 from .wilson_kernel import bind_halo, bind_halo_slabs, wilson_phases
 from . import linalg
 
-__all__ = ["halo_roll", "cshift_pull_sharded", "make_sharded_dslash",
-           "make_sharded_wilson"]
+__all__ = ["halo_roll", "cshift_pull_sharded", "cshift_pull_half_sharded",
+           "mesh_pulls", "make_sharded_dslash", "make_sharded_wilson"]
 
 
 def halo_roll(blocks, shift: int, dim: int, axis: str, mesh: Mesh):
-    """Periodic roll by ``shift`` (+1 or -1) of the whole field's axis
-    that the blocks' axis ``dim`` is cut along: a roll inside each block,
-    its wrapped slice replaced by the ring neighbour's edge."""
-    if shift not in (1, -1):
-        raise ValueError("only distance-1 shifts")
+    """Periodic roll by ``shift`` (+-1, or +-2 with a two-slice halo) of
+    the whole field's axis that the blocks' axis ``dim`` is cut along: a
+    roll inside each block, its wrapped slices replaced by the ring
+    neighbour's edge."""
+    n = abs(shift)
+    if n not in (1, 2):
+        raise ValueError("only distance-1 and distance-2 shifts")
     rolled = [torch.roll(b, shift, dims=dim) for b in blocks]
     if (mesh.ny if axis == "y" else mesh.nx) == 1:
         return rolled
     size = blocks[0].shape[dim]
-    # shift -1 pulls from +axis: the last slot takes the next block's
-    # first slice; shift +1 the first slot the previous block's last.
-    give, take = (0, size - 1) if shift == -1 else (size - 1, 0)
-    recv = mesh.ring_recv([b.narrow(dim, give, 1) for b in blocks], axis,
-                          -shift)
+    if size < n:
+        raise ValueError(f"a block {size} wide along {axis} cannot give a "
+                         f"halo of {n}")
+    # shift < 0 pulls from +axis: the last n slots take the next block's
+    # first n slices; shift > 0 the first n slots the previous block's
+    # last n.
+    give, take = (0, size - n) if shift < 0 else (size - n, 0)
+    recv = mesh.ring_recv([b.narrow(dim, give, n) for b in blocks], axis,
+                          1 if shift < 0 else -1)
     for r, edge in zip(rolled, recv):
-        r.narrow(dim, take, 1).copy_(edge)
+        r.narrow(dim, take, n).copy_(edge)
     return rolled
 
 
@@ -69,19 +85,82 @@ def _pull_x_half_sharded(srcs, q: int, sign: int, y_axis: int, mesh: Mesh):
     return out
 
 
-def cshift_pull_sharded(blocks, direction: int, mesh: Mesh):
-    """``cshift.cshift_pull`` on the held (2, Y_loc, Xh_loc, dof...) blocks
-    of a field, with halo exchange on the wrapped rows and columns."""
+def cshift_pull_sharded(blocks, direction: int, mesh: Mesh,
+                        batch_dims: int = 0):
+    """``cshift.cshift_pull`` on the held (*batch, 2, Y_loc, Xh_loc,
+    dof...) blocks of a field, with halo exchange on the wrapped rows and
+    columns."""
+    p_ax = batch_dims
     if direction in (DIR_YP1, DIR_YM1):
-        swapped = [torch.flip(b, dims=(0,)) for b in blocks]
-        return halo_roll(swapped, -1 if direction == DIR_YP1 else 1, 1, "y",
-                         mesh)
+        swapped = [torch.flip(b, dims=(p_ax,)) for b in blocks]
+        return halo_roll(swapped, -1 if direction == DIR_YP1 else 1,
+                         p_ax + 1, "y", mesh)
     if direction in (DIR_XP1, DIR_XM1):
         sign = 1 if direction == DIR_XP1 else -1
-        even = _pull_x_half_sharded([b[1] for b in blocks], 0, sign, 0, mesh)
-        odd = _pull_x_half_sharded([b[0] for b in blocks], 1, sign, 0, mesh)
-        return [torch.stack(pair) for pair in zip(even, odd)]
+        even = _pull_x_half_sharded([b.select(p_ax, 1) for b in blocks], 0,
+                                    sign, p_ax, mesh)
+        odd = _pull_x_half_sharded([b.select(p_ax, 0) for b in blocks], 1,
+                                   sign, p_ax, mesh)
+        return [torch.stack(pair, dim=p_ax) for pair in zip(even, odd)]
+    if direction in (DIR_XP2, DIR_XM2):
+        return halo_roll(blocks, -1 if direction == DIR_XP2 else 1,
+                         p_ax + 2, "x", mesh)
+    if direction in (DIR_YP2, DIR_YM2):
+        return halo_roll(blocks, -2 if direction == DIR_YP2 else 2,
+                         p_ax + 1, "y", mesh)
+    if direction in _CORNER_PARTS:
+        d1, d2 = _CORNER_PARTS[direction]
+        return cshift_pull_sharded(
+            cshift_pull_sharded(blocks, d2, mesh, batch_dims), d1, mesh,
+            batch_dims)
     raise ValueError(f"unsupported direction {direction}")
+
+
+def cshift_pull_half_sharded(blocks, src_parity: int, direction: int,
+                             mesh: Mesh, batch_dims: int = 0):
+    """``cshift.cshift_pull_half`` on the held (*batch, Y_loc, Xh_loc,
+    dof...) blocks of a half field on parity ``src_parity``: the
+    distance-1 pulls, the distance-2 ones (+-2y with a two-row halo) and
+    the corners, with halo exchange."""
+    y_ax = batch_dims
+    if direction in (DIR_YP1, DIR_YM1):
+        return halo_roll(blocks, -1 if direction == DIR_YP1 else 1, y_ax,
+                         "y", mesh)
+    if direction in (DIR_XP1, DIR_XM1):
+        return _pull_x_half_sharded(blocks, 1 - src_parity,
+                                    1 if direction == DIR_XP1 else -1, y_ax,
+                                    mesh)
+    if direction in (DIR_XP2, DIR_XM2):
+        return halo_roll(blocks, -1 if direction == DIR_XP2 else 1,
+                         y_ax + 1, "x", mesh)
+    if direction in (DIR_YP2, DIR_YM2):
+        return halo_roll(blocks, -2 if direction == DIR_YP2 else 2, y_ax,
+                         "y", mesh)
+    if direction in _CORNER_PARTS:
+        dx, dy = _CORNER_PARTS[direction]
+        rolled = halo_roll(blocks, -1 if dy == DIR_YP1 else 1, y_ax, "y",
+                           mesh)
+        return _pull_x_half_sharded(rolled, src_parity,
+                                    1 if dx == DIR_XP1 else -1, y_ax, mesh)
+    raise ValueError(f"unsupported direction {direction}")
+
+
+def mesh_pulls(mesh: Mesh) -> Pulls:
+    """The pulls of ``stencil.Pulls`` on a mesh's fields: whole fields on
+    an in-process mesh (cut into block views, each pulled with its
+    neighbours' edges, joined), the rank's block on a distributed one."""
+    def full(field, direction, batch_dims=0):
+        y_dim = batch_dims + 1
+        return _whole(cshift_pull_sharded(_blocks_of(field, mesh, y_dim),
+                                          direction, mesh, batch_dims),
+                      mesh, y_dim)
+
+    def half(src, src_parity, direction, batch_dims=0):
+        return _whole(cshift_pull_half_sharded(
+            _blocks_of(src, mesh, batch_dims), src_parity, direction, mesh,
+            batch_dims), mesh, batch_dims)
+
+    return Pulls(full, half)
 
 
 def _local_coeffs(coeffs: StencilCoeffs, mesh: Mesh):
@@ -102,12 +181,12 @@ def _local_coeffs(coeffs: StencilCoeffs, mesh: Mesh):
     return local if local is not None else shard_coeffs(coeffs, mesh)
 
 
-def _blocks_of(x, mesh: Mesh):
-    return [x] if mesh.distributed else shard_field(x, mesh)
+def _blocks_of(x, mesh: Mesh, y_dim: int = 1):
+    return [x] if mesh.distributed else shard_field(x, mesh, y_dim)
 
 
-def _whole(outs, mesh: Mesh):
-    return outs[0] if mesh.distributed else unshard_field(outs, mesh)
+def _whole(outs, mesh: Mesh, y_dim: int = 1):
+    return outs[0] if mesh.distributed else unshard_field(outs, mesh, y_dim)
 
 
 def make_sharded_dslash(coeffs: StencilCoeffs, mesh: Mesh):
@@ -120,11 +199,12 @@ def make_sharded_dslash(coeffs: StencilCoeffs, mesh: Mesh):
     local = _local_coeffs(coeffs, mesh)
 
     def apply_fn(x):
-        blocks = _blocks_of(x, mesh)
+        nb = x.ndim - 4
+        blocks = _blocks_of(x, mesh, nb + 1)
         if coeffs.hopping is None:
             return _whole([apply_clover(c, b) + apply_shift(c, b)
-                           for c, b in zip(local, blocks)], mesh)
-        pulls = [cshift_pull_sharded(blocks, d, mesh) for d in ALL_DIRS]
+                           for c, b in zip(local, blocks)], mesh, nb + 1)
+        pulls = [cshift_pull_sharded(blocks, d, mesh, nb) for d in ALL_DIRS]
         outs = []
         for i, (c, b) in enumerate(zip(local, blocks)):
             nbrs = [p[i] for p in pulls]
@@ -133,7 +213,7 @@ def make_sharded_dslash(coeffs: StencilCoeffs, mesh: Mesh):
             outs.append(linalg.stacked_site_matvec(c.stacked(),
                                                    torch.stack(nbrs))
                         + apply_shift(c, b))
-        return _whole(outs, mesh)
+        return _whole(outs, mesh, nb + 1)
 
     return apply_fn
 

@@ -9,7 +9,9 @@ inside the preconditioner, where flexible GCR absorbs their float32 (or
 bf16 coefficient) rounding. ``outer_type=StencilType.RIGHT_SCHUR`` solves
 the n19 formulation: the even-half Schur complement of the rbjacobi
 operator, b prepared and x reconstructed inside the solve; no kernel
-takes part, as no Schur apply takes an override.
+takes part, as no Schur apply takes an override. Every formulation, the
+batched solve and the deflated coarsest also run with level 0 cut over a
+``parallel.Mesh``.
 
 ``make_batched_solver``, ``make_fixed_batched_solver`` and
 ``make_calibrated_batched_solver`` (the counterparts of qmg_tpu's
@@ -62,8 +64,9 @@ from .dslash_kernel import (SUPPORTED_NC, stencil_channels,
                             dslash_split_apply,
                             dslash_small_interleaved_apply,
                             dslash_small_rhs_apply)
-from .parallel import Mesh, validate_mg_sharding
-from .shard_dslash import make_sharded_dslash, make_sharded_wilson
+from .parallel import Mesh, validate_mg_sharding, check_replicated
+from .shard_dslash import (make_sharded_dslash, make_sharded_wilson,
+                           mesh_pulls)
 from . import solvers
 
 __all__ = ["make_solver", "make_batched_solver", "make_fixed_batched_solver",
@@ -258,8 +261,8 @@ def make_solver(mg: StatefulMultigridMG, tol: float = 1e-8,
     ``x0`` needs the ORIGINAL outer type. The derived
     sets that the solve applies are built here, once. No kernel and no
     gather apply replaces a derived apply, so with a derived outer type
-    ``fine_kernel`` must be None and ``mesh`` None, and ``coarse_apply``
-    must be "plain" where a coarse level solves with a derived type.
+    ``fine_kernel`` must be None, and ``coarse_apply`` must be "plain"
+    where a coarse level solves with a derived type.
 
     ``fine_kernel`` routes level 0's apply inside the K-cycle through a
     CUDA kernel: "wilson-r1" (the rank-1 Wilson kernel, w = 1 only),
@@ -275,15 +278,19 @@ def make_solver(mg: StatefulMultigridMG, tol: float = 1e-8,
     overrides exist only inside a solve: setup, the Galerkin build and
     the outer matvec keep the exact plain apply.
 
-    ``mesh`` (``parallel.Mesh``) cuts level 0 into blocks: its apply inside
-    the K-cycle is ``make_sharded_wilson`` ("wilson-r1", a (ny, 1) mesh)
-    or the plain ``make_sharded_dslash`` (None), the outer matvec the
-    exact ``make_sharded_dslash``; the other kernels are refused. On an
+    ``mesh`` (``parallel.Mesh``) cuts level 0 into blocks: its ORIGINAL
+    apply inside the K-cycle is ``make_sharded_wilson`` ("wilson-r1", a
+    (ny, 1) mesh) or the plain ``make_sharded_dslash`` (None), the outer
+    matvec the exact ``make_sharded_dslash``; the other kernels are
+    refused. A derived outer type (the Schur apply on even halves, its
+    prepare and reconstruct) is applied block by block with the mesh's
+    pulls (``shard_dslash.mesh_pulls``: one- and two-row halos). On an
     in-process mesh ``b`` and the solution are whole fields and all else
     is the unsharded code. On a distributed mesh they are the rank's
-    blocks, ``mg`` is one that ``state_from_numpy(..., mesh=mesh)`` built
-    from ``shard_state``'s cut, level 0's inner products are summed over
-    the ranks and every rank holds the coarse levels whole.
+    blocks, ``mg`` is one that ``state_from_numpy(..., mesh=mesh)`` or the
+    sharded setup built, level 0's inner products are summed over the
+    ranks and every rank holds the coarse levels whole (the coarsest's
+    dense inverse or deflation pairs too).
     """
     lanes = _lane_solver(mg, tol, max_iter, restart_freq, fine_kernel,
                          coarse_apply, coeff_dtype, mesh, outer_type,
@@ -331,12 +338,11 @@ def _lane_solver(mg: StatefulMultigridMG, tol, max_iter, restart_freq,
     if n_levels > 1 and outer_type != types[0]:
         raise ValueError(f"outer_type {outer_type.name} must be level 0's "
                          f"fine_stencil_app, {types[0].name}")
-    if outer_type != StencilType.ORIGINAL and (fine_kernel is not None
-                                              or mesh is not None):
+    if outer_type != StencilType.ORIGINAL and fine_kernel is not None:
         raise ValueError(
-            f"outer_type {outer_type.name} takes fine_kernel=None and no "
-            "mesh: the kernels replace only the ORIGINAL apply, and no "
-            "derived (Schur / rbjacobi) apply takes an override")
+            f"outer_type {outer_type.name} takes fine_kernel=None: the "
+            "kernels replace only the ORIGINAL apply, and no derived (Schur "
+            "/ rbjacobi) apply takes an override")
     if coarse_apply != "plain" and (
             any(t != StencilType.ORIGINAL for t in types[1:-1])
             or types[-1] not in (StencilType.ORIGINAL,) + _NORMAL_TYPES):
@@ -350,21 +356,26 @@ def _lane_solver(mg: StatefulMultigridMG, tol, max_iter, restart_freq,
     unchanged = _hierarchy_guard(mg)
     fine = mg.get_stencil(0)
     stencils = [mg.get_stencil(lvl) for lvl in range(n_levels)]
-    reduce = None
+    reduce, pulls = None, fine.pulls
     if mesh is not None:
         if mesh.distributed != isinstance(mg.get_transfer(0),
                                           ShardedTransferMG):
             raise ValueError(
                 "a distributed mesh needs a hierarchy built by "
-                "state_from_numpy(..., mesh=mesh), and an in-process mesh "
-                "a whole one")
+                "state_from_numpy(..., mesh=mesh) or the sharded setup, and "
+                "an in-process mesh a whole one")
         validate_mg_sharding(mg, mesh)
         reduce = mesh.all_sum if mesh.distributed else None
+        # A distributed rank's stencil holds the mesh's pulls; the whole
+        # stencil of an in-process mesh takes them inside a solve.
+        pulls = fine.pulls if mesh.distributed else mesh_pulls(mesh)
     kernels = (fine_kernel, coarse_apply, coeff_dtype, mesh)
     one_field, applies = _overrides(stencils, None, *kernels)
     bound = {None: one_field}     # nrhs (None: one field) -> overrides
     applies = [name if t == StencilType.ORIGINAL else t.name.lower()
                for name, t in zip(applies, types)]
+    if mesh is not None and types[0] != StencilType.ORIGINAL:
+        applies[0] += f" on {mesh.ny}x{mesh.nx} blocks"
 
     if outer_type != StencilType.ORIGINAL:
         matvec = fine.get_apply_function(outer_type)
@@ -387,8 +398,10 @@ def _lane_solver(mg: StatefulMultigridMG, tol, max_iter, restart_freq,
         if nrhs not in bound:
             bound[nrhs] = _overrides(stencils, nrhs, *kernels)[0]
         carry = zero_batched_carry(nrhs or 1, n_levels)
-        rhs = fine.prepare_M(b, outer_type) if transformed else b
+        saved_pulls = fine.pulls
         try:
+            fine.pulls = pulls
+            rhs = fine.prepare_M(b, outer_type) if transformed else b
             for st, fn in zip(stencils, bound[nrhs]):
                 st.apply_override = fn
             v = solvers._as_verbose(verbose)
@@ -400,15 +413,17 @@ def _lane_solver(mg: StatefulMultigridMG, tol, max_iter, restart_freq,
                 int(restart_freq), precond=precond, precond_carry=carry,
                 fixed_trips=fixed, reduce=reduce, verbose=_outer_verbose(v),
                 trace=trace, laned=laned)
+            if transformed:
+                res = res._replace(x=fine.reconstruct_M(res.x, b,
+                                                        outer_type))
         finally:
             for st in stencils:
                 st.apply_override = None
+            fine.pulls = saved_pulls
         carry["counts"][:, 0, DSLASH_KRYLOV] += res.ops_count
         carry["iters"][:, 0] += res.iters
         if track:
             mg.absorb_carry(carry)
-        if transformed:
-            res = res._replace(x=fine.reconstruct_M(res.x, b, outer_type))
         return res, carry
 
     solve.level_applies = applies
@@ -443,9 +458,12 @@ def make_batched_solver(mg: StatefulMultigridMG, tol: float = 1e-8,
     (``dslash_small_rhs_apply``), each bound once per solver and nrhs; at
     nrhs = 1 they take their single-field entries. ``None`` and "plain"
     keep the plain apply, which takes the rhs axis as it is; the outer
-    matvec is always the exact plain apply. The other kernels, the gather
-    apply and ``mesh`` are refused: they have no rhs axis, as qmg_tpu
-    refuses its Pallas kernels in a batched solve. ``fixed_outer_iters``
+    matvec is always the exact plain apply. The other kernels and the
+    gather apply are refused: they have no rhs axis, as qmg_tpu refuses
+    its Pallas kernels in a batched solve. ``mesh`` cuts level 0 as in
+    ``make_solver``, with the plain sharded apply (``fine_kernel=None``:
+    K7 has no rhs axis either); B is then whole on an in-process mesh and
+    the rank's blocks on a distributed one. ``fixed_outer_iters``
     runs exactly that many outer trips on every lane with no stopping test
     (``make_fixed_batched_solver``). ``trace`` goes to the outer solve
     (``solvers.gcr_var_precond_restart_batched``): called at each restart
@@ -460,12 +478,13 @@ def make_batched_solver(mg: StatefulMultigridMG, tol: float = 1e-8,
         raise ValueError(
             f"batched solves take coarse_apply in {BATCHED_COARSE_APPLIES}, "
             f"got {coarse_apply!r}: the gather apply has no rhs axis")
-    if mesh is not None:
-        raise ValueError("batched solves are single-device: mesh= is not "
-                         "ported for them (ROADMAP Queue 1 items 14 and 7, "
-                         "and Queue 2 item 5 for K7's rhs axis)")
+    if mesh is not None and fine_kernel is not None:
+        raise ValueError(
+            f"batched solves on a mesh take fine_kernel=None, got "
+            f"{fine_kernel!r}: the slab kernel K7 has no rhs axis yet "
+            "(ROADMAP Queue 2 item 5: an rhs axis for K2, K4, K5 and K7)")
     lanes = _lane_solver(mg, tol, max_iter, restart_freq, fine_kernel,
-                         coarse_apply, None, None, outer_type, False,
+                         coarse_apply, None, mesh, outer_type, False,
                          fixed_outer_iters, trace)
     cv_shape = tuple(mg.get_stencil(0).lat.cv_shape())
 
@@ -589,7 +608,8 @@ def state_to_numpy(mg: StatefulMultigridMG, dtype=np.float32,
                    outer_type=None) -> dict:
     """Every array of the hierarchy as real (..., 2) planes of ``dtype``,
     with the derived sets that the levels' types (and ``outer_type``)
-    apply, built here where they are not yet."""
+    apply, built here where they are not yet. A distributed rank's
+    hierarchy gives the rank's cut, the one ``shard_state`` makes."""
     state = {}
     for lvl in range(mg.get_num_levels()):
         c = mg.get_stencil(lvl).coeffs
@@ -609,7 +629,9 @@ def state_to_numpy(mg: StatefulMultigridMG, dtype=np.float32,
                 f"level {lvl}'s transfer is asymmetric (it restricts with "
                 "its own vectors, not P^dagger): the state dict carries only "
                 "nvb; save the hierarchy with checkpoint.save_hierarchy")
-        state[f"nvb{lvl}"] = _planes(t._nvb, dtype)
+        state[f"nvb{lvl}"] = _planes(
+            t.locals[0]._nvb if isinstance(t, ShardedTransferMG) else t._nvb,
+            dtype)
     if mg.coarsest_dinv is not None:
         state["cdinv"] = _planes(mg.coarsest_dinv, dtype)
     if mg.coarsest_evecs is not None:
@@ -630,9 +652,6 @@ def state_to_numpy(mg: StatefulMultigridMG, dtype=np.float32,
                 state[f"schurf{lvl}"] = _planes(st._rbj_schur_fused.mats,
                                                 dtype)
     return state
-
-
-_DERIVED_KEYS = ("rbjcinv", "rbjh", "rbjt", "rbjc", "schurf")
 
 
 def _adopt_derived(st: Stencil2D, state: dict, lvl: int, dtype, device):
@@ -660,14 +679,16 @@ def shard_state(state: dict, mesh: Mesh, b=None):
     """Cut a state dict (``state_to_numpy`` or qmg_tpu's
     ``mg_state_planes``) for a mesh, the counterpart of qmg_tpu's
     ``shard_planes_state``: level 0's ``clover0`` (2, Y, Xh, ...),
-    ``hopping0`` (4, 2, Y, Xh, ...) and blocked null vectors ``nvb0``
-    (nvec, 2c, B, Yc, Xhc, 2) are cut by block, everything else stays
-    whole. Returns one state per block the process holds, in mesh order
+    ``hopping0`` (4, 2, Y, Xh, ...), blocked null vectors ``nvb0``
+    (nvec, 2c, B, Yc, Xhc, 2) and derived sets (``rbjcinv0`` (2, Y, Xh,
+    ...), ``rbjh0`` / ``rbjt0`` / ``rbjc0`` (4, 2, Y, Xh, ...), ``schurf0``
+    (9, Y, Xh, ...)) are cut by block, everything else stays whole. Returns one state per block the process holds, in mesh order
     (all of them for an in-process mesh, the rank's for a distributed
     one), and with ``b`` (a whole (2, Y, Xh, nc[, 2]) right-hand side)
     also its blocks. ``state_from_numpy(cut, cfg, mesh=mesh)`` builds a
     rank's hierarchy from its cut."""
-    y_dims = {"clover0": 1, "hopping0": 2, "nvb0": 3}
+    y_dims = {"clover0": 1, "hopping0": 2, "nvb0": 3, "rbjcinv0": 1,
+              "rbjh0": 2, "rbjt0": 2, "rbjc0": 2, "schurf0": 1}
 
     def cut(a, y_dim, iy, ix):
         y_loc, x_loc = a.shape[y_dim] // mesh.ny, a.shape[y_dim + 1] // mesh.nx
@@ -704,8 +725,11 @@ def state_from_numpy(state: dict, cfg: KCycleConfig, *, device="cuda",
 
     With a distributed ``mesh``, ``state`` is the rank's cut from
     ``shard_state``: the hierarchy's lattices are the whole ones, level
-    0's operator holds the rank's block of the coefficients (its ``lat``
-    is the block's), and level 0's transfer is a ``ShardedTransferMG``.
+    0's operator holds the rank's block of the coefficients and of the
+    derived sets it carries (its ``lat`` is the block's, its ``pulls`` the
+    mesh's), and level 0's transfer is a ``ShardedTransferMG``. The ranks'
+    coarse levels are then checked to be one copy
+    (``parallel.check_replicated``).
 
     The derived sets the state carries (``rbjcinv{l}`` ...) are adopted
     as they are, so a Schur hierarchy that qmg_tpu built solves on the
@@ -713,11 +737,6 @@ def state_from_numpy(state: dict, cfg: KCycleConfig, *, device="cuda",
     if mesh is not None and not mesh.distributed:
         raise ValueError("an in-process mesh takes the whole state: load it "
                          "without mesh= and pass the mesh to make_solver")
-    if mesh is not None and any(k.rstrip("0123456789") in _DERIVED_KEYS
-                                for k in state):
-        raise ValueError("a distributed mesh takes ORIGINAL hierarchies: "
-                         "the derived (rbjacobi / Schur) sets are not cut "
-                         "for blocks (ROADMAP Queue 1 items 14 and 7)")
     if dtype is None:
         dtype = (torch.complex64 if state["clover0"].dtype == np.float32
                  else torch.complex128)
@@ -734,6 +753,8 @@ def state_from_numpy(state: dict, cfg: KCycleConfig, *, device="cuda",
     ny, nx = mesh.shape if mesh is not None else (1, 1)
     lat0 = Lattice2D(2 * xh * nx, y_len * ny, nc)
     fine = Wilson2D.from_coeffs(coeffs(0, Lattice2D(2 * xh, y_len, nc)))
+    if mesh is not None:
+        fine.pulls = mesh_pulls(mesh)
     _adopt_derived(fine, state, 0, dtype, device)
     mg = StatefulMultigridMG(lat0, fine, cfg.coarsest_solve())
     lat_prev = lat0
@@ -760,4 +781,6 @@ def state_from_numpy(state: dict, cfg: KCycleConfig, *, device="cuda",
     if "cevecs" in state:
         mg.coarsest_evals = _complex(state["cevals"], dtype, device)
         mg.coarsest_evecs = _complex(state["cevecs"], dtype, device)
+    if mesh is not None:
+        check_replicated(mesh, mg.replicated_arrays())
     return mg

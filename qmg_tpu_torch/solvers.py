@@ -12,11 +12,11 @@ Conventions, as in qmg_tpu:
   * results carry the iteration count, the final ||r||^2, a convergence
     flag and ops_count, the number of operator applications;
   * flexible solvers take precond(r, carry) -> (z, carry);
-  * ``reduce`` (GCR and MinRes) is for fields that are one rank's
-    block of a lattice cut over ranks: it sums partial inner products over
-    the ranks (``linalg.lane_reductions``). Every stopping test and
-    breakdown guard then branches on a summed value, so all ranks leave a
-    loop at the same iteration.
+  * ``reduce`` (GCR, MinRes and BiCGstab(l)) is for fields that are one
+    rank's block of a lattice cut over ranks: it sums partial inner
+    products over the ranks (``linalg.lane_reductions``). Every stopping
+    test and breakdown guard then branches on a summed value, so all ranks
+    leave a loop at the same iteration.
 
 Scalars (inner products, step lengths) stay 0-dim device tensors; a loop
 reads one back to the host only for its stopping test. The breakdown
@@ -591,8 +591,11 @@ def bicgstab(matvec, b, x0=None, max_iter: int = 1000, tol=1e-8
 
 
 def bicgstab_l(matvec, b, x0=None, max_iter: int = 1000, tol=1e-8,
-               l: int = 6) -> SolveResult:
-    """``max_iter`` counts l-cycles x l; each l-cycle costs 2l matvecs."""
+               l: int = 6, reduce=None) -> SolveResult:
+    """``max_iter`` counts l-cycles x l; each l-cycle costs 2l matvecs.
+    ``reduce`` as in ``_gcr``: every inner product is summed over the
+    ranks, so all of them take the same steps."""
+    vdot, norm2sq, _ = reductions(reduce)
     x = torch.zeros_like(b) if x0 is None else x0
     bsq = norm2sq(b)
     target = _target(tol, bsq)

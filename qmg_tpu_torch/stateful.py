@@ -560,6 +560,31 @@ class StatefulMultigridMG(MultigridMG):
         self.get_stencil(n_levels - 1).prebuild_derived(
             self.coarsest_solve.coarsest_stencil_app)
 
+    def replicated_arrays(self) -> dict:
+        """The arrays that every rank of a mesh holds whole, by their
+        state-dict names: the coarse levels' coefficients and the derived
+        sets built so far, the transfers between coarse levels, the dense
+        inverse and the deflation pairs (``parallel.check_replicated``)."""
+        out = {}
+        for lvl in range(1, self.get_num_levels()):
+            st = self.get_stencil(lvl)
+            c = st.coeffs
+            for name, arr in (("clover", c.clover), ("hopping", c.hopping)):
+                if arr is not None:
+                    out[f"{name}{lvl}"] = arr
+            if st.built_rbjacobi:
+                out[f"rbjcinv{lvl}"] = st.rbjacobi.cinv
+                if st.rbjacobi.coeffs.hopping is not None:
+                    out[f"rbjh{lvl}"] = st.rbjacobi.coeffs.hopping
+            if st.built_rbj_schur_fused:
+                out[f"schurf{lvl}"] = st._rbj_schur_fused.mats
+            if lvl < self.get_num_levels() - 1:
+                out[f"nvb{lvl}"] = self.get_transfer(lvl)._nvb
+        for name in ("coarsest_dinv", "coarsest_evals", "coarsest_evecs"):
+            if getattr(self, name) is not None:
+                out[name] = getattr(self, name)
+        return out
+
     def level_types(self):
         """The stencil type each level solves with, finest first."""
         return ([StencilType(self.get_level_solve(lvl).fine_stencil_app)

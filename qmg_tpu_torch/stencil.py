@@ -34,6 +34,13 @@ override, and the right-block-Jacobi forms B gamma5 and B^-dagger
 gamma5). ``build_gather_apply`` is the distance-1 ORIGINAL apply
 as an index gather plus one stacked matvec (the solver's
 ``coarse_apply="gather"``).
+
+Every apply and derived build takes its pull-shifts as a parameter
+(``Pulls``): the whole lattice's periodic ones by default, or a mesh's
+(``shard_dslash.mesh_pulls``), whose fields are blocks of a lattice cut
+over a ``parallel.Mesh`` and whose pulls exchange the halos. The per-site
+arithmetic is the same either way; a ``Stencil2D`` takes the pulls of its
+``pulls`` attribute.
 """
 
 from __future__ import annotations
@@ -41,7 +48,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import enum
-from typing import Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -58,6 +65,18 @@ _OPPOSITE_SLOT = (2, 3, 0, 1)
 # Builds of each derived coefficient set, over all stencils of the process:
 # a solve that rebuilt a set per call would move these.
 DERIVED_BUILDS = collections.Counter()
+
+
+class Pulls(NamedTuple):
+    """The pull-shifts that applies and derived builds take: ``full(field,
+    direction, batch_dims)`` and ``half(src_half, src_parity, direction,
+    batch_dims)``, with ``cshift``'s signatures and results."""
+    full: Callable
+    half: Callable
+
+
+# The whole lattice's periodic pulls.
+WHOLE = Pulls(cshift_pull, cshift_pull_half)
 
 
 class StencilType(enum.IntEnum):
@@ -181,40 +200,45 @@ def apply_clover(coeffs: StencilCoeffs, x):
     return linalg.site_matvec(coeffs.clover, x)
 
 
-def _apply_pulled(mats, dirs, x, direction: Optional[int] = None):
+def _apply_pulled(mats, dirs, x, direction: Optional[int] = None,
+                  pulls: Pulls = WHOLE):
     """sum_i mats[i] x(s + dirs[i]) (or only the term of ``direction``)."""
     nb = _batch_dims(x)
     sel = range(len(dirs)) if direction is None else (dirs.index(direction),)
     out = torch.zeros_like(x)
     for i in sel:
-        out = out + linalg.site_matvec(mats[i], cshift_pull(x, dirs[i], nb))
+        out = out + linalg.site_matvec(mats[i], pulls.full(x, dirs[i], nb))
     return out
 
 
-def apply_hopping(coeffs: StencilCoeffs, x, direction: Optional[int] = None):
+def apply_hopping(coeffs: StencilCoeffs, x, direction: Optional[int] = None,
+                  pulls: Pulls = WHOLE):
     """Hopping term on both parities; with ``direction``, only that term
     (the Galerkin probe build uses one direction at a time)."""
     if coeffs.hopping is None or coeffs.lat.volume == 1:
         return torch.zeros_like(x)
-    return _apply_pulled(coeffs.hopping, ALL_DIRS, x, direction)
+    return _apply_pulled(coeffs.hopping, ALL_DIRS, x, direction, pulls)
 
 
-def apply_twolink(coeffs: StencilCoeffs, x, direction: Optional[int] = None):
+def apply_twolink(coeffs: StencilCoeffs, x, direction: Optional[int] = None,
+                  pulls: Pulls = WHOLE):
     """Distance-2 term: sum_mu twolink_mu(s) x(s + 2 mu)."""
     if coeffs.twolink is None or coeffs.lat.volume == 1:
         return torch.zeros_like(x)
-    return _apply_pulled(coeffs.twolink, TWOLINK_DIRS, x, direction)
+    return _apply_pulled(coeffs.twolink, TWOLINK_DIRS, x, direction, pulls)
 
 
-def apply_corner(coeffs: StencilCoeffs, x, direction: Optional[int] = None):
+def apply_corner(coeffs: StencilCoeffs, x, direction: Optional[int] = None,
+                 pulls: Pulls = WHOLE):
     """Corner term: sum_{mu,nu} corner_{mu nu}(s) x(s + mu + nu)."""
     if coeffs.corner is None or coeffs.lat.volume == 1:
         return torch.zeros_like(x)
-    return _apply_pulled(coeffs.corner, CORNER_DIRS, x, direction)
+    return _apply_pulled(coeffs.corner, CORNER_DIRS, x, direction, pulls)
 
 
 def apply_hopping_half(coeffs: StencilCoeffs, x_half, src_parity: int,
-                       direction: Optional[int] = None):
+                       direction: Optional[int] = None,
+                       pulls: Pulls = WHOLE):
     """One parity of the hopping term from a half field: D_eo x_o for
     ``src_parity=1``, D_oe x_e for ``src_parity=0``; returns the
     (*batch, Y, Xh, nc) field on the destination parity."""
@@ -223,9 +247,9 @@ def apply_hopping_half(coeffs: StencilCoeffs, x_half, src_parity: int,
         return torch.zeros_like(x_half)
     nb = x_half.ndim - 3
     if direction is not None:
-        pulled = cshift_pull_half(x_half, src_parity, direction, nb)
+        pulled = pulls.half(x_half, src_parity, direction, nb)
         return linalg.site_matvec(coeffs.hopping[direction, dest], pulled)
-    pulled = torch.stack([cshift_pull_half(x_half, src_parity, d, nb)
+    pulled = torch.stack([pulls.half(x_half, src_parity, d, nb)
                           for d in ALL_DIRS])
     return linalg.stacked_site_matvec(coeffs.hopping[:, dest], pulled)
 
@@ -259,13 +283,13 @@ def apply_shift(coeffs: StencilCoeffs, x):
     return out
 
 
-def apply_M(coeffs: StencilCoeffs, x):
+def apply_M(coeffs: StencilCoeffs, x, pulls: Pulls = WHOLE):
     """Full operator M x: every coefficient piece as one stacked site
     matvec over [x, x(s+x), x(s+y), x(s-x), x(s-y), (the twolink and
     corner pulls)], plus the shifts."""
     if coeffs.hopping is not None and coeffs.lat.volume > 1:
         nb = _batch_dims(x)
-        nbrs = [cshift_pull(x, d, nb) for d in ALL_DIRS]
+        nbrs = [pulls.full(x, d, nb) for d in ALL_DIRS]
         if coeffs.clover is not None:
             nbrs = [x] + nbrs
         if coeffs.is_distance1():
@@ -278,7 +302,7 @@ def apply_M(coeffs: StencilCoeffs, x):
                                 (coeffs.corner, CORNER_DIRS)):
                 if piece is not None:
                     mats.append(piece)
-                    nbrs += [cshift_pull(x, d, nb) for d in dirs]
+                    nbrs += [pulls.full(x, d, nb) for d in dirs]
             mats = torch.cat(mats)
         if nb:
             # Stacked with the batch axes merged into the parity axis: on
@@ -291,9 +315,9 @@ def apply_M(coeffs: StencilCoeffs, x):
             stacked = torch.stack(nbrs)
         out = linalg.stacked_site_matvec(mats, stacked)
         return out + apply_shift(coeffs, x)
-    return (apply_clover(coeffs, x) + apply_hopping(coeffs, x)
-            + apply_twolink(coeffs, x) + apply_corner(coeffs, x)
-            + apply_shift(coeffs, x))
+    return (apply_clover(coeffs, x) + apply_hopping(coeffs, x, pulls=pulls)
+            + apply_twolink(coeffs, x, pulls=pulls)
+            + apply_corner(coeffs, x, pulls=pulls) + apply_shift(coeffs, x))
 
 
 def build_gather_apply(coeffs: StencilCoeffs):
@@ -341,7 +365,8 @@ def apply_M_oo(coeffs: StencilCoeffs, x_odd):
 # Derived coefficient sets.
 # ---------------------------------------------------------------------------
 
-def build_dagger(coeffs: StencilCoeffs) -> StencilCoeffs:
+def build_dagger(coeffs: StencilCoeffs, pulls: Pulls = WHOLE
+                 ) -> StencilCoeffs:
     """Coefficients of M^dagger: the clover conj-transposed; the dagger
     coefficient of direction D at s is the conj-transpose of the -D
     coefficient at s + D (every piece); the shifts conjugated."""
@@ -349,7 +374,7 @@ def build_dagger(coeffs: StencilCoeffs) -> StencilCoeffs:
         if mats is None:
             return None
         return torch.stack([
-            linalg.site_conjtrans(cshift_pull(mats[_OPPOSITE_SLOT[i]], d))
+            linalg.site_conjtrans(pulls.full(mats[_OPPOSITE_SLOT[i]], d))
             for i, d in enumerate(dirs)])
 
     return coeffs.replace(
@@ -388,7 +413,8 @@ class RBJacobiSet:
     cinv: torch.Tensor
 
 
-def build_rbjacobi(coeffs: StencilCoeffs) -> RBJacobiSet:
+def build_rbjacobi(coeffs: StencilCoeffs, pulls: Pulls = WHOLE
+                   ) -> RBJacobiSet:
     """Right block Jacobi A B^-1, B = clover + mass: clover the identity,
     each piece of direction D at s right-multiplied by B^-1(s + D), shifts
     zero."""
@@ -400,7 +426,7 @@ def build_rbjacobi(coeffs: StencilCoeffs) -> RBJacobiSet:
     def rbj_piece(mats, dirs):
         if mats is None:
             return None
-        return torch.stack([linalg.site_matmul(mats[i], cshift_pull(cinv, d))
+        return torch.stack([linalg.site_matmul(mats[i], pulls.full(cinv, d))
                             for i, d in enumerate(dirs)])
 
     rbj = coeffs.replace(clover=linalg.identity_like(b),
@@ -411,9 +437,10 @@ def build_rbjacobi(coeffs: StencilCoeffs) -> RBJacobiSet:
     return RBJacobiSet(coeffs=rbj, cinv=cinv)
 
 
-def build_rbj_dagger(rbj: RBJacobiSet) -> RBJacobiSet:
+def build_rbj_dagger(rbj: RBJacobiSet, pulls: Pulls = WHOLE
+                     ) -> RBJacobiSet:
     """(A B^-1)^dagger, with B^-dagger."""
-    dag = build_dagger(rbj.coeffs).replace(shift=0j, eo_shift=0j,
+    dag = build_dagger(rbj.coeffs, pulls).replace(shift=0j, eo_shift=0j,
                                            dof_shift=0j)
     return RBJacobiSet(coeffs=dag, cinv=linalg.site_conjtrans(rbj.cinv))
 
@@ -431,11 +458,11 @@ def _refuse_distance2(coeffs: StencilCoeffs):
                          "(twolink/corner pieces present)")
 
 
-def apply_rbj_schur(rbj: RBJacobiSet, x_even):
+def apply_rbj_schur(rbj: RBJacobiSet, x_even, pulls: Pulls = WHOLE):
     """(1 - D_eo D_oe) x_e as two half-hopping applies."""
     _refuse_distance2(rbj.coeffs)
-    t_odd = apply_hopping_half(rbj.coeffs, x_even, src_parity=0)
-    return x_even - apply_hopping_half(rbj.coeffs, t_odd, src_parity=1)
+    t_odd = apply_hopping_half(rbj.coeffs, x_even, 0, pulls=pulls)
+    return x_even - apply_hopping_half(rbj.coeffs, t_odd, 1, pulls=pulls)
 
 
 @dataclasses.dataclass
@@ -466,7 +493,8 @@ _SCHUR_CORNER_PAIRS = (((0, 1), (1, 0)), ((2, 1), (1, 2)),
                        ((2, 3), (3, 2)), ((0, 3), (3, 0)))
 
 
-def build_rbj_schur_fused(rbj: RBJacobiSet) -> SchurFused:
+def build_rbj_schur_fused(rbj: RBJacobiSet, pulls: Pulls = WHOLE
+                          ) -> SchurFused:
     """Compose S = 1 - D_eo D_oe: (D_eo D_oe x)(s_e) = sum_{d2, d1}
     H[d2, even](s_e) H[d1, odd](s_e + d2) x(s_e + d2 + d1), grouped by the
     total offset (zero, distance 2, corner)."""
@@ -474,7 +502,7 @@ def build_rbj_schur_fused(rbj: RBJacobiSet) -> SchurFused:
     h = rbj.coeffs.hopping                # (4, 2, Y, Xh, nc, nc)
     h_even = h[:, 0]
     # pulled[d2][d1]: H[d1, odd] at s_e + d2, aligned to the even slots.
-    pulled = [[cshift_pull_half(h[d1, 1], 1, ALL_DIRS[d2]) for d1 in range(4)]
+    pulled = [[pulls.half(h[d1, 1], 1, ALL_DIRS[d2], 0) for d1 in range(4)]
               for d2 in range(4)]
 
     def compose(pairs):
@@ -490,25 +518,25 @@ def build_rbj_schur_fused(rbj: RBJacobiSet) -> SchurFused:
         + [-compose(p) for p in _SCHUR_CORNER_PAIRS]))
 
 
-def apply_rbj_schur_fused(fused: SchurFused, x_even):
+def apply_rbj_schur_fused(fused: SchurFused, x_even, pulls: Pulls = WHOLE):
     """S x_e as one stacked matvec over the 9 composed terms."""
     nb = x_even.ndim - 3
-    nbrs = [x_even] + [cshift_pull_half(x_even, 0, d, nb)
+    nbrs = [x_even] + [pulls.half(x_even, 0, d, nb)
                        for d in TWOLINK_DIRS + CORNER_DIRS]
     return linalg.stacked_site_matvec(fused.mats, torch.stack(nbrs))
 
 
-def prepare_rbj_schur(rbj: RBJacobiSet, b):
+def prepare_rbj_schur(rbj: RBJacobiSet, b, pulls: Pulls = WHOLE):
     """b_r = b_e - D_eo b_o (D_oo = 1)."""
     nb = b.ndim - 4
     return b.select(nb, 0) - apply_hopping_half(rbj.coeffs, b.select(nb, 1),
-                                                src_parity=1)
+                                                1, pulls=pulls)
 
 
-def reconstruct_rbj_schur(rbj: RBJacobiSet, y_even, b):
+def reconstruct_rbj_schur(rbj: RBJacobiSet, y_even, b, pulls: Pulls = WHOLE):
     """x_e = B_e^-1 y_e, x_o = B_o^-1 (b_o - D_oe y_e)."""
     nb = b.ndim - 4
-    t_odd = apply_hopping_half(rbj.coeffs, y_even, src_parity=0)
+    t_odd = apply_hopping_half(rbj.coeffs, y_even, 0, pulls=pulls)
     x_e = linalg.site_matvec(rbj.cinv[0], y_even)
     x_o = linalg.site_matvec(rbj.cinv[1], b.select(nb, 1) - t_odd)
     return torch.stack([x_e, x_o], dim=nb)
@@ -524,11 +552,16 @@ class Stencil2D:
     dispatch over the nine ``StencilType``s. ``apply_override``, when set,
     replaces the ORIGINAL apply (the solver installs the CUDA kernels and
     the gather apply here); it must compute the full ``apply_M``. The
-    derived types never take it."""
+    derived types never take it. ``pulls`` are the pull-shifts of every
+    apply and derived build: ``WHOLE`` for a whole lattice, a mesh's
+    (``shard_dslash.mesh_pulls``) for a stencil that holds one block of a
+    lattice cut over ranks, or that a solve on an in-process mesh applies
+    block by block."""
 
     def __init__(self, coeffs: StencilCoeffs):
         self.coeffs = coeffs
         self.apply_override = None
+        self.pulls = WHOLE
         self._dagger: Optional[StencilCoeffs] = None
         self._rbjacobi: Optional[RBJacobiSet] = None
         self._rbj_dagger: Optional[RBJacobiSet] = None
@@ -604,7 +637,7 @@ class Stencil2D:
 
     def build_dagger_stencil(self) -> StencilCoeffs:
         if self._dagger is None:
-            self._dagger = build_dagger(self.coeffs)
+            self._dagger = build_dagger(self.coeffs, self.pulls)
             DERIVED_BUILDS["dagger"] += 1
         return self._dagger
 
@@ -614,13 +647,14 @@ class Stencil2D:
             if (c.clover is None and c.shift == 0 and c.eo_shift == 0
                     and c.dof_shift == 0):
                 raise ValueError("rbjacobi requires a clover term or shift")
-            self._rbjacobi = build_rbjacobi(c)
+            self._rbjacobi = build_rbjacobi(c, self.pulls)
             DERIVED_BUILDS["rbjacobi"] += 1
         return self._rbjacobi
 
     def build_rbj_dagger_stencil(self) -> RBJacobiSet:
         if self._rbj_dagger is None:
-            self._rbj_dagger = build_rbj_dagger(self.build_rbjacobi_stencil())
+            self._rbj_dagger = build_rbj_dagger(
+                self.build_rbjacobi_stencil(), self.pulls)
             DERIVED_BUILDS["rbj_dagger"] += 1
         return self._rbj_dagger
 
@@ -631,7 +665,7 @@ class Stencil2D:
         if rbj.coeffs.hopping is None or self.lat.volume <= 1:
             return None
         if self._rbj_schur_fused is None:
-            self._rbj_schur_fused = build_rbj_schur_fused(rbj)
+            self._rbj_schur_fused = build_rbj_schur_fused(rbj, self.pulls)
             DERIVED_BUILDS["schur_fused"] += 1
         return self._rbj_schur_fused
 
@@ -701,55 +735,55 @@ class Stencil2D:
 
     # --- uniform dispatch ---
     def apply_M(self, x, stype: StencilType = StencilType.ORIGINAL):
-        t = StencilType(stype)
+        t, p = StencilType(stype), self.pulls
         if t == StencilType.ORIGINAL:
             if self.apply_override is not None:
                 return self.apply_override(x)
-            return apply_M(self.coeffs, x)
+            return apply_M(self.coeffs, x, p)
         if t == StencilType.DAGGER:
-            return apply_M(self.dagger_coeffs, x)
+            return apply_M(self.dagger_coeffs, x, p)
         if t == StencilType.RIGHT_JACOBI:
-            return apply_M(self.rbjacobi.coeffs, x)
+            return apply_M(self.rbjacobi.coeffs, x, p)
         if t == StencilType.RIGHT_SCHUR:
             fused = self._schur_fused()
             if fused is None:
-                return apply_rbj_schur(self.rbjacobi, x)
-            return apply_rbj_schur_fused(fused, x)
+                return apply_rbj_schur(self.rbjacobi, x, p)
+            return apply_rbj_schur_fused(fused, x, p)
         if t == StencilType.M_MDAGGER:
-            return apply_M(self.coeffs, apply_M(self.dagger_coeffs, x))
+            return apply_M(self.coeffs, apply_M(self.dagger_coeffs, x, p), p)
         if t == StencilType.MDAGGER_M:
-            return apply_M(self.dagger_coeffs, apply_M(self.coeffs, x))
+            return apply_M(self.dagger_coeffs, apply_M(self.coeffs, x, p), p)
         if t == StencilType.RBJ_DAGGER:
-            return apply_M(self.rbj_dagger.coeffs, x)
+            return apply_M(self.rbj_dagger.coeffs, x, p)
         if t == StencilType.RBJ_M_MDAGGER:
             return apply_M(self.rbjacobi.coeffs,
-                           apply_M(self.rbj_dagger.coeffs, x))
+                           apply_M(self.rbj_dagger.coeffs, x, p), p)
         return apply_M(self.rbj_dagger.coeffs,
-                       apply_M(self.rbjacobi.coeffs, x))   # RBJ_MDAGGER_M
+                       apply_M(self.rbjacobi.coeffs, x, p), p)  # RBJ_MDAGGER_M
 
     def prepare_M(self, b, stype: StencilType = StencilType.ORIGINAL):
         """b -> the right-hand side of the chosen solve."""
-        t = StencilType(stype)
+        t, p = StencilType(stype), self.pulls
         if t == StencilType.RIGHT_SCHUR:
-            return prepare_rbj_schur(self.rbjacobi, b)
+            return prepare_rbj_schur(self.rbjacobi, b, p)
         if t == StencilType.MDAGGER_M:
-            return apply_M(self.dagger_coeffs, b)
+            return apply_M(self.dagger_coeffs, b, p)
         if t == StencilType.RBJ_MDAGGER_M:
-            return apply_M(self.rbj_dagger.coeffs, b)
+            return apply_M(self.rbj_dagger.coeffs, b, p)
         return b
 
     def reconstruct_M(self, y, b, stype: StencilType = StencilType.ORIGINAL):
         """The chosen solve's result y -> x with M x = b."""
-        t = StencilType(stype)
+        t, p = StencilType(stype), self.pulls
         if t == StencilType.RIGHT_JACOBI:
             return linalg.site_matvec(self.rbjacobi.cinv, y)
         if t == StencilType.RIGHT_SCHUR:
-            return reconstruct_rbj_schur(self.rbjacobi, y, b)
+            return reconstruct_rbj_schur(self.rbjacobi, y, b, p)
         if t == StencilType.M_MDAGGER:
-            return apply_M(self.dagger_coeffs, y)
+            return apply_M(self.dagger_coeffs, y, p)
         if t == StencilType.RBJ_M_MDAGGER:
             return linalg.site_matvec(self.rbjacobi.cinv,
-                                      apply_M(self.rbj_dagger.coeffs, y))
+                                      apply_M(self.rbj_dagger.coeffs, y, p))
         if t == StencilType.RBJ_MDAGGER_M:
             return linalg.site_matvec(self.rbjacobi.cinv, y)
         return y

@@ -11,10 +11,10 @@ exchange it unchanged). Then
 Fields may carry leading batch axes (``(*batch, 2, Y, Xh, nc)``). An
 asymmetric pair restricts with its own vectors RV in place of NV.
 
-``ShardedTransferMG`` is level 0's transfer on a distributed mesh
-(``parallel.Mesh``): each rank restricts its block of the fine field with
-its block of the null vectors and only the coarse slab is gathered, so no
-fine field ever crosses ranks.
+``ShardedTransferMG`` is level 0's transfer on the blocks of a mesh
+(``parallel.Mesh``): each block of the fine field is restricted with its
+block of the null vectors and only the coarse slabs are joined (in
+process) or gathered (distributed), so no fine field ever crosses ranks.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from .lattice import Lattice2D
+from .parallel import shard_field, unshard_field
 
 
 class DoublingType(enum.IntEnum):
@@ -77,20 +78,21 @@ class TransferMG:
     ``save_decomp``. With ``restrict_null_vectors`` the pair is
     asymmetric: prolongation by P and restriction by R != P^dagger, the
     two block-bi-orthonormalized (<r_i, p_j> = delta_ij per block) and the
-    first pass's L / U factors kept with ``save_decomp``."""
+    first pass's L / U factors kept with ``save_decomp``. For a block of
+    a larger lattice, ``coarse_row0`` is as in ``from_blocked``."""
 
     def __init__(self, fine_lat: Lattice2D, coarse_lat: Lattice2D,
                  null_vectors, do_block_ortho: bool = True,
                  save_decomp: bool = False,
                  doubling: DoublingType = DoublingType.NONE,
-                 restrict_null_vectors=None):
+                 restrict_null_vectors=None, coarse_row0: int = 0):
         self.fine_lat = fine_lat
         self.coarse_lat = coarse_lat
         self.doubling = DoublingType(doubling)
         if null_vectors.shape[0] != coarse_lat.nc:
             raise ValueError(f"need {coarse_lat.nc} null vectors, got "
                              f"{null_vectors.shape[0]}")
-        self._init_geometry(null_vectors.device)
+        self._init_geometry(null_vectors.device, coarse_row0)
         self.block_cholesky = self.block_L = self.block_U = None
         nvb = self._to_blocked(null_vectors)
         rnvb = None
@@ -251,51 +253,83 @@ class TransferMG:
         return self._from_blocked(self._restrict_nvb)
 
 
+def block_lattices(fine_lat: Lattice2D, coarse_lat: Lattice2D, mesh):
+    """(fine, coarse) lattices of one block of a mesh, refused where the
+    coarse sites of a block would not pack even-odd as the whole
+    lattice's: aggregation blocks must lie inside mesh blocks
+    (``parallel.validate_mg_sharding``), and a mesh cut in x must leave
+    every block an even number of coarse columns."""
+    ny, nx = mesh.shape
+    if (fine_lat.y_len % ny or fine_lat.xh % nx or coarse_lat.y_len % ny
+            or coarse_lat.x_len % nx
+            or (nx > 1 and (coarse_lat.x_len // nx) % 2)):
+        raise ValueError(
+            f"fine lattice {fine_lat} and coarse lattice {coarse_lat} "
+            f"do not cut into the mesh {mesh.shape} with whole "
+            "even-odd packed coarse blocks")
+    return (Lattice2D(fine_lat.x_len // nx, fine_lat.y_len // ny,
+                      fine_lat.nc),
+            Lattice2D(coarse_lat.x_len // nx, coarse_lat.y_len // ny,
+                      coarse_lat.nc))
+
+
 class ShardedTransferMG:
-    """Level 0's transfer on a distributed mesh, from the rank's block of
-    the blocked null vectors (``nvb`` cut along Yc and Xhc).
-    ``restrict_f2c`` takes the rank's block of a fine field and returns
-    the whole coarse field (the local restriction, then a gather of the
-    coarse slabs); ``prolong_c2f`` takes the whole coarse field and
-    returns the rank's block of the fine one. Aggregation blocks must lie
-    inside mesh blocks (``parallel.validate_mg_sharding``), and a mesh
-    cut in x must leave every block an even number of coarse columns,
-    so that a block's coarse sites pack even-odd as the whole lattice's.
-    """
+    """Level 0's transfer on the blocks a process holds, from each held
+    block's blocked null vectors (``nvb`` cut along Yc and Xhc; one tensor
+    or a list in mesh order). ``restrict_f2c`` restricts each block of a
+    fine field with its own vectors and returns the whole coarse field
+    (the slabs joined in process, gathered over the ranks of a distributed
+    mesh); ``prolong_c2f`` takes the whole coarse field and prolongs each
+    block's slab. Fine fields are whole on an in-process mesh and the
+    rank's block on a distributed one (``block_lattices`` says what must
+    tile)."""
 
     def __init__(self, fine_lat: Lattice2D, coarse_lat: Lattice2D, nvb_loc,
                  mesh, doubling: DoublingType = DoublingType.PROJECTION):
         self.fine_lat, self.coarse_lat, self.mesh = fine_lat, coarse_lat, mesh
-        ny, nx = mesh.shape
-        (iy, _), = mesh.blocks
-        if (fine_lat.y_len % ny or fine_lat.xh % nx or coarse_lat.y_len % ny
-                or coarse_lat.x_len % nx
-                or (nx > 1 and (coarse_lat.x_len // nx) % 2)):
-            raise ValueError(
-                f"fine lattice {fine_lat} and coarse lattice {coarse_lat} "
-                f"do not cut into the mesh {mesh.shape} with whole "
-                "even-odd packed coarse blocks")
-        self._yc_loc = coarse_lat.y_len // ny
-        self._xhc_loc = coarse_lat.xh // nx
-        self.local = TransferMG.from_blocked(
-            Lattice2D(fine_lat.x_len // nx, fine_lat.y_len // ny,
-                      fine_lat.nc),
-            Lattice2D(coarse_lat.x_len // nx, self._yc_loc, coarse_lat.nc),
-            nvb_loc, doubling, coarse_row0=iy * self._yc_loc)
+        fine_blk, coarse_blk = block_lattices(fine_lat, coarse_lat, mesh)
+        if torch.is_tensor(nvb_loc):
+            nvb_loc = [nvb_loc]
+        if len(nvb_loc) != len(mesh.blocks):
+            raise ValueError(f"need the null vectors of {len(mesh.blocks)} "
+                             f"blocks, got {len(nvb_loc)}")
+        self.locals = [TransferMG.from_blocked(
+            fine_blk, coarse_blk, nvb, doubling,
+            coarse_row0=iy * coarse_blk.y_len)
+            for (iy, _), nvb in zip(mesh.blocks, nvb_loc)]
 
-    def restrict_f2c(self, fine_loc):
-        return self.mesh.gather(self.local.restrict_f2c(fine_loc),
-                                y_dim=fine_loc.ndim - 3)
+    def _blocks(self, field, y_dim):
+        return [field] if self.mesh.distributed else shard_field(
+            field, self.mesh, y_dim)
+
+    def restrict_f2c(self, fine):
+        y_dim = fine.ndim - 3
+        return unshard_field([t.restrict_f2c(b) for t, b in
+                              zip(self.locals, self._blocks(fine, y_dim))],
+                             self.mesh, y_dim)
 
     def prolong_c2f(self, coarse):
-        (iy, ix), = self.mesh.blocks
         y_dim = coarse.ndim - 3
-        slab = coarse.narrow(y_dim, iy * self._yc_loc, self._yc_loc) \
-            .narrow(y_dim + 1, ix * self._xhc_loc, self._xhc_loc)
-        return self.local.prolong_c2f(slab)
+        fine = [t.prolong_c2f(slab) for t, slab in
+                zip(self.locals, shard_field(coarse, self.mesh, y_dim))]
+        return fine[0] if self.mesh.distributed else unshard_field(
+            fine, self.mesh, y_dim)
+
+    def whole(self) -> TransferMG:
+        """The transfer of the whole lattice (in-process: every block is
+        held)."""
+        if self.mesh.distributed:
+            raise ValueError("a distributed mesh holds one block: there is "
+                             "no whole transfer to make")
+        nvb = unshard_field([t._nvb for t in self.locals], self.mesh, 3)
+        return TransferMG.from_blocked(self.fine_lat, self.coarse_lat, nvb,
+                                       self.get_doubling())
 
     def get_doubling(self) -> DoublingType:
-        return self.local.doubling
+        return self.locals[0].doubling
+
+    def is_symmetric(self) -> bool:
+        return True
 
 
 # Block (bi-)orthonormalization over the blocked layout: each vector is a

@@ -228,8 +228,9 @@ def test_refusals(problem):
             make_batched_solver(mg, fine_kernel=kind)
     with pytest.raises(ValueError, match="gather"):
         make_batched_solver(mg, coarse_apply="gather")
-    with pytest.raises(ValueError, match="mesh"):
-        make_batched_solver(mg, mesh=object())
+    from qmg_tpu_torch.parallel import Mesh
+    with pytest.raises(ValueError, match="K7 has no rhs axis"):
+        make_batched_solver(mg, mesh=Mesh(2, 1))
     mg.get_stencil(0).wilson_coeff = 1.3     # the rank-1 kernel's w = 1
     with pytest.raises(ValueError, match="wilson_coeff=1"):
         make_batched_solver(mg, fine_kernel="wilson-r1")

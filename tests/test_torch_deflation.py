@@ -386,8 +386,8 @@ def test_setup_stage_refusals():
 
 def test_entry_point_deflate(capsys):
     """``kcycle --deflate 4`` (and ``--no-direct``) on the CPU: the CG
-    coarsest on M^dag M deflated by 4 pairs, converged to tol; a mesh is
-    refused."""
+    coarsest on M^dag M deflated by 4 pairs, converged to tol, also with
+    level 0 on a mesh (the sharded setup's deflation stage)."""
     kcycle_main(["--size", "32", "--device", "cpu", "--deflate", "4"])
     out = capsys.readouterr().out
     assert "2x2 nc8 mdagger_m" in out
@@ -400,10 +400,14 @@ def test_entry_point_deflate(capsys):
     assert r["level_applies"][-1] == "mdagger_m"
     r = run_kcycle(32, "cpu", fine_kernel=None, direct=False)
     assert r["converged"] and r["coarsest"] == "original"
-    for argv in (["--shards", "2"], ["--distributed"]):
-        with pytest.raises(SystemExit, match="ROADMAP"):
-            kcycle_main(["--size", "16", "--device", "cpu", "--deflate", "4"]
-                        + argv)
+    kcycle_main(["--size", "32", "--device", "cpu", "--deflate", "4",
+                 "--shards", "2"])
+    out = capsys.readouterr().out
+    assert "level 0 cut over Mesh(2, 1, in-process)" in out
+    assert "deflated by 4 eigenpairs" in out
+    with pytest.raises(SystemExit, match="exclude each other"):
+        kcycle_main(["--size", "16", "--device", "cpu", "--deflate", "4",
+                     "--shards", "2", "--distributed"])
 
 
 @pytest.fixture

@@ -270,13 +270,21 @@ def _jax_state(mg, dtype=np.float32):
     return state
 
 
-def test_qmg_tpu_state_drives_port_c64(jax_bench_32):
+@pytest.fixture(scope="module")
+def jax_c64(jax_bench_32):
+    """qmg_tpu's float32 planes state (with its derived sets) and its
+    planes solver's outer count on it."""
+    mg, _, restart, b = jax_bench_32
+    state = _jax_state(mg)
+    return state, _jax_planes_count(mg, state, b, restart, TOL)[0]
+
+
+def test_qmg_tpu_state_drives_port_c64(jax_bench_32, jax_c64):
     """qmg_tpu's float32 planes state (with its derived sets) in the port:
     qmg_tpu's outer count +-1, a true residual < 10 tol, the derived sets
     adopted (none re-derived)."""
-    mg, cfg, restart, b = jax_bench_32
-    state = _jax_state(mg)
-    it_j, _ = _jax_planes_count(mg, state, b, restart, TOL)
+    _, cfg, restart, b = jax_bench_32
+    state, it_j = jax_c64
     tmg = state_from_numpy(state, cfg, device="cpu")
     before = sum(DERIVED_BUILDS.values())
     bt = torch.as_tensor(b).to(torch.complex64)
@@ -285,6 +293,26 @@ def test_qmg_tpu_state_drives_port_c64(jax_bench_32):
     res, _ = solve(bt)
     assert sum(DERIVED_BUILDS.values()) == before
     assert abs(res.iters - it_j) <= 1, (res.iters, it_j)
+    assert true_residual(tmg.get_stencil(0), bt, res.x) < 10 * TOL
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (4, 1)], ids=["2x2", "4x1"])
+def test_mesh_schur_c64_near_qmg_tpu(jax_bench_32, jax_c64, shape):
+    """The Schur solve with level 0 on an in-process mesh (the fused apply,
+    prepare and reconstruct block by block) on qmg_tpu's float32 state:
+    qmg_tpu's ``make_planes_solver(outer_type=RIGHT_SCHUR)`` count +-1 on
+    the same state, the unsharded port's count, a true residual < 10
+    tol."""
+    _, cfg, restart, b = jax_bench_32
+    state, it_j = jax_c64
+    tmg = state_from_numpy(state, cfg, device="cpu")
+    bt = torch.as_tensor(b).to(torch.complex64)
+    kw = dict(tol=TOL, max_iter=200, restart_freq=restart, fine_kernel=None,
+              outer_type=SCHUR)
+    res, _ = make_solver(tmg, mesh=Mesh(*shape), **kw)(bt)
+    one, _ = make_solver(tmg, **kw)(bt)
+    assert abs(res.iters - it_j) <= 1, (res.iters, it_j)
+    assert res.iters == one.iters
     assert true_residual(tmg.get_stencil(0), bt, res.x) < 10 * TOL
 
 
@@ -362,7 +390,7 @@ def test_schur_solver_refusals(jax_bench_32):
     for kw in (dict(fine_kernel="wilson-r1"), dict(fine_kernel="matrix"),
                dict(fine_kernel=None, coarse_apply="small"),
                dict(fine_kernel=None, coarse_apply="gather"),
-               dict(fine_kernel=None, mesh=Mesh(2, 1))):
+               dict(fine_kernel="wilson-r1", mesh=Mesh(2, 1))):
         with pytest.raises(ValueError, match="override"):
             make_solver(tmg, outer_type=SCHUR, **kw)
     with pytest.raises(ValueError, match="fine_stencil_app"):
@@ -396,7 +424,8 @@ def test_unported_types_refused():
 @pytest.mark.parametrize("argv", [
     ["--fine-kernel", "wilson-r1"], ["--fine-kernel", "matrix"],
     ["--coarse-apply", "small"], ["--coarse-apply", "gather"],
-    ["--shards", "2"], ["--distributed"]])
+    ["--shards", "2", "--fine-kernel", "wilson-r1"],
+    ["--distributed", "--coarse-apply", "small"]])
 def test_cli_refusals(argv):
     with pytest.raises(SystemExit, match="outer schur"):
         kcycle_main(["--outer", "schur", "--size", "16", "--device", "cpu"]

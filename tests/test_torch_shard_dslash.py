@@ -176,16 +176,33 @@ def test_sharded_dslash_matches_apply_M(kind, shape):
 
 @pytest.mark.parametrize("shape", [(4, 2), (2, 1), (1, 4)])
 def test_cshift_pull_sharded_is_exact(shape):
+    """Every pull of ``cshift`` (distance 1, distance 2 with two-row halos,
+    the corners; full and half fields, with a leading batch axis) on
+    blocks is the whole field's, bit for bit."""
+    from qmg_tpu_torch.cshift import cshift_pull_half
+    from qmg_tpu_torch.shard_dslash import cshift_pull_half_sharded
     mesh = Mesh(*shape)
-    field = torch.arange(2 * 16 * 8 * 3).reshape(2, 16, 8, 3)
-    for d in ALL_DIRS:
-        got = unshard_field(cshift_pull_sharded(shard_field(field, mesh), d,
-                                                mesh), mesh)
-        assert torch.equal(got, cshift_pull(field, d))
-    with pytest.raises(ValueError, match="distance-1"):
-        halo_roll(shard_field(field, mesh), 2, 1, "y", mesh)
+    field = torch.arange(3 * 2 * 16 * 8 * 3).reshape(3, 2, 16, 8, 3)
+    for d in range(12):
+        for nb, f in ((0, field[0]), (1, field)):
+            got = unshard_field(cshift_pull_sharded(
+                shard_field(f, mesh, nb + 1), d, mesh, nb), mesh, nb + 1)
+            assert torch.equal(got, cshift_pull(f, d, nb)), (d, nb)
+            for parity in (0, 1):
+                half = f.select(nb, parity)
+                got = unshard_field(cshift_pull_half_sharded(
+                    shard_field(half, mesh, nb), parity, d, mesh, nb), mesh,
+                    nb)
+                assert torch.equal(got, cshift_pull_half(half, parity, d,
+                                                         nb)), (d, nb)
+    with pytest.raises(ValueError, match="distance-2"):
+        halo_roll(shard_field(field[0], mesh), 3, 1, "y", mesh)
     with pytest.raises(ValueError, match="unsupported direction"):
-        cshift_pull_sharded(shard_field(field, mesh), 7, mesh)
+        cshift_pull_sharded(shard_field(field[0], mesh), 12, mesh)
+    if mesh.ny > 1:
+        thin = [b.narrow(1, 0, 1) for b in shard_field(field[0], mesh)]
+        with pytest.raises(ValueError, match="cannot give a halo of 2"):
+            halo_roll(thin, 2, 1, "y", mesh)
 
 
 def test_dslash_entry_shards_on_cpu(capsys):
@@ -392,6 +409,22 @@ def test_make_solver_mesh_refusals(small_mg, kw, message):
     mg, _ = small_mg
     with pytest.raises(ValueError, match=message):
         make_solver(mg, **kw)
+    assert mg.get_stencil(0).apply_override is None
+
+
+@pytest.mark.parametrize("kw, message", [
+    (dict(fine_kernel="wilson-r1", mesh=Mesh(2, 1)), "K7 has no rhs axis"),
+    (dict(fine_kernel=None, mesh=Mesh(8, 1)), "does not align"),
+    (dict(fine_kernel=None, mesh=Mesh(3, 1)), "does not tile"),
+], ids=["r1", "align", "tile"])
+def test_make_batched_solver_mesh_refusals(small_mg, kw, message):
+    """The batched solve on a mesh takes the plain sharded apply (the slab
+    kernel has no rhs axis) and the single solve's tiling and alignment
+    refusals."""
+    from qmg_tpu_torch.solve import make_batched_solver
+    mg, _ = small_mg
+    with pytest.raises(ValueError, match=message):
+        make_batched_solver(mg, **kw)
     assert mg.get_stencil(0).apply_override is None
 
 

@@ -225,13 +225,16 @@ def _gloo_pieces(mesh: Mesh, workdir: str) -> dict:
     return out
 
 
-def _spawn(shape, workdir: str):
-    """Run ``_gloo_worker`` on every rank of a ``shape`` mesh; returns the
-    ranks' result files. Fails, with the workers' tracebacks, if a rank
-    fails or is still running at the deadline."""
+def _spawn(shape, workdir: str, worker=None):
+    """Run ``worker`` (``_gloo_worker`` by default; a module-level
+    function (rank, shape, workdir) that writes ``rank<r>.npz``) on every
+    rank of a ``shape`` mesh; returns the ranks' result files. Fails, with
+    the workers' tracebacks, if a rank fails or is still running at the
+    deadline."""
     ctx = torch.multiprocessing.get_context("spawn")
     world = shape[0] * shape[1]
-    procs = [ctx.Process(target=_gloo_worker, args=(r, shape, workdir))
+    procs = [ctx.Process(target=worker or _gloo_worker,
+                         args=(r, shape, workdir))
              for r in range(world)]
     for p in procs:
         p.start()

@@ -149,8 +149,12 @@ def test_setup_planes_refusals():
     for name in ("per_level_jit", "channels_first", "matmul_precision"):
         with pytest.raises(ValueError, match="TPU"):
             make_kcycle_setup_planes(lat, cfg, -0.06, **{name: True})
-    with pytest.raises(ValueError, match="ROADMAP"):
-        make_kcycle_setup_planes(lat, cfg, -0.06, mesh=1)
+    # The sharded setup is ported; it refuses what qmg_tpu's refuses.
+    from qmg_tpu_torch.parallel import Mesh
+    with pytest.raises(ValueError, match="does not tile"):
+        make_kcycle_setup_planes(lat, cfg, -0.06, mesh=Mesh(3, 1))
+    with pytest.raises(ValueError, match="does not align"):
+        make_kcycle_setup_planes(lat, cfg, -0.06, mesh=Mesh(1, 8))
     # The deflation stage is ported; it needs a normal coarsest.
     for name in ("deflate_low", "deflate_high"):
         with pytest.raises(ValueError, match="NORMAL"):
