@@ -228,6 +228,21 @@ fallback). Phases, any failure exits non-zero:
      lane within +-1, F5); (d) 512^2 ``--deflate 8`` with K7, qmg_tpu's
      count +-1. K7's launches over (a) join its row of the summary.
 
+ 24. ``python -m qmg_tpu_torch.bench`` and ``.attrib`` in this process,
+     each JSON line parsed: (a) the 2048^2 dslash chain with
+     ``--kernel phase-r1``, its checksum after 20 steps against ``dslash
+     --kernel wilson-r1``'s (1e-3); (b)
+     ``--mode kcycle`` at 2048^2 ``--setup device`` and at 512^2
+     ``--setup host``, outer counts within +-1 of phases 7 and 4, K1
+     launched; (c) ``--mode refine`` at 512^2: a complex128 true residual
+     <= 1e-10 in phase 18(e)'s passes; (d) ``--nrhs 8 --chain 3`` at
+     512^2: every lane converged, a positive marginal; (e) ``attrib`` at
+     2048^2 on level 0's parts (``python -m qmg_tpu_torch.attrib`` times
+     every level): every part's marginal > 0, K1 launched inside
+     ``precond`` and not inside ``fine``, and the probe's model line. K1's launches and
+     its rhs entry's over the phase join their rows of the summary
+     (``bench_launches``).
+
 The last two lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}.
 """
@@ -1522,7 +1537,8 @@ def deflation_phase(torch, dev, direct, direct_big):
     """Phase 18: the deflated CG coarsest at 512^2 and 2048^2, its
     eigenpairs, a checkpoint round trip, the refined solve and the CGNE
     smoother. ``direct`` is phase 4's 512^2 direct-coarsest solve,
-    ``direct_big`` phase 7's 2048^2 one."""
+    ``direct_big`` phase 7's 2048^2 one. Returns the refined solve's
+    passes."""
     import dataclasses
     import tempfile
     from qmg_tpu_torch.kcycle import (build_problem, run_solver,
@@ -1653,6 +1669,7 @@ def deflation_phase(torch, dev, direct, direct_big):
               f"{r['coarsest_iters_per_visit']:.2f}, "
               + (f"{kernels}" if kernels is not None else "not profiled"),
               flush=True)
+    return res.outer_iters
 
 
 def count_device_ops(torch, fn):
@@ -2201,6 +2218,116 @@ def lanes_phase(torch, dev, problem):
     return launches
 
 
+BENCH_BIG, BENCH_SIZE = 2048, 512     # phase 24's lattices
+BENCH_CHECK_ITERS = 20                # the dslash checksum's chain steps
+BENCH_NRHS, BENCH_CHAIN = 8, 3
+ATTRIB_N_REFINE, ATTRIB_REPS = 4, 2   # the probe's depth at 2048^2
+
+
+def bench_phase(torch, dev, direct, direct_big, refine_passes):
+    """Phase 24: ``python -m qmg_tpu_torch.bench``'s modes and ``attrib``,
+    run in this process (their JSON lines parsed as a reader would).
+    ``direct`` is phase 4's 512^2 solve, ``direct_big`` phase 7's 2048^2
+    one, ``refine_passes`` phase 18(e)'s. Returns the launches of each
+    kernel over the phase's runs."""
+    import contextlib
+    import io
+    from qmg_tpu_torch import attrib, bench, dslash
+    from qmg_tpu_torch.kcycle import reset_launch_counts, launch_counts
+    t0 = time.perf_counter()
+    card = dslash.card_line()
+    total = {}
+
+    def run(*argv):
+        reset_launch_counts()
+        f = io.StringIO()
+        t_run = time.perf_counter()
+        with contextlib.redirect_stdout(f):
+            out = bench.main(["--device", str(dev), *argv])
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+        last = f.getvalue().strip().splitlines()[-1]
+        line = json.loads(last)
+        print(f"bench {' '.join(argv)} ({time.perf_counter() - t_run:.1f} "
+              f"s): {last}; launches "
+              f"{ {k: n for k, n in counts.items() if n} }", flush=True)
+        check(line == out["line"] and line["value"] > 0
+              and line["device"] == card,
+              f"bench {' '.join(argv)}: last line {last}")
+        return line, out, counts
+
+    # (a) the dslash chain, checksum against dslash's own chain
+    _, out, c = run("--mode", "dslash", "--size", str(BENCH_BIG),
+                    "--kernel", "phase-r1", "--iters",
+                    str(BENCH_CHECK_ITERS))
+    ref = dslash.run(BENCH_BIG, "wilson-r1", iters=BENCH_CHECK_ITERS,
+                     device=dev)
+    check(c["wilson_r1"] > 0 and abs(out["checksum"] - ref["checksum"])
+          <= CHAIN_TOL * abs(ref["checksum"]),
+          f"bench dslash: checksum {out['checksum']} against dslash's "
+          f"{ref['checksum']}, K1 launches {c['wilson_r1']}")
+    # (b) kcycle, device setup at 2048^2 and host setup at 512^2
+    for size, setup, want in ((BENCH_BIG, "device", direct_big),
+                              (BENCH_SIZE, "host", direct)):
+        _, out, c = run("--mode", "kcycle", "--size", str(size), "--setup",
+                        setup)
+        r = out["report"]
+        check(abs(r["iters"] - want["iters"]) <= 1
+              and r["launches"]["wilson_r1"] > 0,
+              f"bench kcycle {size}^2 --setup {setup}: {r['iters']} outer "
+              f"iterations against kcycle's {want['iters']}, K1 launches "
+              f"{r['launches']['wilson_r1']} a solve")
+        print(f"bench kcycle {size}^2 --setup {setup}: {r['iters']} outer, "
+              f"{r['solve_ms']:.3f} ms, setup {r['setup_s']:.3f} s; kcycle's "
+              f"own: {want['iters']} outer, {want['solve_ms']:.3f} ms",
+              flush=True)
+    # (c) refine to a complex128 1e-10
+    _, out, c = run("--mode", "refine", "--size", str(BENCH_SIZE))
+    res = out["result"]
+    check(res.converged and res.rel_resid <= REFINE_TOL
+          and res.outer_iters == refine_passes and c["wilson_r1"] > 0,
+          f"bench refine: {res.rel_resid:.3e} in {res.outer_iters} passes "
+          f"against phase 18(e)'s {refine_passes}; K1 launches "
+          f"{c['wilson_r1']}")
+    # (d) the steady per-solve cost of 8 right-hand sides, chained
+    _, out, c = run("--mode", "kcycle", "--size", str(BENCH_SIZE), "--nrhs",
+                    str(BENCH_NRHS), "--chain", str(BENCH_CHAIN))
+    check(all(out["report"]["converged"]) and out["steady_ms_per_solve"] > 0
+          and c["wilson_r1_rhs"] > 0,
+          f"bench --nrhs {BENCH_NRHS} --chain {BENCH_CHAIN}: converged "
+          f"{out['report']['converged']}, marginal "
+          f"{out['steady_ms_per_solve']:.3f} ms, K1 rhs launches "
+          f"{c['wilson_r1_rhs']}")
+    print(f"bench --nrhs {BENCH_NRHS} --chain {BENCH_CHAIN} at "
+          f"{BENCH_SIZE}^2: {out['steady_ms_per_solve']:.3f} ms a batched "
+          f"solve chained, {out['report']['batched_ms']:.3f} ms alone",
+          flush=True)
+    # (e) one 2048^2 solve by part, level 0's parts only
+    reset_launch_counts()
+    t_run = time.perf_counter()
+    a = attrib.run(BENCH_BIG, ATTRIB_N_REFINE, dev, reps=ATTRIB_REPS,
+                   levels=(0,))
+    torch.cuda.synchronize()
+    print(f"attrib {BENCH_BIG}^2: {time.perf_counter() - t_run:.1f} s",
+          flush=True)
+    for k, n in launch_counts().items():
+        total[k] = total.get(k, 0) + n
+    attrib.print_report(a)
+    parts = [ms for row in a["components"].values() for ms in row.values()]
+    check(all(ms > 0 for ms in parts) and a["outer1_ms"] > 0,
+          f"attrib: a part's marginal is not positive: {a['components']}, "
+          f"outer1 {a['outer1_ms']}")
+    k1 = {name: a["launches"][0][name].get("wilson_r1", 0)
+          for name in ("precond", "fine")}
+    check(k1["precond"] > 0 and k1["fine"] == 0,
+          f"attrib: K1 launches inside precond {k1['precond']} (want > 0), "
+          f"inside fine {k1['fine']} (want 0)")
+    print(f"phase 24 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return total
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2294,7 +2421,7 @@ def main():
 
     # --- 18. the deflated normal-operator coarsest ---
     phase("18. the deflated coarsest")
-    deflation_phase(torch, dev, r, direct_big)
+    refine_passes = deflation_phase(torch, dev, r, direct_big)
 
     # --- 19. the n22 adaptive setup on phase 4's problem ---
     phase("19. the adaptive setup")
@@ -2319,6 +2446,10 @@ def main():
     phase("23. the mesh: sharded setup and every formulation")
     mesh_launches = mesh_phase(torch, dev, direct_big)
 
+    # --- 24. bench.py's modes and the attribution probe ---
+    phase("24. bench and attrib")
+    bench_launches = bench_phase(torch, dev, r, direct_big, refine_passes)
+
     # Each Wilson kernel at its path's shape: K1 the 512^2 solve, K2 the
     # 2048^2 solve, K3 the 2048^2 chain.
     kernels = []
@@ -2340,6 +2471,7 @@ def main():
             kernels[-1]["adaptive_launches"] = adaptive_launches[name]
         if name == "wilson_r1":
             kernels[-1]["tpu_solve_launches"] = tpu_solve_launches
+            kernels[-1]["bench_launches"] = bench_launches["wilson_r1"]
     k_ms, k_plain, k_bound, k_by, k_wrapper, k_dev = halo_times
     kernels.append({
         "name": "wilson_r1_halo", "route": "cuda",
@@ -2381,7 +2513,8 @@ def main():
             "ms": k_ms, "plain_ms": k_plain, "bound_ms": k_bound,
             "bound_by": k_by, "library_ms": None, "bound_apply_ms": k_apply,
             "device_ms": k_dev,
-            "batched_deflate_launches": lanes_launches[name]})
+            "batched_deflate_launches": lanes_launches[name],
+            "bench_launches": bench_launches[name]})
     # K4 at nc = 1: the goldstone entry's staggered apply (phase 20), timed
     # at 512^2.
     k_ms, k_plain, k_bound, k_by, k_apply, k_dev = nc1_times

@@ -165,13 +165,18 @@ def card_line() -> str:
         check=True, timeout=60).stdout.strip()
 
 
+def device_line(device) -> str:
+    """What a result ran on: the card's name and power limit, or "cpu"."""
+    return card_line() if torch.device(device).type == "cuda" else "cpu"
+
+
 def run(size: int, kind: str, nc: int = 2, coeff_dtype=None,
         iters: int = 400, device="cuda", wilson_coeff: float = 1.0,
-        operator=None, shards: int | None = None) -> dict:
-    """Time ``iters`` chain steps with CUDA events after a warm-up of the
-    same length; returns the measurements. On the CPU (the tests) it only
-    runs the chain and returns its checksum: a CPU time is no device
-    metric. ``operator`` is ``make_operator``'s result for the same
+        operator=None, shards: int | None = None, warmup: int = 1) -> dict:
+    """Time ``iters`` chain steps with CUDA events after ``warmup`` chains
+    of the same length; returns the measurements. On the CPU (the tests)
+    it only runs the chain and returns its checksum: a CPU time is no
+    device metric. ``operator`` is ``make_operator``'s result for the same
     arguments, for callers that run several kinds on one operator."""
     if wilson_coeff != 1.0 and nc != 2:
         raise ValueError("--wilson-coeff applies to the Wilson operator "
@@ -192,7 +197,8 @@ def run(size: int, kind: str, nc: int = 2, coeff_dtype=None,
         return {"size": size, "kernel": kind, "nc": nc, "shards": shards,
                 "wilson_coeff": wilson_coeff, "iters": iters,
                 "checksum": float(out.abs().sum()), "device": "cpu"}
-    chain(v, iters)
+    for _ in range(warmup):
+        chain(v, iters)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)

@@ -110,7 +110,8 @@ import torch
 
 from .lattice import Lattice2D
 from .operators.wilson import Wilson2D
-from .setup import KCycleConfig, SCHUR_CONFIG, AdaptiveConfig
+from .setup import (KCycleConfig, SCHUR_CONFIG, AdaptiveConfig,
+                    build_kcycle_hierarchy)
 from .setup_planes import (gauss_seed_planes, adaptive_seed_planes,
                            make_adaptive_setup_planes,
                            make_kcycle_setup_planes)
@@ -162,17 +163,21 @@ SETUPS = ("kcycle", "adaptive")
 ADAPTIVE_ONLY = ("the adaptive setup takes the original formulation on one "
                  "device, with no deflation, as qmg_tpu's "
                  "make_adaptive_setup_planes does: it takes no mesh")
+HOST_ONLY = ("the host setup (the eager build_kcycle_hierarchy) takes no "
+             "mesh and no deflation: deflation is a stage of the device "
+             "setup, as in bench.py")
 OPS_NAMES = ("NULLVEC", "KRYLOV", "PRESMOOTH", "POSTSMOOTH")
 
 
 def kcycle_config(size: int, outer: str = "original", deflate: int = 0,
-                  direct: bool = True):
+                  direct: bool = True, n_refine: int | None = None):
     """bench.py's kcycle configuration at lattice size ``size`` (with
     ``outer="schur"`` its ``--outer schur`` one, the n19 configuration;
     with ``deflate`` its ``--deflate`` one, a CG coarsest on M^dag M;
-    ``direct=False`` its ``--no-direct``): returns (KCycleConfig, outer
-    restart)."""
-    n_refine = 2 if size <= 256 else (3 if size <= 1024 else 4)
+    ``direct=False`` its ``--no-direct``; ``n_refine`` in place of the
+    depth it takes by size): returns (KCycleConfig, outer restart)."""
+    if n_refine is None:
+        n_refine = 2 if size <= 256 else (3 if size <= 1024 else 4)
     restart = 16 if size >= 2048 else 32
     inner_restart = 8 if size >= 2048 else 32
     extra = dict(SCHUR_CONFIG) if outer == "schur" else {}
@@ -190,6 +195,29 @@ def kcycle_config(size: int, outer: str = "original", deflate: int = 0,
 def _sync(device):
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def best_s(fns, device, reps: int, warmup: bool = True) -> list:
+    """Seconds of each of ``fns()`` with the device synchronised around
+    it, the minimum over ``reps`` rounds that call them in turn, after one
+    warm-up round (``warmup``): by the host clock, or on the CPU with one
+    intra-op thread by this thread's CPU time, all of the work's there,
+    which a thread that the host preempts does not accrue (idle BLAS and
+    OpenMP workers spin, so the process's CPU time is not the work's)."""
+    clock = (time.thread_time if torch.device(device).type == "cpu"
+             and torch.get_num_threads() == 1 else time.perf_counter)
+    if warmup:
+        for fn in fns:
+            fn()
+    best = [float("inf")] * len(fns)
+    for _ in range(reps):
+        for i, fn in enumerate(fns):
+            _sync(device)
+            t0 = clock()
+            fn()
+            _sync(device)
+            best[i] = min(best[i], clock() - t0)
+    return best
 
 
 def true_residual(op: Wilson2D, b, x, mesh: Mesh | None = None) -> float:
@@ -241,33 +269,48 @@ def build_problem(size: int = 512, device="cuda",
                   wilson_coeff: float = 1.0, mesh: Mesh | None = None,
                   outer: str = "original", deflate: int = 0,
                   direct: bool = True, setup: str = "kcycle",
-                  n_setup: int = 1) -> dict:
+                  n_setup: int = 1, n_refine: int | None = None,
+                  cfg: KCycleConfig | None = None,
+                  b_dtype=torch.complex64) -> dict:
     """The gauge field, the fine operator (Wilson coefficient
     ``wilson_coeff``), the hierarchy of the ``outer`` formulation and the
     right-hand side (drawn after the setup, as bench.py does); ``rng`` is
     the stream after it. The setup is ``make_kcycle_setup_planes`` from
     the seeds of ``gauss_seed_planes``, the numbers that
     ``build_kcycle_hierarchy`` draws from the same stream level by level
-    (timed: ``setup_s``). ``mesh`` is the mesh the solvers will cut level
+    (timed: ``setup_s``; the setup function and the config are kept as
+    ``setup_fn`` and ``cfg``). ``setup="host"`` is bench.py's ``--setup
+    host``: ``build_kcycle_hierarchy`` drawing its gaussians from the
+    stream as it builds, timed with the draws. On one device both build
+    the same hierarchy with the same code (the port's
+    ``make_kcycle_setup_planes`` is that build from seeds drawn ahead).
+    ``mesh`` is the mesh the solvers will cut level
     0 over, and the setup's too: on a distributed one ``op`` and ``b`` are
     the rank's blocks and ``cut`` takes a whole field to the rank's block;
     in process they are whole and the hierarchy is the unsharded one.
-    ``deflate`` and ``direct`` as in ``kcycle_config``; a deflated setup
-    ends with the deflation stage. ``setup="adaptive"`` builds the
-    hierarchy of the same problem by the n22 setup with ``n_setup``
-    passes (``adaptive_problem``)."""
+    ``deflate``, ``direct`` and ``n_refine`` as in ``kcycle_config``; a
+    deflated setup ends with the deflation stage. ``cfg`` replaces
+    ``kcycle_config``'s hierarchy config (bench.py's refine mode: its
+    restarts are the defaults), and ``b_dtype`` is the right-hand side's
+    dtype (complex128: the gaussian as drawn). ``setup="adaptive"``
+    builds the hierarchy of the same problem by the n22 setup with
+    ``n_setup`` passes (``adaptive_problem``)."""
     if outer not in OUTERS:
         raise ValueError(f"unknown outer formulation {outer!r}")
-    if setup not in SETUPS:
+    if setup not in SETUPS + ("host",):
         raise ValueError(f"unknown setup {setup!r}")
     if setup == "adaptive" and (mesh is not None or outer != "original"
                                 or deflate):
         raise ValueError(ADAPTIVE_ONLY)
+    if setup == "host" and (mesh is not None or deflate):
+        raise ValueError(HOST_ONLY)
     lat = Lattice2D(size, size, 2)
     rng = QMGRandom(SEED)
     gauge = u1.gauss_gauge_u1(lat, rng, BETA)
-    cfg, restart = kcycle_config(size, outer, deflate, direct)
-    seeds = gauss_seed_planes(lat, cfg, rng)
+    n13_cfg, restart = kcycle_config(size, outer, deflate, direct, n_refine)
+    cfg = cfg or n13_cfg
+    # The host setup draws its gaussians from the stream as it builds.
+    seeds = None if setup == "host" else gauss_seed_planes(lat, cfg, rng)
 
     def cut(whole):
         if mesh is None or not mesh.distributed:
@@ -284,18 +327,29 @@ def build_problem(size: int = 512, device="cuda",
              "rng": rng, "restart": restart, "mesh": None,
              "outer": "original", "wilson_coeff": wilson_coeff,
              "cut": cut}, n_setup, direct)
-    setup_fn = make_kcycle_setup_planes(lat, cfg, MASS, wilson_coeff,
-                                        dtype=torch.complex64, device=device,
-                                        deflate_low=deflate, mesh=mesh)
-    mg = setup_fn(gauge, *seeds)
+    setup_fn = None
+    if setup == "host":
+        op = Wilson2D(lat, MASS, gauge, wilson_coeff, dtype=torch.complex64,
+                      device=device)
+        _sync(device)
+        t0 = time.perf_counter()
+        mg = build_kcycle_hierarchy(lat, op, cfg, rng)
+        _sync(device)
+        setup_s = time.perf_counter() - t0
+    else:
+        setup_fn = make_kcycle_setup_planes(
+            lat, cfg, MASS, wilson_coeff, dtype=torch.complex64,
+            device=device, deflate_low=deflate, mesh=mesh)
+        mg = setup_fn(gauge, *seeds)
+        setup_s = setup_fn.seconds
     b = cut(torch.as_tensor(rng.gaussian_cv(lat)).to(device=device,
-                                                      dtype=torch.complex64))
+                                                      dtype=b_dtype))
     return {"size": size, "device": device, "op": mg.get_stencil(0),
             "mg": mg, "b": b, "restart": restart,
-            "setup_s": setup_fn.seconds, "mesh": mesh, "outer": outer,
+            "setup_s": setup_s, "mesh": mesh, "outer": outer,
             "gauge": gauge, "rng": rng, "wilson_coeff": wilson_coeff,
-            "setup": "kcycle" if mesh is None else "sharded kcycle",
-            "stages": None, "cut": cut}
+            "setup": (setup if mesh is None else "sharded kcycle"),
+            "stages": None, "cut": cut, "cfg": cfg, "setup_fn": setup_fn}
 
 
 def adaptive_problem(problem: dict, n_setup: int = 1, direct: bool = True,
@@ -409,6 +463,7 @@ def run_solver(problem: dict, fine_kernel: str | None = "wilson-r1",
         # far (this run's warm-up, timed and profiled ones included).
         "ops": mg.tracker["counts"].tolist(),
         "avg_iters": mg.query_average_iterations(),
+        "solver": solve,
     }
 
 
@@ -439,9 +494,25 @@ def bench_rhs(problem: dict, nrhs: int) -> torch.Tensor:
     return torch.stack([problem["b"]] + more)
 
 
+def batched_inputs(problem: dict, nrhs: int, calibrated: bool = False):
+    """(problem, B, probe): bench.py's ``--nrhs`` right-hand sides
+    (``bench_rhs``) and, for ``--calibrated``, the probe right-hand side,
+    which bench.py draws first: the problem's own b becomes the probe and
+    the problem takes the next gaussian of the stream as its b."""
+    probe = None
+    if calibrated:
+        probe = problem["b"]
+        lat = Lattice2D(problem["size"], problem["size"], 2)
+        problem = dict(problem, b=problem["cut"](torch.as_tensor(
+            problem["rng"].gaussian_cv(lat)).to(device=problem["device"],
+                                                dtype=torch.complex64)))
+    return problem, bench_rhs(problem, nrhs), probe
+
+
 def run_batched(problem: dict, B, fine_kernel: str | None = "wilson-r1",
                 coarse_apply: str = "plain", schedule=None, probe=None,
-                repeats: int = 1, profile: bool = False) -> dict:
+                repeats: int = 1, profile: bool = False,
+                sequential: bool = True) -> dict:
     """One batched solver on ``problem``'s hierarchy in its outer
     formulation, on the right-hand sides ``B`` (nrhs, *cv_shape), beside
     the sequential solves of the same fields (``make_solver``, one per
@@ -451,7 +522,9 @@ def run_batched(problem: dict, B, fine_kernel: str | None = "wilson-r1",
     ``outer`` outer trips; ``inner`` not None also fixes every
     intermediate level at that many trips, for this solver only) or
     "calibrated" (``make_calibrated_batched_solver`` on ``probe``).
-    ``launches`` are the kernel launches of one batched solve."""
+    ``launches`` are the kernel launches of one batched solve.
+    ``sequential=False`` leaves the sequential solves out (their entries
+    are None)."""
     device, mg, op = problem["device"], problem["mg"], problem["op"]
     mesh = problem["mesh"]
     outer_type = OUTERS[problem["outer"]]
@@ -477,9 +550,10 @@ def run_batched(problem: dict, B, fine_kernel: str | None = "wilson-r1",
             solve = make_batched_solver(mg, **kw)
         single = make_solver(mg, **kw)
         solve(B)        # warm-up
-        single(B[0])
+        if sequential:
+            single(B[0])
         _sync(device)
-        batched_s, sequential_s, launches = [], [], None
+        batched_s, sequential_s, launches, seq = [], [], None, None
         for _ in range(repeats):
             launches0 = launch_counts()
             t0 = time.perf_counter()
@@ -488,10 +562,11 @@ def run_batched(problem: dict, B, fine_kernel: str | None = "wilson-r1",
             batched_s.append(time.perf_counter() - t0)
             launches = {k: n - launches0[k]
                         for k, n in launch_counts().items()}
-            t0 = time.perf_counter()
-            seq = [single(b) for b in B]
-            _sync(device)
-            sequential_s.append(time.perf_counter() - t0)
+            if sequential:
+                t0 = time.perf_counter()
+                seq = [single(b) for b in B]
+                _sync(device)
+                sequential_s.append(time.perf_counter() - t0)
         busy_ms, n_kernels = (
             profile_solve(solve, B, float(np.median(batched_s)) * 1e3)
             if profile else (None, None))
@@ -516,25 +591,26 @@ def run_batched(problem: dict, B, fine_kernel: str | None = "wilson-r1",
                      else "fixed " + ",".join(
                          str(v) for v in schedule if v is not None)),
         "iters": res.iters.tolist(),
-        "sequential_iters": [r.iters for r, _ in seq],
+        "sequential_iters": seq and [r.iters for r, _ in seq],
         "converged": res.converged.cpu().tolist(),
         "rel_res_recursive": (np.sqrt(rel_sq) * TOL).tolist(),
         "rel_res_sq_of_target": rel_sq.tolist(),
         "rel_res_true": [true_residual(op, B[k], res.x[k], mesh)
                          for k in range(nrhs)],
-        "sequential_rel_res_true": [true_residual(op, B[k], seq[k][0].x,
-                                                  mesh)
-                                    for k in range(nrhs)],
+        "sequential_rel_res_true": seq and [
+            true_residual(op, B[k], seq[k][0].x, mesh) for k in range(nrhs)],
         "x_finite": bool(torch.isfinite(torch.view_as_real(res.x)).all()),
         "level_iters": carry["iters"].tolist(),
         "batched_ms": float(np.median(batched_s)) * 1e3,
-        "sequential_ms": float(np.median(sequential_s)) * 1e3,
+        "sequential_ms": (float(np.median(sequential_s)) * 1e3
+                          if sequential else None),
         "batched_ms_all": [t * 1e3 for t in batched_s],
         "sequential_ms_all": [t * 1e3 for t in sequential_s],
         "launches": launches,
         "device_busy_ms": busy_ms,
         "device_kernels": n_kernels,
         "setup_s": problem["setup_s"],
+        "solver": solve,
     }
 
 
@@ -562,23 +638,27 @@ def print_batched_report(r: dict):
     print("level applies: " + ", ".join(
         f"{lvl} {name}" for lvl, name in zip(r["levels"],
                                              r["level_applies"])))
+    seq = r["sequential_ms"] is not None
     print("lane: outer iterations (sequential), recursive relres, rel "
-          "res_sq of the target, true relres (sequential's)")
+          "res_sq of the target, true relres (sequential's)" if seq else
+          "lane: outer iterations, recursive relres, rel res_sq of the "
+          "target, true relres")
     for k in range(r["nrhs"]):
-        print(f"  lane {k}: {r['iters'][k]} ({r['sequential_iters'][k]}), "
-              f"{r['rel_res_recursive'][k]:.3e}, "
+        print(f"  lane {k}: {r['iters'][k]}"
+              + (f" ({r['sequential_iters'][k]})" if seq else "")
+              + f", {r['rel_res_recursive'][k]:.3e}, "
               f"{r['rel_res_sq_of_target'][k]:.3e}, "
-              f"{r['rel_res_true'][k]:.3e} "
-              f"({r['sequential_rel_res_true'][k]:.3e})")
+              f"{r['rel_res_true'][k]:.3e}"
+              + (f" ({r['sequential_rel_res_true'][k]:.3e})" if seq else ""))
     print(f"batched solve ms: {r['batched_ms']:.3f} = "
-          f"{r['batched_ms'] / r['nrhs']:.3f} per rhs; sequential "
-          f"{r['sequential_ms']:.3f} = {r['sequential_ms'] / r['nrhs']:.3f} "
-          "per rhs"
+          f"{r['batched_ms'] / r['nrhs']:.3f} per rhs"
+          + (f"; sequential {r['sequential_ms']:.3f} = "
+             f"{r['sequential_ms'] / r['nrhs']:.3f} per rhs" if seq else "")
           + (" (medians of alternating turns: batched "
              + ", ".join(f"{t:.3f}" for t in r["batched_ms_all"])
              + "; sequential "
              + ", ".join(f"{t:.3f}" for t in r["sequential_ms_all"]) + ")"
-             if len(r["batched_ms_all"]) > 1 else ""))
+             if len(r["batched_ms_all"]) > 1 and seq else ""))
     print(f"setup s: {r['setup_s']:.3f}")
     if r["mesh"] is not None:
         print(f"bytes handed to the collectives: {r['mesh'].sent}")
@@ -698,7 +778,7 @@ def main(argv=None):
             raise SystemExit("--outer schur takes --fine-kernel none and "
                              "--coarse-apply plain: no kernel applies a "
                              "Schur operator")
-    schedule = _schedule(args)
+    schedule = batched_schedule(args)
     if args.deflate < 0:
         raise SystemExit("--deflate takes a number of eigenpairs >= 0")
     if args.setup == "adaptive" and (
@@ -756,9 +836,10 @@ def main(argv=None):
         raise SystemExit(1)
 
 
-def _schedule(args):
-    """False for one right-hand side, else the batched schedule that
-    ``run_batched`` takes; the flags' refusals."""
+def batched_schedule(args):
+    """False for one right-hand side (``args.nrhs`` 1), else the batched
+    schedule that ``run_batched`` takes, from ``args.fixed_schedule`` and
+    ``args.calibrated``; the flags' refusals."""
     if args.nrhs < 1:
         raise SystemExit("--nrhs takes a number of right-hand sides >= 1")
     if args.nrhs == 1:
@@ -791,15 +872,8 @@ def _main_batched(args, schedule, mesh=None, device=None, is_root=True):
                             mesh=mesh, outer=args.outer,
                             deflate=args.deflate, direct=not args.no_direct,
                             setup=args.setup, n_setup=args.n_setup)
-    probe = None
-    if schedule == "calibrated":
-        # bench.py draws the probe first, then the nrhs right-hand sides.
-        probe = problem["b"]
-        lat = Lattice2D(args.size, args.size, 2)
-        problem = dict(problem, b=problem["cut"](torch.as_tensor(
-            problem["rng"].gaussian_cv(lat)).to(device=device,
-                                                dtype=torch.complex64)))
-    B = bench_rhs(problem, args.nrhs)
+    problem, B, probe = batched_inputs(problem, args.nrhs,
+                                       schedule == "calibrated")
     try:
         r = run_batched(problem, B,
                         None if args.fine_kernel == "none"

@@ -52,7 +52,7 @@ from . import linalg
 from .operators.wilson import Wilson2D
 from .operators.coarse import CoarseOperator2D
 from .transfer import TransferMG, ShardedTransferMG, DoublingType
-from .stateful import (StatefulMultigridMG, zero_batched_carry,
+from .stateful import (StatefulMultigridMG, zero_carry, zero_batched_carry,
                        DSLASH_KRYLOV, _NORMAL_TYPES)
 from .refine import refine_solve
 from .setup import KCycleConfig, pin_full_precision
@@ -71,7 +71,8 @@ from . import solvers
 
 __all__ = ["make_solver", "make_batched_solver", "make_fixed_batched_solver",
            "make_calibrated_batched_solver", "make_refined_solver",
-           "state_to_numpy", "state_from_numpy", "shard_state"]
+           "component_chain", "state_to_numpy", "state_from_numpy",
+           "shard_state"]
 
 
 FINE_KERNELS = ("wilson-r1", "wilson-phase", "matrix", "matrix-split",
@@ -79,6 +80,10 @@ FINE_KERNELS = ("wilson-r1", "wilson-phase", "matrix", "matrix-split",
 WILSON_KERNELS = ("wilson-r1", "wilson-phase")
 MATRIX_KERNELS = ("matrix", "matrix-split", "small")
 COARSE_APPLIES = ("plain", "gather", "small")
+# "none": the identity in place of the K-cycle (plain restarted FGCR).
+PRECOND_MODES = ("mg", "none")
+# The parts of a solve that ``component_chain`` times.
+COMPONENTS = ("fine", "transfer", "smooth2", "precond")
 # What the batched solvers take; the other kinds have no rhs axis yet.
 BATCHED_FINE_KERNELS = ("wilson-r1", None)
 BATCHED_COARSE_APPLIES = ("plain", "small")
@@ -238,7 +243,8 @@ def make_solver(mg: StatefulMultigridMG, tol: float = 1e-8,
                 coarse_apply: str = "plain", coeff_dtype=None,
                 mesh: Mesh | None = None,
                 outer_type: StencilType = StencilType.ORIGINAL,
-                prepared: bool = False):
+                prepared: bool = False, precond_mode: str = "mg",
+                fixed_outer_iters: int | None = None):
     """Returns solve(b, x0=None, track=True, verbose=None) ->
     (SolveResult, carry): outer FGCR on the fine operator, from ``x0``
     (zero by default), preconditioned by one K-cycle per iteration. It is
@@ -291,10 +297,17 @@ def make_solver(mg: StatefulMultigridMG, tol: float = 1e-8,
     sharded setup built, level 0's inner products are summed over the
     ranks and every rank holds the coarse levels whole (the coarsest's
     dense inverse or deflation pairs too).
+
+    ``precond_mode="none"`` puts the identity in place of the K-cycle: the
+    solve is plain restarted FGCR on the fine operator. ``fixed_outer_iters``
+    runs exactly that many outer trips with no stopping test; ``tol`` still
+    sets the target that ``res.converged`` reports against. They are
+    qmg_tpu's ``make_planes_solver`` options of the same names.
     """
     lanes = _lane_solver(mg, tol, max_iter, restart_freq, fine_kernel,
                          coarse_apply, coeff_dtype, mesh, outer_type,
-                         prepared)
+                         prepared, fixed_outer_iters,
+                         precond_mode=precond_mode)
 
     def solve(b, x0=None, track: bool = True, verbose=None):
         res, carry = lanes(b, x0=x0, track=track, verbose=verbose,
@@ -306,14 +319,9 @@ def make_solver(mg: StatefulMultigridMG, tol: float = 1e-8,
     return solve
 
 
-def _lane_solver(mg: StatefulMultigridMG, tol, max_iter, restart_freq,
-                 fine_kernel, coarse_apply, coeff_dtype, mesh, outer_type,
-                 prepared, fixed_outer_iters=None, trace=None):
-    """The solve of ``make_solver`` and ``make_batched_solver``:
-    solve(B, x0=None, track=True, verbose=None, laned=True) ->
-    (BatchedSolveResult, carry) on a batch with a leading rhs axis, or
-    with ``laned=False`` on one field (the batch's one-field case: a carry
-    of one lane, x the field's)."""
+def _kernel_options(fine_kernel, coarse_apply, coeff_dtype, mesh):
+    """The checks of the kernel options; returns ``coarse_apply`` with
+    "jnp" read as "plain"."""
     if fine_kernel not in FINE_KERNELS + (None,):
         raise ValueError(f"unknown fine_kernel {fine_kernel!r}")
     if mesh is not None and fine_kernel not in ("wilson-r1", None):
@@ -332,6 +340,24 @@ def _lane_solver(mg: StatefulMultigridMG, tol, max_iter, restart_freq,
         raise ValueError("coeff_dtype applies to the matrix kernels "
                          f"{MATRIX_KERNELS}, not fine_kernel="
                          f"{fine_kernel!r}")
+    return coarse_apply
+
+
+def _lane_solver(mg: StatefulMultigridMG, tol, max_iter, restart_freq,
+                 fine_kernel, coarse_apply, coeff_dtype, mesh, outer_type,
+                 prepared, fixed_outer_iters=None, trace=None,
+                 precond_mode="mg"):
+    """The solve of ``make_solver`` and ``make_batched_solver``:
+    solve(B, x0=None, track=True, verbose=None, laned=True) ->
+    (BatchedSolveResult, carry) on a batch with a leading rhs axis, or
+    with ``laned=False`` on one field (the batch's one-field case: a carry
+    of one lane, x the field's). ``precond_mode="none"`` solves with the
+    identity in place of the K-cycle."""
+    if precond_mode not in PRECOND_MODES:
+        raise ValueError(f"unknown precond_mode {precond_mode!r} "
+                         f"(expected one of {PRECOND_MODES})")
+    coarse_apply = _kernel_options(fine_kernel, coarse_apply, coeff_dtype,
+                                   mesh)
     outer_type = StencilType(outer_type)
     n_levels = mg.get_num_levels()
     types = mg.level_types()
@@ -405,8 +431,9 @@ def _lane_solver(mg: StatefulMultigridMG, tol, max_iter, restart_freq,
             for st, fn in zip(stencils, bound[nrhs]):
                 st.apply_override = fn
             v = solvers._as_verbose(verbose)
-            precond = mg.make_preconditioner(0, reduce=reduce,
-                                             verbose=v).lanes
+            precond = (None if precond_mode == "none" else
+                       mg.make_preconditioner(0, reduce=reduce,
+                                              verbose=v).lanes)
             res, carry = solvers._gcr(
                 matvec, rhs, x0,
                 int(fixed_outer_iters) if fixed else max_iter, tol,
@@ -570,6 +597,98 @@ def make_refined_solver(mg: StatefulMultigridMG, tol: float = 1e-10,
                             max_outer=max_outer)
 
     return solve
+
+
+def component_chain(mg: StatefulMultigridMG, b, component: str, K: int, *,
+                    level: int = 0, counts: dict | None = None,
+                    **solver_kw) -> float:
+    """K dependent steps of one part of a solve, the counterpart of
+    qmg_tpu's ``tpu_compat._planes_component_chain`` (the primitive of
+    ``python -m qmg_tpu_torch.attrib``): each step takes the last one's
+    output, normalised as out / sqrt(|out|^2 + 1). Returns sum |out| of
+    the last, a float that depends on every step (reading it waits for
+    them all). ``b`` is a field of level ``level``. The parts, as qmg_tpu
+    builds them on level 0:
+
+      fine      the level's exact plain apply; with ``fine_kernel`` (level
+                0 only) the kernel apply that the K-cycle binds;
+      transfer  restrict to level + 1, then prolong back;
+      smooth2   MinRes(2, 0.85) on the level's exact plain apply;
+      precond   one K-cycle from this level (``make_preconditioner``),
+                with the applies that a ``make_solver`` solver of
+                ``solver_kw`` installs: ``fine_kernel`` (default
+                "wilson-r1", as ``make_solver``'s), ``coarse_apply`` and
+                ``coeff_dtype``.
+
+    At ``level=l`` the same parts run with ``get_stencil(l)``, level l's
+    transfer and ``make_preconditioner(l)``; the coarsest level has only
+    ``fine`` and ``smooth2``. ``counts`` (a ``stateful.zero_carry`` dict)
+    takes the K-cycles' per-level operator and iteration counts."""
+    n_levels = mg.get_num_levels()
+    if component not in COMPONENTS:
+        raise ValueError(f"unknown component {component!r} (expected one "
+                         f"of {COMPONENTS})")
+    if not 0 <= level < n_levels:
+        raise ValueError(f"level {level} not in a {n_levels}-level "
+                         "hierarchy")
+    if component in ("transfer", "precond") and level == n_levels - 1:
+        raise ValueError(f"{component} needs a coarser level than {level}")
+    takes = ({"fine_kernel", "coarse_apply", "coeff_dtype"}
+             if component == "precond" else
+             {"fine_kernel", "coeff_dtype"} if component == "fine"
+             and level == 0 else set())
+    if set(solver_kw) - takes:
+        raise ValueError(f"{component} on level {level} takes no "
+                         f"{sorted(set(solver_kw) - takes)}")
+    st = mg.get_stencil(level)
+    fine_kernel = solver_kw.get("fine_kernel",
+                                "wilson-r1" if component == "precond"
+                                else None)
+    coeff_dtype = solver_kw.get("coeff_dtype")
+    coarse_apply = _kernel_options(fine_kernel,
+                                   solver_kw.get("coarse_apply", "plain"),
+                                   coeff_dtype, None)
+    pin_full_precision()
+
+    def plain(v):
+        return apply_M(st.coeffs, v)
+
+    stencils = [mg.get_stencil(lvl) for lvl in range(n_levels)]
+    overrides = [None] * n_levels
+    if component == "fine":
+        step = (_overrides(stencils[:1], None, fine_kernel, "plain",
+                           coeff_dtype, None)[0][0]
+                if fine_kernel is not None else plain)
+    elif component == "transfer":
+        t = mg.get_transfer(level)
+
+        def step(v):
+            return t.prolong_c2f(t.restrict_f2c(v))
+    elif component == "smooth2":
+        def step(v):
+            return solvers.minres(plain, v, max_iter=2, tol=0.0,
+                                  omega=0.85).x
+    else:
+        mg.prebuild_derived_stencils()
+        overrides = _overrides(stencils, None, fine_kernel, coarse_apply,
+                               coeff_dtype, None)[0]
+        precond = mg.make_preconditioner(level)
+        carry = zero_carry(n_levels) if counts is None else counts
+
+        def step(v):
+            return precond(v, carry)[0]
+
+    v = b
+    try:
+        for st_l, fn in zip(stencils, overrides):
+            st_l.apply_override = fn
+        for _ in range(int(K)):
+            out = step(v)
+            v = out / torch.sqrt(linalg.norm2sq(out) + 1.0)
+    finally:
+        for st_l in stencils:
+            st_l.apply_override = None
+    return float(torch.sum(torch.abs(v)))
 
 
 def _planes(t: torch.Tensor, dtype) -> np.ndarray:

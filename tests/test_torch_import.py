@@ -21,7 +21,8 @@ MODULES = ["qmg_tpu_torch", "qmg_tpu_torch.lattice", "qmg_tpu_torch.rng",
            "qmg_tpu_torch.eig", "qmg_tpu_torch.stateful",
            "qmg_tpu_torch.setup", "qmg_tpu_torch.solve",
            "qmg_tpu_torch.kcycle", "qmg_tpu_torch.parallel",
-           "qmg_tpu_torch.shard_dslash"]
+           "qmg_tpu_torch.shard_dslash", "qmg_tpu_torch.bench",
+           "qmg_tpu_torch.attrib"]
 
 
 def test_port_imports_no_jax():

@@ -96,6 +96,15 @@ def _jax_iters(mg, state, b_planes, **kw):
     return int(iters), np.asarray(xp)
 
 
+@pytest.fixture(scope="module")
+def jax_iters_32(jax_bench_32):
+    """qmg_tpu's outer count on its bench.py hierarchy, complex64, tol
+    1e-5: bench.py --mode kcycle's solve."""
+    mg, _, b = jax_bench_32
+    return _jax_iters(mg, mg_state_planes(mg), host_to_planes(b),
+                      tol=1e-5)[0]
+
+
 @pytest.mark.parametrize("coarsest", ["direct", "gcr"])
 def test_solver_on_jax_state_c128(jax_bench_32, coarsest):
     """Same outer iteration count at complex128, with the dense coarsest
@@ -136,17 +145,30 @@ def test_solver_on_jax_state_c64_kernel(jax_bench_32):
     assert true_residual(tmg.get_stencil(0), bt, res.x) < 1e-4
 
 
-def test_end_to_end_setup_and_solve_vs_jax(jax_bench_32):
+def test_end_to_end_setup_and_solve_vs_jax(jax_iters_32):
     """The port's own setup + solve (kcycle entry point) against
     qmg_tpu's at the same config and seed, complex64."""
-    mg, _, b = jax_bench_32
-    it_j, _ = _jax_iters(mg, mg_state_planes(mg), host_to_planes(b),
-                         tol=1e-5)
+    it_j = jax_iters_32
     r = run_kcycle(L, "cpu")
     assert r["converged"] and r["x_finite"]
     assert r["x_shape"] == (2, L, L // 2, 2)
     assert abs(r["iters"] - it_j) <= 2
     assert r["rel_res_true"] <= 1e-4
+
+
+def test_bench_host_setup_count_vs_jax(jax_iters_32, capsys):
+    """``python -m qmg_tpu_torch.bench --mode kcycle --setup host`` (the
+    eager build drawing as it builds, bench.py's default) against
+    qmg_tpu's bench.py hierarchy on the same gauge and seeds: the outer
+    count within 1 (complex64 on both sides)."""
+    from qmg_tpu_torch import bench
+    out = bench.main(["--device", "cpu", "--mode", "kcycle", "--size",
+                      str(L), "--setup", "host"])
+    r = out["report"]
+    assert r["setup"] == "host" and r["converged"]
+    assert abs(r["iters"] - jax_iters_32) <= 1
+    assert r["rel_res_true"] < 1e-4
+    assert out["line"]["metric"] == "wilson_kcycle_solve_time"
 
 
 def test_kcycle_cli_on_cpu(capsys):
