@@ -67,11 +67,12 @@ current K-cycle and rebuild the levels below, the solve-phase parameters
 restored, then the dense coarsest inverse unless ``--no-direct``. The
 gauge field, mass and right-hand side are the n13 problem's (the stream
 skips the n13 setup's draws), and the setup's gaussians come from the
-same stream after the right-hand side. The timed setup covers all of it;
-the report adds its stages. It takes the original formulation on one
-device (no ``--outer schur``, ``--deflate``, ``--shards`` or
-``--distributed``), as qmg_tpu's ``make_adaptive_setup_planes`` takes no
-mesh.
+same stream after the right-hand side. The timed setup covers all of it.
+The report adds the setup's stages (``setup_fn.stages``; every setup but
+``--setup host`` has them). The adaptive setup takes the original
+formulation on one device (no ``--outer schur``, ``--deflate``,
+``--shards`` or ``--distributed``), as qmg_tpu's
+``make_adaptive_setup_planes`` takes no mesh.
 
 Every report ends with the reference's per-level operator report
 (``[QMG-OPS-STATS]``: NULLVEC, the setup's work, and KRYLOV, PRESMOOTH
@@ -349,7 +350,8 @@ def build_problem(size: int = 512, device="cuda",
             "setup_s": setup_s, "mesh": mesh, "outer": outer,
             "gauge": gauge, "rng": rng, "wilson_coeff": wilson_coeff,
             "setup": (setup if mesh is None else "sharded kcycle"),
-            "stages": None, "cut": cut, "cfg": cfg, "setup_fn": setup_fn}
+            "stages": None if setup_fn is None else setup_fn.stages,
+            "cut": cut, "cfg": cfg, "setup_fn": setup_fn}
 
 
 def adaptive_problem(problem: dict, n_setup: int = 1, direct: bool = True,

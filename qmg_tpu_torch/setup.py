@@ -33,6 +33,7 @@ of qmg_tpu/setup.py's n13 and n19 flows).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -254,9 +255,13 @@ def _scaffold_level(lat_prev: Lattice2D, lat_i: Lattice2D,
     return t, st
 
 
+def _no_stage(label: str):
+    return contextlib.nullcontext()
+
+
 def build_kcycle_hierarchy(lat0: Lattice2D, fine_op: Stencil2D,
                            cfg: KCycleConfig, rng=None, *, seeds=None,
-                           structure_only: bool = False
+                           structure_only: bool = False, stage=_no_stage
                            ) -> StatefulMultigridMG:
     """Construct the K-cycle hierarchy (n13; n19 with ``SCHUR_CONFIG``) on
     the fine operator's device. The
@@ -266,7 +271,9 @@ def build_kcycle_hierarchy(lat0: Lattice2D, fine_op: Stencil2D,
     ``cfg.free_null_vectors`` or ``structure_only`` nothing is drawn and
     neither is given. ``structure_only`` builds the levels' shapes with no
     content (zero null vectors, identity clover, zero hopping) and no
-    dense inverse, a scaffold that preconditions nothing."""
+    dense inverse, a scaffold that preconditions nothing. ``stage(label)``
+    is entered around each stage of the build (``push_kcycle_levels``'s,
+    then "cdinv", the dense inverse)."""
     draws = not (cfg.free_null_vectors or structure_only)
     if draws and (rng is None) == (seeds is None):
         raise ValueError("give exactly one of rng and seeds")
@@ -278,19 +285,24 @@ def build_kcycle_hierarchy(lat0: Lattice2D, fine_op: Stencil2D,
                          f"{len(seeds)}")
     pin_full_precision()
     mg = StatefulMultigridMG(lat0, fine_op, cfg.coarsest_solve())
-    push_kcycle_levels(mg, cfg, 1, rng, seeds, structure_only)
+    push_kcycle_levels(mg, cfg, 1, rng, seeds, structure_only, stage)
     if structure_only:
         return mg
     if cfg.coarsest_direct:
-        mg.prepare_direct_coarsest()
+        with stage("cdinv"):
+            mg.prepare_direct_coarsest()
     return mg
 
 
 def push_kcycle_levels(mg: StatefulMultigridMG, cfg: KCycleConfig,
                        first: int, rng=None, seeds=None,
-                       structure_only: bool = False):
+                       structure_only: bool = False, stage=_no_stage):
     """Push ``build_kcycle_hierarchy``'s levels ``first`` ...
-    ``cfg.n_refine`` onto ``mg``, which holds the levels above them."""
+    ``cfg.n_refine`` onto ``mg``, which holds the levels above them.
+    ``stage(label)`` is entered around each level i's stages: "L{i}
+    nullvec" (the null vectors on level i - 1 and their doubling), "L{i}
+    transfer" and "L{i} coarse" (the Galerkin build and the derived sets it
+    asks for)."""
     lats = [mg.get_lattice(0)] + cfg.coarse_lattices(mg.get_lattice(0))
     ref = mg.get_stencil(first - 1).coeffs.ref
     lat_prev = lats[first - 1]
@@ -302,24 +314,27 @@ def push_kcycle_levels(mg: StatefulMultigridMG, cfg: KCycleConfig,
             lat_prev = lat_i
             continue
         stencil = mg.get_stencil(i - 1)
-        if cfg.free_null_vectors:
-            raw = _free_null_vectors(lat_prev, cfg.coarse_dof, ref)
-        else:
-            vecs, ops = generate_null_vectors(
-                stencil, cfg.coarse_dof // 2, rng,
-                max_iter=cfg.nullvec_max_iter, tol=cfg.nullvec_tol,
-                gaussians=None if seeds is None else seeds[i - 1],
-                stype=cfg.nullvec_stype, solver=cfg.nullvec_solver)
-            mg.add_tracker_count(DSLASH_NULLVEC, ops, i - 1)
-            raw = chiral_double(stencil, vecs)
-        transfer = TransferMG(lat_prev, lat_i, raw,
-                              doubling=DoublingType.PROJECTION)
-        mg.push_level(lat_i, transfer, cfg.level_solve(), build_stencil=True,
-                      is_chiral=True,
-                      build_stencil_from=(PRECOND_RIGHT_BLOCK_JACOBI
-                                          if cfg.precond_coarsen_rbjacobi
-                                          else PRECOND_ORIGINAL),
-                      build_extra=cfg.build_extra, nvecs=raw)
+        with stage(f"L{i} nullvec"):
+            if cfg.free_null_vectors:
+                raw = _free_null_vectors(lat_prev, cfg.coarse_dof, ref)
+            else:
+                vecs, ops = generate_null_vectors(
+                    stencil, cfg.coarse_dof // 2, rng,
+                    max_iter=cfg.nullvec_max_iter, tol=cfg.nullvec_tol,
+                    gaussians=None if seeds is None else seeds[i - 1],
+                    stype=cfg.nullvec_stype, solver=cfg.nullvec_solver)
+                mg.add_tracker_count(DSLASH_NULLVEC, ops, i - 1)
+                raw = chiral_double(stencil, vecs)
+        with stage(f"L{i} transfer"):
+            transfer = TransferMG(lat_prev, lat_i, raw,
+                                  doubling=DoublingType.PROJECTION)
+        with stage(f"L{i} coarse"):
+            mg.push_level(lat_i, transfer, cfg.level_solve(),
+                          build_stencil=True, is_chiral=True,
+                          build_stencil_from=(PRECOND_RIGHT_BLOCK_JACOBI
+                                              if cfg.precond_coarsen_rbjacobi
+                                              else PRECOND_ORIGINAL),
+                          build_extra=cfg.build_extra, nvecs=raw)
         lat_prev = lat_i
 
 

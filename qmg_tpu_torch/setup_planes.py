@@ -60,6 +60,7 @@ The n22 adaptive setup has the same form:
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import numpy as np
@@ -80,6 +81,7 @@ from .multigrid import PRECOND_ORIGINAL, PRECOND_RIGHT_BLOCK_JACOBI
 from .parallel import (Mesh, shard_field, unshard_field, check_replicated,
                        validate_level_sharding)
 from .shard_dslash import mesh_pulls
+from .spans import span
 
 __all__ = ["gauss_seed_planes", "make_kcycle_setup_planes",
            "adaptive_seed_planes", "make_adaptive_setup_planes"]
@@ -152,8 +154,16 @@ def make_kcycle_setup_planes(lat0: Lattice2D, cfg: KCycleConfig, mass,
     ``mesh`` level 0 is cut into the mesh's blocks (the module's
     docstring; ``check_setup_mesh`` says what it refuses); the inputs stay
     the whole host arrays. Each call leaves ``setup_fn.seconds``, the
-    setup's wall time with the device synchronized. qmg_tpu's options
-    that this setup has no use for raise ``ValueError``."""
+    setup's wall time with the device synchronized, and
+    ``setup_fn.stages``, (label, seconds) of its stages, the device
+    synchronized at each boundary, each under the span
+    ``qmg.setup.<label>`` (``spans``): the fine operator ("operator"), for
+    each coarse level i its null vectors, transfer and Galerkin build ("L{i}
+    nullvec", "L{i} transfer", "L{i} coarse"), the dense inverse
+    ("cdinv"), the deflation stage ("deflate") and, on a mesh, the check
+    that the ranks hold one copy of the coarse levels ("replicas"). The
+    stages sum to ``seconds``. qmg_tpu's options that this setup has no
+    use for raise ``ValueError``."""
     _refuse(options, "make_kcycle_setup_planes")
     if lat0.nc != 2:
         raise ValueError("make_kcycle_setup_planes builds the Wilson n13 "
@@ -176,82 +186,97 @@ def make_kcycle_setup_planes(lat0: Lattice2D, cfg: KCycleConfig, mass,
         if len(seeds) != cfg.n_refine:
             raise ValueError(f"need {cfg.n_refine} gauss seed arrays, got "
                              f"{len(seeds)}")
-        t0 = _synced_clock(device)
+        clock = _StageClock(device)
+        setup_fn.stages = clock.stages
         if mesh is None:
-            op = Wilson2D(lat0, mass, gauge, w, dtype=dtype, device=device)
-            mg = build_kcycle_hierarchy(lat0, op, cfg, seeds=list(seeds))
+            with clock.stage("operator"):
+                op = Wilson2D(lat0, mass, gauge, w, dtype=dtype,
+                              device=device)
+            mg = build_kcycle_hierarchy(lat0, op, cfg, seeds=list(seeds),
+                                        stage=clock.stage)
         else:
             mg = _sharded_hierarchy(lat0, cfg, mass, w, gauge, seeds, dtype,
-                                    device, mesh)
+                                    device, mesh, clock.stage)
         if deflate_low or deflate_high:
-            mg.deflate_coarsest(deflate_low, deflate_high)
+            with clock.stage("deflate"):
+                mg.deflate_coarsest(deflate_low, deflate_high)
         if mesh is not None:
-            check_replicated(mesh, mg.replicated_arrays())
-        setup_fn.seconds = _synced_clock(device) - t0
+            with clock.stage("replicas"):
+                check_replicated(mesh, mg.replicated_arrays())
+        setup_fn.seconds = clock.last - clock.start
         return mg
 
     setup_fn.seconds = None
+    setup_fn.stages = []
     return setup_fn
 
 
 def _sharded_hierarchy(lat0: Lattice2D, cfg: KCycleConfig, mass, w, gauge,
-                       seeds, dtype, device, mesh: Mesh):
+                       seeds, dtype, device, mesh: Mesh, stage):
     """``build_kcycle_hierarchy`` with level 0 cut over ``mesh`` (the
-    module's docstring), up to the dense inverse."""
+    module's docstring), up to the dense inverse, ``stage(label)`` entered
+    around its stages."""
     pin_full_precision()
     lat1 = cfg.coarse_lattices(lat0)[0]
     reduce = mesh.all_sum if mesh.distributed else None
     # Level 0 on the held blocks: a distributed rank's block operator, the
     # whole one (joined from its blocks) in process, both with the mesh's
     # pulls.
-    arrays = [wilson_coeff_arrays(lat0, gauge, w, dtype=dtype, device=device,
-                                  block=(mesh.ny, mesh.nx, iy, ix))
-              for iy, ix in mesh.blocks]
     fine_blk, coarse_blk = block_lattices(lat0, lat1, mesh)
-    if mesh.distributed:
-        (clover, hopping), = arrays
-        held = fine_blk
-    else:
-        clover = unshard_field([c for c, _ in arrays], mesh, 1)
-        hopping = unshard_field([h for _, h in arrays], mesh, 2)
-        held = lat0
-    op = Wilson2D.from_arrays(held, mass, clover, hopping, w)
-    op.pulls = mesh_pulls(mesh)
+    with stage("operator"):
+        arrays = [wilson_coeff_arrays(lat0, gauge, w, dtype=dtype,
+                                      device=device,
+                                      block=(mesh.ny, mesh.nx, iy, ix))
+                  for iy, ix in mesh.blocks]
+        if mesh.distributed:
+            (clover, hopping), = arrays
+            held = fine_blk
+        else:
+            clover = unshard_field([c for c, _ in arrays], mesh, 1)
+            hopping = unshard_field([h for _, h in arrays], mesh, 2)
+            held = lat0
+        op = Wilson2D.from_arrays(held, mass, clover, hopping, w)
+        op.pulls = mesh_pulls(mesh)
     mg = StatefulMultigridMG(lat0, op, cfg.coarsest_solve())
     # Level 1: null vectors on the blocks, doubled and block-orthonormalized
     # inside each block, then the Galerkin build (push_level) through the
     # blocks' transfer.
-    gaussians = torch.as_tensor(seeds[0])
-    if mesh.distributed:
-        (gaussians,) = shard_field(gaussians, mesh, 2)
-    vecs, ops = generate_null_vectors(
-        op, cfg.coarse_dof // 2, max_iter=cfg.nullvec_max_iter,
-        tol=cfg.nullvec_tol, gaussians=gaussians, stype=cfg.nullvec_stype,
-        solver=cfg.nullvec_solver, reduce=reduce)
-    mg.add_tracker_count(DSLASH_NULLVEC, ops, 0)
-    raw = chiral_double(op, vecs, reduce)
-    raws = [raw] if mesh.distributed else shard_field(raw, mesh, 2)
-    nvbs = [TransferMG(fine_blk, coarse_blk, r,
-                       doubling=DoublingType.PROJECTION,
-                       coarse_row0=iy * coarse_blk.y_len)._nvb
-            for (iy, _), r in zip(mesh.blocks, raws)]
-    transfer = ShardedTransferMG(lat0, lat1, nvbs, mesh)
-    mg.push_level(lat1, transfer, cfg.level_solve(), build_stencil=True,
-                  is_chiral=True,
-                  build_stencil_from=(PRECOND_RIGHT_BLOCK_JACOBI
-                                      if cfg.precond_coarsen_rbjacobi
-                                      else PRECOND_ORIGINAL),
-                  build_extra=cfg.build_extra, nvecs=raw)
-    # The derived sets level 0 solves with, built on the blocks.
-    op.prebuild_derived(cfg.fine_stencil_app)
-    push_kcycle_levels(mg, cfg, 2, seeds=list(seeds))
+    with stage("L1 nullvec"):
+        gaussians = torch.as_tensor(seeds[0])
+        if mesh.distributed:
+            (gaussians,) = shard_field(gaussians, mesh, 2)
+        vecs, ops = generate_null_vectors(
+            op, cfg.coarse_dof // 2, max_iter=cfg.nullvec_max_iter,
+            tol=cfg.nullvec_tol, gaussians=gaussians,
+            stype=cfg.nullvec_stype, solver=cfg.nullvec_solver,
+            reduce=reduce)
+        mg.add_tracker_count(DSLASH_NULLVEC, ops, 0)
+        raw = chiral_double(op, vecs, reduce)
+    with stage("L1 transfer"):
+        raws = [raw] if mesh.distributed else shard_field(raw, mesh, 2)
+        nvbs = [TransferMG(fine_blk, coarse_blk, r,
+                           doubling=DoublingType.PROJECTION,
+                           coarse_row0=iy * coarse_blk.y_len)._nvb
+                for (iy, _), r in zip(mesh.blocks, raws)]
+        transfer = ShardedTransferMG(lat0, lat1, nvbs, mesh)
+    with stage("L1 coarse"):
+        mg.push_level(lat1, transfer, cfg.level_solve(), build_stencil=True,
+                      is_chiral=True,
+                      build_stencil_from=(PRECOND_RIGHT_BLOCK_JACOBI
+                                          if cfg.precond_coarsen_rbjacobi
+                                          else PRECOND_ORIGINAL),
+                      build_extra=cfg.build_extra, nvecs=raw)
+        # The derived sets level 0 solves with, built on the blocks.
+        op.prebuild_derived(cfg.fine_stencil_app)
+    push_kcycle_levels(mg, cfg, 2, seeds=list(seeds), stage=stage)
     if not mesh.distributed:
         whole = transfer.whole()
         mg.transfer_list[0] = whole
         mg.get_stencil(1).in_transfer = whole
         op.pulls = WHOLE
     if cfg.coarsest_direct:
-        mg.prepare_direct_coarsest()
+        with stage("cdinv"):
+            mg.prepare_direct_coarsest()
     return mg
 
 
@@ -310,15 +335,9 @@ def make_adaptive_setup_planes(lat0: Lattice2D, acfg: AdaptiveConfig, mass,
                              f"{len(pass_seeds)}")
         for seeds in pass_seeds:
             check_pass_seeds(seeds, acfg.n_refine)
-        stages = setup_fn.stages = []
-        last = _synced_clock(device)
-
-        def stage(label):
-            nonlocal last
-            now = _synced_clock(device)
-            stages.append((label, now - last))
-            last = now
-
+        clock = _StageClock(device)
+        setup_fn.stages = clock.stages
+        stage = clock.mark
         op = Wilson2D(lat0, mass, gauge, w, dtype=dtype, device=device)
         stage("operator")
         mg, tvs = build_adaptive_hierarchy(
@@ -337,6 +356,29 @@ def make_adaptive_setup_planes(lat0: Lattice2D, acfg: AdaptiveConfig, mass,
 
     setup_fn.stages = []
     return setup_fn
+
+
+class _StageClock:
+    """A setup's stages as (label, seconds) in ``stages``, the device
+    synchronized at each boundary: ``mark(label)`` ends a stage there, and
+    ``stage(label)`` is a context that ends one at its exit, inside the span
+    ``qmg.setup.<label>``. ``start`` and ``last`` are the first and the
+    latest boundary."""
+
+    def __init__(self, device):
+        self.device, self.stages = device, []
+        self.start = self.last = _synced_clock(device)
+
+    def mark(self, label: str):
+        now = _synced_clock(self.device)
+        self.stages.append((label, now - self.last))
+        self.last = now
+
+    @contextlib.contextmanager
+    def stage(self, label: str):
+        with span(f"qmg.setup.{label}"):
+            yield
+            self.mark(label)
 
 
 def _synced_clock(device) -> float:

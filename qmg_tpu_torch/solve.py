@@ -24,6 +24,9 @@ is the batched solve's one-field case (no rhs axis: the single solve's
 own shapes and scalars), so every formulation, coarsest solve and
 smoother that a single solve takes, a batch takes too.
 
+Under a profiler each solve is the span ``qmg.solve``, and its outer
+matvec ``qmg.apply.L0.{type}`` (``spans``; the K-cycle opens the others).
+
 ``state_to_numpy`` / ``state_from_numpy`` carry a hierarchy across the two
 packages in the key format of ``qmg_tpu.tpu_compat.mg_state_planes``:
 ``clover{l}``, ``hopping{l}``, ``shifts{l}`` (shift, eo_shift, dof_shift),
@@ -53,7 +56,8 @@ from .operators.wilson import Wilson2D
 from .operators.coarse import CoarseOperator2D
 from .transfer import TransferMG, ShardedTransferMG, DoublingType
 from .stateful import (StatefulMultigridMG, zero_carry, zero_batched_carry,
-                       DSLASH_KRYLOV, _NORMAL_TYPES)
+                       DSLASH_KRYLOV, _NORMAL_TYPES, _apply_span)
+from .spans import span, spanned
 from .refine import refine_solve
 from .setup import KCycleConfig, pin_full_precision
 from .wilson_kernel import (wilson_r1_apply, wilson_r1_rhs_apply,
@@ -378,7 +382,8 @@ def _lane_solver(mg: StatefulMultigridMG, tol, max_iter, restart_freq,
             "K6 replace only the ORIGINAL apply, and no derived (Schur / "
             "rbjacobi) apply takes an override; use 'plain'")
     pin_full_precision()
-    mg.prebuild_derived_stencils(outer_type)
+    with span("qmg.setup.prebuild"):
+        mg.prebuild_derived_stencils(outer_type)
     unchanged = _hierarchy_guard(mg)
     fine = mg.get_stencil(0)
     stencils = [mg.get_stencil(lvl) for lvl in range(n_levels)]
@@ -410,12 +415,17 @@ def _lane_solver(mg: StatefulMultigridMG, tol, max_iter, restart_freq,
             return apply_M(fine.coeffs, v)
     else:
         matvec = make_sharded_dslash(fine.coeffs, mesh)
+    matvec = spanned(_apply_span(0, outer_type), matvec)
 
     transformed = outer_type != StencilType.ORIGINAL and not prepared
     fixed = fixed_outer_iters is not None
 
     def solve(b, x0=None, track: bool = True, verbose=None,
               laned: bool = True):
+        with span("qmg.solve"):
+            return run(b, x0, track, verbose, laned)
+
+    def run(b, x0, track, verbose, laned):
         unchanged()
         if x0 is not None and transformed:
             raise ValueError(f"x0 with outer_type {outer_type.name} needs "

@@ -36,6 +36,11 @@ and its iterates are the silent solve's; it reads ||b||^2 and the target
 once. Only a fixed-trip GCR, which reads nothing back, reads each
 residual it prints.
 
+Every read of a device value by the host goes through one helper,
+``_host``: it counts the read in ``READBACKS`` under the solver's name
+(``gcr``, ``minres``, ``cg``, ...) and, under a profiler, opens the span
+``qmg.readback`` (``spans``) over the host's wait for the device.
+
 Every solve on the K-cycle's path (CG, GCR in all its forms, MinRes) has
 one body, run on a batch with a leading rhs axis (B, ...) or on one field
 without it. On a batch each lane k follows the trajectory of the same
@@ -52,6 +57,7 @@ take the rhs axis; ``verbose`` prints one lane only.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import enum
 import math
@@ -61,19 +67,33 @@ import numpy as np
 import torch
 
 from .linalg import vdot, norm2sq, reductions, lane_reductions
+from .spans import span
 
 __all__ = ["SolveResult", "Verbosity", "VerboseMG", "cg", "cg_restart", "gcr",
            "gcr_restart", "gcr_var_precond", "gcr_var_precond_restart",
            "bicgstab", "bicgstab_l", "minres", "richardson", "tfqmr", "Lanes",
            "BatchedSolveResult", "all_lanes", "gcr_restart_batched",
            "gcr_var_precond_restart_batched", "minres_batched",
-           "GCR_STORE_LIMIT_BYTES"]
+           "GCR_STORE_LIMIT_BYTES", "READBACKS"]
 
 # The largest GCR direction store (2 x R x n values) a solve allocates,
 # qmg_tpu's limit: unrestarted GCR (restart_freq = -1) keeps max_iter
 # directions, which at the default cap of 1000 on a large lattice would be
 # tens of GiB; the guard refuses it before any allocation.
 GCR_STORE_LIMIT_BYTES = 8 * 1024 ** 3
+
+# Host read-backs of device values by solver name, since the process
+# started: each one waits for the device to finish the work queued before
+# it.
+READBACKS = collections.Counter()
+
+
+def _host(solver: str, t: torch.Tensor) -> np.ndarray:
+    """The tensor ``t`` on the host, one read-back counted for
+    ``solver``."""
+    READBACKS[solver] += 1
+    with span("qmg.readback"):
+        return t.cpu().numpy()
 
 
 class SolveResult(NamedTuple):
@@ -136,9 +156,9 @@ def _target(tol, bsq):
     return tol ** 2 * bsq
 
 
-def _keep_going(rsq, target) -> bool:
+def _keep_going(solver: str, rsq, target) -> bool:
     """isfinite(rsq) and rsq > target, read back to the host."""
-    return bool(torch.isfinite(rsq) & (rsq > target))
+    return bool(_host(solver, torch.isfinite(rsq) & (rsq > target)))
 
 
 class _Monitor:
@@ -147,7 +167,8 @@ class _Monitor:
     squared residual back as a value (once per tensor), tests it on the
     host against the target read once, and the prints reuse that value."""
 
-    def __init__(self, verbose, bsq, target):
+    def __init__(self, solver: str, verbose, bsq, target):
+        self.solver = solver
         self.verbose = _as_verbose(verbose)
         self.on = self.verbose.verbosity > Verbosity.NONE
         self.target = target
@@ -156,19 +177,21 @@ class _Monitor:
                              "(nrhs > 1) prints nothing, as qmg_tpu's "
                              "vmapped solve does")
         if self.on:
-            self.bsq, self.target = float(bsq), float(target)
-        self._last = self._host = None
+            self.bsq = _host(solver, bsq).item()
+            self.target = _host(solver, target).item()
+        self._last = self._value = None
 
     def _read(self, rsq) -> float:
         if rsq is not self._last:
-            self._last, self._host = rsq, float(rsq)
-        return self._host
+            self._last, self._value = rsq, _host(self.solver, rsq).item()
+        return self._value
 
     def still(self, lanes, rsq):
         """The lanes of ``lanes`` whose residual is finite and above the
         target, None where none is."""
         if not self.on:
-            return _still(lanes, torch.isfinite(rsq) & (rsq > self.target))
+            return _still(self.solver, lanes,
+                          torch.isfinite(rsq) & (rsq > self.target))
         r = self._read(rsq)
         # One lane: it goes on as it was, or the loop ends here.
         return lanes if math.isfinite(r) and r > self.target else None
@@ -225,15 +248,15 @@ def _axis(b, laned: bool, reduce, active):
             all_lanes(b) if active is None else active)
 
 
-def _still(lanes: Lanes, keep) -> Lanes | None:
+def _still(solver: str, lanes: Lanes, keep) -> Lanes | None:
     """The lanes of ``lanes`` where the device flags ``keep`` hold, by one
     read-back (one field: the flag that a single solve's stopping test
     reads), or None where none does."""
     if lanes.dev is not None:
         keep = keep & lanes.dev
+    host = _host(solver, keep)
     if keep.ndim == 0:
-        return _ONE if bool(keep) else None
-    host = keep.cpu().numpy()
+        return _ONE if host else None
     if not host.any():
         return None
     return Lanes(None if host.all() else keep, host)
@@ -279,7 +302,7 @@ def _cg(matvec, b, x0=None, max_iter: int = 1000, tol=1e-8,
     x = torch.zeros_like(b) if x0 is None else x0
     bsq = norm2sq(b)
     target = _target(tol, bsq)
-    mon = _Monitor(verbose, bsq, target)
+    mon = _Monitor("cg", verbose, bsq, target)
     r = b - matvec(x)
     p = r
     rsq = norm2sq(r)
@@ -338,7 +361,7 @@ def _cg_restart(matvec, b, x0=None, max_iter: int = 1000, tol=1e-8,
                           torch.as_tensor(left, device=b.device), left)
         if not lanes.host.any():
             break
-        lanes = _still(lanes, rsq > target)
+        lanes = _still("cg", lanes, rsq > target)
         if lanes is None:
             break
         res = _cg(matvec, b, x0=x, max_iter=restart_freq, tol=tol,
@@ -418,7 +441,7 @@ def _gcr(matvec, b, x0, max_iter: int, tol, restart_len: int, precond=None,
     x = torch.zeros_like(b) if x0 is None else x0
     bsq = norm2sq(b)
     target = _target(tol, bsq)
-    mon = _Monitor(verbose, bsq, target)
+    mon = _Monitor("gcr", verbose, bsq, target)
     rdt = bsq.dtype
     tiny = torch.finfo(rdt).tiny
     if precond is None:
@@ -572,7 +595,7 @@ def bicgstab(matvec, b, x0=None, max_iter: int = 1000, tol=1e-8
     rho = alpha = omega = one
     rsq = norm2sq(r)
     k, ops = 0, 1
-    while k < max_iter and _keep_going(rsq, target):
+    while k < max_iter and _keep_going("bicgstab", rsq, target):
         rho_new = vdot(rtilde, r)
         beta = (rho_new / rho) * (alpha / omega)
         p = r + beta * (p - omega * v)
@@ -609,7 +632,7 @@ def bicgstab_l(matvec, b, x0=None, max_iter: int = 1000, tol=1e-8,
     rho0, alpha, omega = one, torch.zeros_like(one), one
     rsq = norm2sq(r0)
     k, ops = 0, 1
-    while k < max_cycles and _keep_going(rsq, target):
+    while k < max_cycles and _keep_going("bicgstab_l", rsq, target):
         rho0 = -omega * rho0
         # --- BiCG part ---
         for j in range(l):
@@ -689,7 +712,7 @@ def _minres(matvec, b, x0=None, max_iter: int = 2, tol=1e-15,
     k = 0
     while k < max_iter:
         if not fixed:
-            lanes = _still(lanes, rsq > target)
+            lanes = _still("minres", lanes, rsq > target)
             if lanes is None:
                 break
         if lanes.dev is not None:
@@ -730,7 +753,7 @@ def richardson(matvec, b, x0=None, max_iter: int = 10, tol=1e-10,
     r = b - matvec(x)
     rsq = norm2sq(r)
     k = 0
-    while k < max_iter and bool(rsq > target):
+    while k < max_iter and bool(_host("richardson", rsq > target)):
         x = x + omega * r
         if (k + 1) % blocksize == 0:
             r = b - matvec(x)
@@ -768,7 +791,7 @@ def tfqmr(matvec, b, x0=None, max_iter: int = 1000, tol=1e-8
         return x + eta * d, w, d, tau, theta, eta
 
     k, ops = 0, 2
-    while k < max_iter and bool(tau * tau > target):
+    while k < max_iter and bool(_host("tfqmr", tau * tau > target)):
         alpha = rho / vdot(rtilde, v)
         u2 = u - alpha * v
         x, w, d, tau, theta, eta = half_step(x, w, u, au, d, tau, theta,

@@ -24,6 +24,11 @@ Krylov iteration counts ``iters`` (n_levels,). The hierarchy's own
 through qmg_tpu's tracker API (``get_tracker_count``,
 ``query_average_iterations``, ``shift_all_to_nullvec``, ...).
 
+Under a profiler the K-cycle opens its spans (``spans``): each visit
+``qmg.kcycle.L{l}``, its smoothers, transfers and coarse solve, and every
+apply of a level's operator ``qmg.apply.L{l}.{type}``, named when the
+K-cycle is made.
+
 ``push_level``, ``pop_level`` and ``update_level`` change the hierarchy:
 the trackers follow the levels (an updated level keeps its counts), and a
 change of the coarsest level drops its dense inverse and its deflation
@@ -54,6 +59,7 @@ from .stencil import Stencil2D, StencilType
 from .multigrid import MultigridMG
 from . import solvers
 from .linalg import norm2sq, norm2sq_lanes
+from .spans import span, spanned
 from . import eig
 
 DSLASH_NULLVEC = 0
@@ -124,6 +130,11 @@ def zero_batched_carry(nrhs: int, n_levels: int):
     n_levels)."""
     return {"counts": np.zeros((nrhs, n_levels, 4), dtype=np.int64),
             "iters": np.zeros((nrhs, n_levels), dtype=np.int64)}
+
+
+def _apply_span(level: int, stype: StencilType) -> str:
+    """The span of an apply of level ``level``'s ``stype`` operator."""
+    return f"qmg.apply.L{level}.{StencilType(stype).name.lower()}"
 
 
 def _live(lanes, laned: bool):
@@ -376,7 +387,8 @@ class StatefulMultigridMG(MultigridMG):
         level_solve = self.get_level_solve(level)
         fine_type = StencilType(level_solve.fine_stencil_app)
         fine_schur = fine_type == StencilType.RIGHT_SCHUR
-        apply_fine = fine_stencil.get_apply_function(fine_type)
+        apply_fine = spanned(_apply_span(level, fine_type),
+                             fine_stencil.get_apply_function(fine_type))
         # A field of this level has ``rank`` dims; one more is a batch's
         # rhs axis.
         rank = len(fine_stencil.solve_size_shape(fine_type))
@@ -396,7 +408,8 @@ class StatefulMultigridMG(MultigridMG):
             coarse_max_iter = cs.coarsest_iters
             coarse_tol = cs.coarsest_tol
             coarse_restart = cs.coarsest_restart_freq
-        apply_coarse = coarse_stencil.get_apply_function(coarse_type)
+        apply_coarse = spanned(_apply_span(level + 1, coarse_type),
+                               coarse_stencil.get_apply_function(coarse_type))
         coarsest_normal = coarsest and coarse_type in _NORMAL_TYPES
         # restart_freq = -1: unrestarted, the store holds every direction.
         coarse_store = (max(int(coarse_max_iter), 1) if coarse_restart == -1
@@ -421,19 +434,30 @@ class StatefulMultigridMG(MultigridMG):
                 StencilType.RIGHT_JACOBI: (StencilType.RBJ_M_MDAGGER,
                                            StencilType.RBJ_DAGGER)
                 }.get(fine_type)
+        if cgne is not None:
+            cgne = [spanned(_apply_span(level, t),
+                            fine_stencil.get_apply_function(t))
+                    for t in cgne]
+        # The spans of one visit (``spans``), named once.
+        kcycle_span = f"qmg.kcycle.L{level}"
+        smooth_spans = {DSLASH_PRESMOOTH: f"qmg.smooth.pre.L{level}",
+                        DSLASH_POSTSMOOTH: f"qmg.smooth.post.L{level}"}
+        restrict_span = f"qmg.restrict.L{level}"
+        prolong_span = f"qmg.prolong.L{level}"
+        coarse_span = f"qmg.coarse_solve.L{level + 1}"
 
         def smoother(rhs, n_iters, s_tol, use_cgne, dslash_type, carry,
                      lanes, laned):
             kw = dict(max_iter=n_iters, tol=s_tol, omega=0.85, active=lanes,
                       reduce=reduce, laned=laned)
-            if use_cgne and cgne is not None:
-                res = solvers._minres(
-                    fine_stencil.get_apply_function(cgne[0]), rhs, **kw)
-                z = fine_stencil.apply_M(res.x, cgne[1])
-                ops = 2 * res.ops_count + 1
-            else:
-                res = solvers._minres(apply_fine, rhs, **kw)
-                z, ops = res.x, res.ops_count
+            with span(smooth_spans[dslash_type]):
+                if use_cgne and cgne is not None:
+                    res = solvers._minres(cgne[0], rhs, **kw)
+                    z = cgne[1](res.x)
+                    ops = 2 * res.ops_count + 1
+                else:
+                    res = solvers._minres(apply_fine, rhs, **kw)
+                    z, ops = res.x, res.ops_count
             live = _live(lanes, laned)
             carry["counts"][live, level, dslash_type] += ops[live]
             return z, carry
@@ -469,6 +493,10 @@ class StatefulMultigridMG(MultigridMG):
             return res
 
         def precond(rhs, carry, lanes):
+            with span(kcycle_span):
+                return visit(rhs, carry, lanes)
+
+        def visit(rhs, carry, lanes):
             laned = rhs.ndim > rank
             nb, nrhs = int(laned), rhs.shape[0] if laned else 1
             live = _live(lanes, laned)
@@ -486,45 +514,51 @@ class StatefulMultigridMG(MultigridMG):
 
             # --- restrict + prepare, a tolerance per lane (a Schur
             # level's field is the even half: restrict [r1, 0]) ---
-            full = (torch.stack([r1, torch.zeros_like(r1)], dim=nb)
-                    if fine_schur else r1)
-            r_coarse = transfer.restrict_f2c(full)
-            norms = norm2sq_lanes if laned else norm2sq
-            rnorm = torch.sqrt(norms(r_coarse))
-            r_coarse_prep = coarse_stencil.prepare_M(r_coarse, coarse_type)
-            rnorm_prep = torch.sqrt(norms(r_coarse_prep))
-            inner_tol = coarse_tol * rnorm / rnorm_prep
+            with span(restrict_span):
+                full = (torch.stack([r1, torch.zeros_like(r1)], dim=nb)
+                        if fine_schur else r1)
+                r_coarse = transfer.restrict_f2c(full)
+                norms = norm2sq_lanes if laned else norm2sq
+                rnorm = torch.sqrt(norms(r_coarse))
+                r_coarse_prep = coarse_stencil.prepare_M(r_coarse,
+                                                         coarse_type)
+                rnorm_prep = torch.sqrt(norms(r_coarse_prep))
+                inner_tol = coarse_tol * rnorm / rnorm_prep
 
             # --- coarse solve ---
-            if (coarsest and self.coarsest_solve.direct
-                    and self.coarsest_dinv is not None):
-                dinv = self.coarsest_dinv.to(r_coarse_prep.dtype)
-                e_coarse = ((r_coarse_prep.reshape(nrhs, -1) @ dinv.T)
-                            if laned else dinv @ r_coarse_prep.reshape(-1)
-                            ).reshape(r_coarse_prep.shape)
-                sub_iters = sub_ops = np.ones(nrhs, dtype=np.int64)
-            elif coarsest:
-                res = coarsest_solve(r_coarse_prep, inner_tol, lanes, laned,
-                                     nrhs)
-                e_coarse = res.x
-                sub_iters, sub_ops = res.iters, res.ops_count
-            else:
-                res, carry = solvers._gcr(
-                    apply_coarse, r_coarse_prep, None, coarse_max_iter,
-                    inner_tol, coarse_store, precond=inner_precond,
-                    precond_carry=carry, active=lanes,
-                    fixed_trips=coarse_fixed, verbose=vprefix, laned=laned)
-                e_coarse = res.x
-                sub_iters, sub_ops = res.iters, res.ops_count
+            with span(coarse_span):
+                if (coarsest and self.coarsest_solve.direct
+                        and self.coarsest_dinv is not None):
+                    dinv = self.coarsest_dinv.to(r_coarse_prep.dtype)
+                    e_coarse = ((r_coarse_prep.reshape(nrhs, -1) @ dinv.T)
+                                if laned
+                                else dinv @ r_coarse_prep.reshape(-1)
+                                ).reshape(r_coarse_prep.shape)
+                    sub_iters = sub_ops = np.ones(nrhs, dtype=np.int64)
+                elif coarsest:
+                    res = coarsest_solve(r_coarse_prep, inner_tol, lanes,
+                                         laned, nrhs)
+                    e_coarse = res.x
+                    sub_iters, sub_ops = res.iters, res.ops_count
+                else:
+                    res, carry = solvers._gcr(
+                        apply_coarse, r_coarse_prep, None, coarse_max_iter,
+                        inner_tol, coarse_store, precond=inner_precond,
+                        precond_carry=carry, active=lanes,
+                        fixed_trips=coarse_fixed, verbose=vprefix,
+                        laned=laned)
+                    e_coarse = res.x
+                    sub_iters, sub_ops = res.iters, res.ops_count
             carry["counts"][live, level + 1, DSLASH_KRYLOV] += sub_ops[live]
             carry["iters"][live, level + 1] += sub_iters[live]
 
             # --- reconstruct + prolong (keep the even half on a Schur
             # level) ---
-            e_rec = coarse_stencil.reconstruct_M(e_coarse, r_coarse,
-                                                 coarse_type)
-            z2 = transfer.prolong_c2f(e_rec)
-            lhs = z1 + (z2.select(nb, 0) if fine_schur else z2)
+            with span(prolong_span):
+                e_rec = coarse_stencil.reconstruct_M(e_coarse, r_coarse,
+                                                     coarse_type)
+                z2 = transfer.prolong_c2f(e_rec)
+                lhs = z1 + (z2.select(nb, 0) if fine_schur else z2)
 
             # --- postsmooth ---
             if level_solve.post_iters > 0:
