@@ -55,7 +55,7 @@ import torch
 
 from .cshift import cshift_pull, ALL_DIRS
 from .cuda_build import build_library
-from .linalg import stacked_site_matvec
+from .linalg import stack_terms, stacked_site_matvec
 from .stencil import StencilCoeffs, mass_pattern
 
 __all__ = ["SUPPORTED_NC", "HBM_BYTES_S", "stencil_channels",
@@ -207,8 +207,8 @@ def dslash_apply_plain(ch, x):
     ``cshift_pull`` and one stacked matvec; x may carry leading batch axes
     (``(*batch, 2, Y, Xh, nc)``), the channels broadcast over them."""
     nb = x.ndim - 4
-    nbrs = torch.stack([x] + [cshift_pull(x, d, nb) for d in ALL_DIRS])
-    return stacked_site_matvec(_widen(ch), nbrs)
+    nbrs = [x] + [cshift_pull(x, d, nb) for d in ALL_DIRS]
+    return stacked_site_matvec(stack_terms(_widen(ch)), nbrs)
 
 
 def _split_pulls(xs):
@@ -229,8 +229,8 @@ def dslash_split_apply_plain(ch, xs):
     """The K5 kernel's arithmetic in PyTorch, in the split layout: half
     r = 0 pulls +-y from half 1 at rows m and m-1, half r = 1 from half 0
     at rows m+1 and m; the +x source is the same column where r == q."""
-    nbrs = torch.stack([xs] + _split_pulls(xs))
-    return stacked_site_matvec(_widen(ch), nbrs)
+    return stacked_site_matvec(stack_terms(_widen(ch)),
+                               [xs] + _split_pulls(xs))
 
 
 # K6 computes K5's function in K5's layout and K4's in K4's; its twins are

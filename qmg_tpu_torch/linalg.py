@@ -6,9 +6,20 @@ return 0-dim tensors on the field's device, so solver loops sync with the
 host only where they test convergence. The ``*_lanes`` reductions are the
 Krylov solvers': over every axis but a leading rhs axis, one result per
 lane, ``(B,)``.
+
+The per-site contraction at the bottom of every plain stencil apply,
+``stacked_site_matvec``, reads its matrices in the product's layout
+(``stack_terms``), for each site one (nc, T nc) matrix whose row i holds
+row i of each of the T stacked terms; below 8 colours the terms stay on a
+leading axis. On large lattices of 8 colours or more it is one batched
+matrix product over the sites; ``CONTRACTIONS`` counts the calls by
+route.
 """
 
 from __future__ import annotations
+
+import collections
+import math
 
 import torch
 
@@ -16,7 +27,8 @@ __all__ = ["vdot", "norm2sq", "vdot_lanes", "norm2sq_lanes", "reductions",
            "lane_reductions",
            "norm", "diffnorm2sq", "norminf", "normalize",
            "orthogonal",
-           "site_matvec", "stacked_site_matvec", "site_matmul",
+           "site_matvec", "stacked_site_matvec", "stack_terms",
+           "unstack_terms", "CONTRACTIONS", "site_matmul",
            "site_conjtrans", "site_inv", "site_inv_qr", "identity_like",
            "pin_full_precision"]
 
@@ -103,18 +115,98 @@ def orthogonal(a, b, reduce=None):
     return a - (dot(b, a) / nrm2(b)) * b
 
 
+# Site contractions by route since the process started ("product": one
+# batched matrix product over the sites; "broadcast": the elementwise
+# product and a sum), counted at every call.
+CONTRACTIONS = collections.Counter()
+
+# Where the product route pays (H100 timings of the contraction alone,
+# scripts/time_site_contraction.py; PERF.md section 5). It takes a
+# contraction of at least PRODUCT_MIN_NC colours on at least
+# PRODUCT_MIN_SITES sites. Fewer sites leave the contraction bound by the
+# host's launches, which the broadcast form issues as fast (the 32^2 and
+# 8^2 levels); from 64^2 sites on the product is 1.6-4x faster at nc 8,
+# where the broadcast form writes and reads back a product nc times the
+# neighbours' size. Below 8 colours the per-site matrices are too small
+# for the batched product (2x slower than the broadcast form at nc 2),
+# and both the product's layout and the stack next to a narrow colour
+# axis slow the broadcast form, so such sets keep the terms on a leading
+# axis.
+PRODUCT_MIN_SITES = 4096
+PRODUCT_MIN_NC = 8
+
+
+def stack_terms(mats):
+    """T per-site matrices, (T, *sites, nc, nc) or a sequence of T
+    (*sites, nc, nc), in the layout ``stacked_site_matvec`` reads for
+    their colour count: from ``PRODUCT_MIN_NC`` colours on the product's
+    layout (*sites, nc, T nc), whose row i of a site holds [mats[0][s, i,
+    :], ..., mats[T - 1][s, i, :]]; below it (T, *sites, nc, nc), a tensor
+    as it is."""
+    if mats[0].shape[-1] < PRODUCT_MIN_NC:
+        return mats if torch.is_tensor(mats) else torch.stack(list(mats))
+    return torch.stack(list(mats), dim=-2).flatten(-2)
+
+
+def unstack_terms(stacked, terms: int):
+    """``stack_terms`` undone, as a view: (T, *sites, nc, nc)."""
+    nc = stacked.shape[-2]
+    if nc < PRODUCT_MIN_NC:
+        return stacked
+    return torch.movedim(stacked.unflatten(-1, (terms, nc)), -2, 0)
+
+
+def stacked_site_matvec(mats, pulls):
+    """out[*b, s, i] = sum_{t, j} mats_t[s, i, j] pulls[t][*b, s, j]:
+    ``mats`` the T terms as ``stack_terms`` lays them out, ``pulls`` the T
+    fields (*batch, *sites, nc) with any leading batch axes; returns
+    (*batch, *sites, nc).
+
+    In the product's layout the fields are stacked next to the colour
+    axis, (nrhs, sites, T nc). The product route (``PRODUCT_MIN_SITES``
+    and more) is then one ``torch.bmm`` with the sites as its batch axis:
+    each site's (nc, T nc) matrix times its (T nc, nrhs) neighbours,
+    written through ``out=`` straight into the field layout (strided
+    operands, no copy). The broadcast route sums the elementwise product
+    [nrhs, sites, nc, T nc] over its last axis, or, below
+    ``PRODUCT_MIN_NC`` colours, stacks the fields on a leading term axis
+    and sums [T, nrhs, sites, nc, nc]."""
+    terms, nc = len(pulls), pulls[0].shape[-1]
+    product_layout = nc >= PRODUCT_MIN_NC
+    sites = mats.shape[:-2] if product_layout else mats.shape[1:-2]
+    batch = pulls[0].shape[:pulls[0].ndim - len(sites) - 1]
+    n_sites, nrhs = math.prod(sites), math.prod(batch)
+    dtype = torch.promote_types(mats.dtype, pulls[0].dtype)
+    # The fields are stacked flattened to 2-D or 3-D: on the card a stack
+    # of inputs beyond 5-D copies them one at a time.
+    if product_layout:
+        a = mats.reshape(n_sites, nc, terms * nc).to(dtype)
+        b = (pulls[0].reshape(nrhs, n_sites, nc) if terms == 1 else
+             torch.stack([p.reshape(-1, nc) for p in pulls], dim=-2)
+             .reshape(nrhs, n_sites, terms * nc)).to(dtype)
+        if n_sites >= PRODUCT_MIN_SITES:
+            CONTRACTIONS["product"] += 1
+            out = torch.empty((nrhs, n_sites, nc), dtype=dtype,
+                              device=a.device)
+            torch.bmm(a, b.permute(1, 2, 0), out=out.permute(1, 2, 0))
+        else:
+            CONTRACTIONS["broadcast"] += 1
+            out = (a * b.unsqueeze(-2)).sum(-1)
+    else:
+        CONTRACTIONS["broadcast"] += 1
+        a = mats.reshape(terms, n_sites, nc, nc)
+        b = (pulls[0].reshape(1, nrhs, n_sites, nc) if terms == 1 else
+             torch.stack([p.reshape(nrhs, n_sites, nc) for p in pulls]))
+        out = (a.unsqueeze(1) * b.unsqueeze(-2)).sum(dim=(0, -1))
+    return out.reshape(batch + sites + (nc,))
+
+
 def site_matvec(mat, vec):
-    """Per-site y = A x: (..., nc, nc) x (..., nc) -> (..., nc); leading
-    axes broadcast (a batch of fields against one matrix field)."""
-    return (mat * vec.unsqueeze(-2)).sum(-1)
-
-
-def stacked_site_matvec(mats, nbrs):
-    """out[..., i] = sum_{s, j} mats[s, ..., i, j] nbrs[s, ..., j]; ``nbrs``
-    may carry extra leading batch axes after the stacking axis."""
-    n_batch = nbrs.ndim - mats.ndim + 1
-    mats = mats.reshape(mats.shape[:1] + (1,) * n_batch + mats.shape[1:])
-    return (mats * nbrs.unsqueeze(-2)).sum(dim=(0, -1))
+    """Per-site y = A x: (*sites, nc, nc) x (*batch, *sites, nc) ->
+    (*batch, *sites, nc); leading batch axes of ``vec`` share the matrix
+    field. A one-term ``stacked_site_matvec``."""
+    one = mat if mat.shape[-1] >= PRODUCT_MIN_NC else mat.unsqueeze(0)
+    return stacked_site_matvec(one, [vec])
 
 
 def site_matmul(a, b):

@@ -210,8 +210,7 @@ def make_sharded_dslash(coeffs: StencilCoeffs, mesh: Mesh):
             nbrs = [p[i] for p in pulls]
             if c.clover is not None:
                 nbrs = [b] + nbrs
-            outs.append(linalg.stacked_site_matvec(c.stacked(),
-                                                   torch.stack(nbrs))
+            outs.append(linalg.stacked_site_matvec(c.stacked(), nbrs)
                         + apply_shift(c, b))
         return _whole(outs, mesh, nb + 1)
 

@@ -800,8 +800,8 @@ def _adopt_derived(st: Stencil2D, state: dict, lvl: int, dtype, device):
                                  **pieces),
         cinv=cinv)
     if f"schurf{lvl}" in state:
-        st._rbj_schur_fused = SchurFused(
-            mats=_complex(state[f"schurf{lvl}"], dtype, device))
+        st._rbj_schur_fused = SchurFused(stacked=linalg.stack_terms(
+            _complex(state[f"schurf{lvl}"], dtype, device)))
 
 
 def shard_state(state: dict, mesh: Mesh, b=None):

@@ -140,18 +140,30 @@ class StencilCoeffs:
         return self.twolink is None and self.corner is None
 
     def stacked(self) -> torch.Tensor:
-        """[clover, hopping_+x, +y, -x, -y] as one (5, 2, Y, Xh, nc, nc)
-        tensor (clover omitted when absent), built once. Distance-1 sets
-        only."""
+        """[clover, hopping_+x, +y, -x, -y] (clover omitted when absent)
+        as ``linalg.stack_terms`` lays them out for the set's colour
+        count, built once: the matrices of ``apply_M`` and, as a view, of
+        ``apply_hopping_half``. Distance-1 sets only."""
         if not self.is_distance1():
             raise ValueError("stacked() serves distance-1 coefficient sets "
                              "(twolink/corner pieces present)")
         if self._stacked is None:
-            parts = [self.hopping]
+            parts = list(self.hopping)
             if self.clover is not None:
-                parts = [self.clover[None]] + parts
-            self._stacked = torch.cat(parts)
+                parts = [self.clover] + parts
+            self._stacked = linalg.stack_terms(parts)
         return self._stacked
+
+    def hopping_stacked(self, parity: int) -> torch.Tensor:
+        """The four hopping terms at the sites of ``parity`` as
+        ``linalg.stack_terms`` lays them out: a view of the hopping (below
+        ``linalg.PRODUCT_MIN_NC`` colours) or of ``stacked()``, built on
+        each call for a distance-2 set."""
+        nc = self.hopping.shape[-1]
+        if nc < linalg.PRODUCT_MIN_NC or not self.is_distance1():
+            return linalg.stack_terms(self.hopping[:, parity])
+        first = nc if self.clover is not None else 0
+        return self.stacked()[parity][..., first:first + 4 * nc]
 
     def to(self, dtype) -> "StencilCoeffs":
         """A copy with every coefficient tensor cast to ``dtype`` on its
@@ -249,9 +261,8 @@ def apply_hopping_half(coeffs: StencilCoeffs, x_half, src_parity: int,
     if direction is not None:
         pulled = pulls.half(x_half, src_parity, direction, nb)
         return linalg.site_matvec(coeffs.hopping[direction, dest], pulled)
-    pulled = torch.stack([pulls.half(x_half, src_parity, d, nb)
-                          for d in ALL_DIRS])
-    return linalg.stacked_site_matvec(coeffs.hopping[:, dest], pulled)
+    pulled = [pulls.half(x_half, src_parity, d, nb) for d in ALL_DIRS]
+    return linalg.stacked_site_matvec(coeffs.hopping_stacked(dest), pulled)
 
 
 def apply_shift(coeffs: StencilCoeffs, x):
@@ -295,25 +306,16 @@ def apply_M(coeffs: StencilCoeffs, x, pulls: Pulls = WHOLE):
         if coeffs.is_distance1():
             mats = coeffs.stacked()
         else:
-            mats = [coeffs.hopping]
+            mats = list(coeffs.hopping)
             if coeffs.clover is not None:
-                mats = [coeffs.clover[None]] + mats
+                mats = [coeffs.clover] + mats
             for piece, dirs in ((coeffs.twolink, TWOLINK_DIRS),
                                 (coeffs.corner, CORNER_DIRS)):
                 if piece is not None:
-                    mats.append(piece)
+                    mats += list(piece)
                     nbrs += [pulls.full(x, d, nb) for d in dirs]
-            mats = torch.cat(mats)
-        if nb:
-            # Stacked with the batch axes merged into the parity axis: on
-            # the card torch.cat copies the inputs of a stack beyond 5-D
-            # one at a time.
-            stacked = torch.stack([n.reshape((-1,) + n.shape[nb + 1:])
-                                   for n in nbrs]).reshape(
-                                       (len(nbrs),) + x.shape)
-        else:
-            stacked = torch.stack(nbrs)
-        out = linalg.stacked_site_matvec(mats, stacked)
+            mats = linalg.stack_terms(mats)
+        out = linalg.stacked_site_matvec(mats, nbrs)
         return out + apply_shift(coeffs, x)
     return (apply_clover(coeffs, x) + apply_hopping(coeffs, x, pulls=pulls)
             + apply_twolink(coeffs, x, pulls=pulls)
@@ -335,11 +337,12 @@ def build_gather_apply(coeffs: StencilCoeffs):
     nbr_idx = torch.stack([site_ids.reshape(-1)] + [
         cshift_pull(site_ids, d).reshape(-1) for d in ALL_DIRS]).to(
             coeffs.hopping.device)                      # (5, volume)
-    mats = coeffs.stacked().reshape(5, lat.volume, lat.nc, lat.nc)
+    mats = coeffs.stacked()
 
     def apply_fn(x):
         xg = x.reshape(lat.volume, lat.nc)[nbr_idx]     # (5, volume, nc)
-        out = linalg.stacked_site_matvec(mats, xg).reshape(x.shape)
+        out = linalg.stacked_site_matvec(
+            mats, [g.reshape(x.shape) for g in xg])
         return out + apply_shift(coeffs, x)
 
     return apply_fn
@@ -467,10 +470,15 @@ def apply_rbj_schur(rbj: RBJacobiSet, x_even, pulls: Pulls = WHOLE):
 
 @dataclasses.dataclass
 class SchurFused:
-    """The Schur complement composed into 9 even-half matrices ``mats``
-    (9, Y, Xh, nc, nc): [diagonal, twolink {+2X, +2Y, -2X, -2Y}, corner
-    {+X+Y, -X+Y, -X-Y, +X-Y}] (qmg_tpu's ``schurf`` stacking)."""
-    mats: torch.Tensor
+    """The Schur complement composed into 9 even-half matrices [diagonal,
+    twolink {+2X, +2Y, -2X, -2Y}, corner {+X+Y, -X+Y, -X-Y, +X-Y}], held
+    as ``linalg.stack_terms`` lays them out (``stacked``); ``mats`` is
+    qmg_tpu's ``schurf`` stacking (9, Y, Xh, nc, nc), a view of it."""
+    stacked: torch.Tensor
+
+    @property
+    def mats(self):
+        return linalg.unstack_terms(self.stacked, 9)
 
     @property
     def clover(self):
@@ -513,7 +521,7 @@ def build_rbj_schur_fused(rbj: RBJacobiSet, pulls: Pulls = WHOLE
         return out
 
     diag = linalg.identity_like(h_even[0]) - compose(_SCHUR_ZERO_PAIRS)
-    return SchurFused(mats=torch.stack(
+    return SchurFused(stacked=linalg.stack_terms(
         [diag] + [-compose(p) for p in _SCHUR_TWOLINK_PAIRS]
         + [-compose(p) for p in _SCHUR_CORNER_PAIRS]))
 
@@ -523,7 +531,7 @@ def apply_rbj_schur_fused(fused: SchurFused, x_even, pulls: Pulls = WHOLE):
     nb = x_even.ndim - 3
     nbrs = [x_even] + [pulls.half(x_even, 0, d, nb)
                        for d in TWOLINK_DIRS + CORNER_DIRS]
-    return linalg.stacked_site_matvec(fused.mats, torch.stack(nbrs))
+    return linalg.stacked_site_matvec(fused.stacked, nbrs)
 
 
 def prepare_rbj_schur(rbj: RBJacobiSet, b, pulls: Pulls = WHOLE):
