@@ -81,3 +81,32 @@ def test_kept_answers_are_copies():
     assert kept.nbytes() == 3 * 4 * 8
     ptr = batch.untyped_storage().data_ptr()
     assert all(x.untyped_storage().data_ptr() != ptr for _, x, _ in kept.kept)
+
+
+def test_setup_options_reach_the_setup(monkeypatch):
+    """A configuration's ``setup_options`` go to the setup as they are: a
+    CG coarsest on M^dag M deflated by 4 eigenpairs, which comes out
+    correct."""
+    built = []
+
+    def recording(*args, **kw):
+        setup_fn = make(*args, **kw)
+
+        def setup(*inputs):
+            built.append(setup_fn(*inputs))
+            setup.seconds = setup_fn.seconds
+            return built[-1]
+        return setup
+
+    make = run.make_kcycle_setup_planes
+    monkeypatch.setattr(run, "make_kcycle_setup_planes", recording)
+    bench, cell, config, traffic = small_cell("n13-2048-rhs8", 32,
+                                              "gauss-rhs1")
+    config["kcycle"].update(coarsest_stencil_app="MDAGGER_M",
+                            coarsest_direct=False)
+    config["setup_options"] = {"deflate_low": 4}
+    result = run.run_cell(bench, cell, config, traffic, 2**31 + 29, 0.05,
+                          False, device="cpu")
+    assert result["correct"] is True and result["failed"] == 0
+    (mg,) = built
+    assert mg.coarsest_evecs.shape[0] == 4 and mg.coarsest_dinv is None

@@ -114,7 +114,7 @@ def test_setup_seed_fixes_gauge_and_null_vector_seeds():
 
 
 def test_loads_no_jax_package():
-    code = ("import sys, benchmark.run, benchmark.control; "
+    code = ("import sys, benchmark.run, benchmark.control, benchmark.ranks; "
             "print(sorted({m.split('.')[0] for m in sys.modules}))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True, cwd=run.ROOT).stdout

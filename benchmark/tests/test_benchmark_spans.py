@@ -6,7 +6,7 @@ import pytest
 import torch
 from torch.profiler import profile, ProfilerActivity
 
-from benchmark import span_table, spans
+from benchmark import run, span_table, spans
 from benchmark.tests.conftest import small_cell
 from qmg_tpu_torch.spans import span
 
@@ -109,3 +109,43 @@ def test_span_table_on_a_small_cell():
     assert report["rows"]["qmg.solve"]["count"] == 1
     assert report["metrics"] == {}      # no device on the CPU
     assert "sync_debug" not in report
+
+
+def coarse_device_s(facts: dict):
+    """A reader of the kind a later metric adds: the device seconds
+    launched under the coarse solve's span in the profiled solve."""
+    events = facts["spans"]
+    rows = spans.table(events["spans"], events["device"],
+                       events["launches"])["rows"]
+    return rows[spans.COARSE]["device_s"] if spans.COARSE in rows else None
+
+
+def test_facts_hold_the_spans_and_the_counters(monkeypatch):
+    """A traced run's ``facts`` hold the profiled solve's spans, device
+    operations and launches and each window solve's counter deltas, from
+    which a reader takes a span's device time and a count."""
+    seen = {}
+
+    def capture(bench, cell, facts):
+        seen.update(facts)
+        return per_layer(bench, cell, facts)
+
+    per_layer = run.per_layer_metrics
+    monkeypatch.setattr(run, "per_layer_metrics", capture)
+    bench, cell, config, traffic = small_cell("n13-2048-rhs8", 32,
+                                              "gauss-rhs1")
+    run.run_cell(bench, cell, config, traffic, 2**31 + 23, 0.05, True,
+                 device="cpu")
+    events = seen["spans"]
+    assert events["kinds"]["spans"] == len(events["spans"]) > 0
+    assert coarse_device_s(seen) == 0.0         # no device on the CPU
+    assert coarse_device_s({"spans": {"spans": SPANS, "device": DEVICE,
+                                      "launches": LAUNCHES}}) == \
+        pytest.approx(1.0)
+    tab = spans.table(events["spans"], events["device"], events["launches"])
+    (profiled,) = [s for s in seen["solves"] if s["profiled"]]
+    assert sum(profiled["readbacks"].values()) == \
+        tab["rows"]["qmg.readback"]["count"] > 0
+    for solve in seen["solves"]:
+        assert solve["readbacks"]["gcr"] > 0
+        assert sum(solve["contractions"].values()) > 0

@@ -15,7 +15,9 @@ PROFILER_EVENTS = ("Activity Buffer Request",)
 
 def profiled(fn, sync):
     """Runs ``fn()`` under the profiler; returns (fn's result, (device
-    ops, host ops)), each op (name, start s, end s) on one clock."""
+    ops, host ops), the finished profiler), each op (name, start s, end s)
+    on one clock. ``spans.collect`` takes the program's spans from the
+    profiler, out of the solve's time."""
     from torch.autograd import DeviceType
     from torch.profiler import profile, ProfilerActivity
     sync()
@@ -28,7 +30,7 @@ def profiled(fn, sync):
         start = e.start_ns() * 1e-9
         op = (e.name(), start, start + e.duration_ns() * 1e-9)
         (device if e.device_type() == DeviceType.CUDA else host).append(op)
-    return out, (device, host)
+    return out, (device, host), prof
 
 
 def busy_intervals(device_ops) -> list:
