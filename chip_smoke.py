@@ -94,7 +94,11 @@ fallback). Phases, any failure exits non-zero:
      error <= 1e-5) and lane by lane bit for bit against the single-field
      kernel; each timed three ways beside 8 single-field launches; K1's
      single-field (nrhs = 1) time on the device alone beside the one
-     recorded before the rhs axis;
+     recorded before the rhs axis; K7's rhs entry on one rank's slab of
+     the 4096^2 four-card cell, 1024 x 4096 at nrhs 4 with received halo
+     buffers, against its twin (5e-7) and field by field bit for bit
+     against one-field K7 launches, timed three ways beside those 4
+     launches and the bound;
  15. the batched solve: the 512^2 problem of phase 4 with 8 right-hand
      sides (6 gaussian, a point and a wall source) through
      ``kcycle.run_batched(fine_kernel="wilson-r1", coarse_apply="small")``:
@@ -224,9 +228,11 @@ fallback). Phases, any failure exits non-zero:
      2048^2 solve, true residual <= 1e-4, K7 launched and K1 not, the
      setup's seconds beside the unsharded one's; (b) the 512^2 n19 Schur
      solve, qmg_tpu's count +-1, no kernel; (c) 512^2 with 8 right-hand
-     sides in one batched solve beside their sequential mesh solves (each
-     lane within +-1, F5); (d) 512^2 ``--deflate 8`` with K7, qmg_tpu's
-     count +-1. K7's launches over (a) join its row of the summary.
+     sides in one batched solve with K7's rhs entry on level 0 beside
+     their sequential mesh solves (each lane within +-1, F5; K7 launched,
+     K1 and its rhs entry not); (d) 512^2 ``--deflate 8`` with K7,
+     qmg_tpu's count +-1. K7's launches over (a) join its row of the
+     summary, and those of one batched solve of (c) the K7 rhs row.
 
  24. ``python -m qmg_tpu_torch.bench`` and ``.attrib`` in this process,
      each JSON line parsed: (a) the 2048^2 dslash chain with
@@ -1217,6 +1223,68 @@ def rhs_kernel_phase(torch, wk, dk, dev):
     return worst, times
 
 
+# Phase 14's K7 rhs row: one rank's slab of the 4096^2 four-card cell.
+HALO_RHS_SLAB = (1024, 2048)   # (Y_loc, Xh)
+HALO_RHS_NRHS = 4
+
+
+def halo_rhs_phase(torch, wk, dev):
+    """Phase 14, K7's rhs entry on the slab one rank of the four-card
+    4096^2 cell holds, 1024 x 4096 at nrhs 4, with received halo buffers
+    (what ``make_sharded_wilson`` hands it): against its twin and field by
+    field against one-field K7 launches, timed three ways beside 4
+    one-field launches. Returns (worst abs error vs the twin, (ms,
+    plain_ms, bound_ms, bound_by, bound-apply ms, device ms))."""
+    y_loc, xh = HALO_RHS_SLAB
+    n = HALO_RHS_NRHS
+    alpha = 2.0 - 0.06
+    rng = np.random.default_rng(y_loc + 11)
+    phase = torch.as_tensor(
+        0.5 * np.exp(1j * rng.uniform(-np.pi, np.pi, (4, 2, y_loc, xh))),
+        dtype=torch.complex64, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(4096)
+    x = torch.randn((n, 2, y_loc, xh, 2), dtype=torch.complex64,
+                    device=dev, generator=gen)
+    top, bot = (torch.randn((n, 2, xh, 2), dtype=torch.complex64,
+                            device=dev, generator=gen) for _ in range(2))
+    rhs = wk.bind_halo(phase, alpha, own_halos=False, nrhs=n)
+    single = wk.bind_halo(phase, alpha, own_halos=False)
+    tops = [t.contiguous() for t in top]
+    bots = [b.contiguous() for b in bot]
+    got = wk.wilson_r1_halo_apply(phase, x, top, bot, alpha)
+    torch.cuda.synchronize()
+    abs_err, rel = rel_err(got, wk.wilson_r1_halo_apply_plain(
+        phase, x, top, bot, alpha))
+    same = all(torch.equal(got[b], single(x[b], tops[b], bots[b]))
+               for b in range(n))
+    check(rel <= HALO_TWIN_TOL and same
+          and torch.equal(rhs(x, top, bot), got),
+          f"K7's rhs entry on a {y_loc} x {2 * xh} slab: rel err "
+          f"{rel:.3e}, fields equal to one-field K7 {same}")
+    ms, apply_ms, dev_ms = three_ways(
+        lambda: wk.wilson_r1_halo_apply(phase, x, top, bot, alpha),
+        lambda: rhs(x, top, bot), torch)
+
+    def singles():
+        for b in range(n):
+            single(x[b], tops[b], bots[b])
+    singles_ms, singles_dev = time_ms(singles, torch), graph_ms(singles,
+                                                                torch)
+    plain_ms = time_ms(lambda: wk.wilson_r1_halo_apply_plain(
+        phase, x, top, bot, alpha), torch, reps=PLAIN_REPS)
+    sites = 2 * y_loc * xh
+    b_ms, b_by = bound((32 + 32 * n) * sites + n * 2 * 2 * xh * 16,
+                       52 * sites * n)
+    print(f"K7 rhs {y_loc} x {2 * xh} slab nrhs {n}: rel err {rel:.3e}, "
+          f"fields bit for bit one-field K7's; us through the wrapper "
+          f"{ms * 1e3:.2f}, through bind_halo {apply_ms * 1e3:.2f}, on the "
+          f"device alone {dev_ms * 1e3:.2f}, bound {b_ms * 1e3:.2f} "
+          f"({b_by}); {n} one-field launches {singles_ms * 1e3:.2f} bound, "
+          f"{singles_dev * 1e3:.2f} on the device alone; plain "
+          f"{plain_ms * 1e3:.2f}", flush=True)
+    return abs_err, (ms, plain_ms, b_ms, b_by, apply_ms, dev_ms)
+
+
 MESH_SHAPE = (4, 1)       # phase 23's in-process mesh
 MESH_BIG = 2048           # phase 23(a)'s lattice (n_refine 4)
 MESH_SIZE = 512           # phase 23(b)-(d)'s lattice
@@ -1231,7 +1299,8 @@ def mesh_phase(torch, dev, direct_big):
     unsharded 2048^2 solve) and its setup seconds beside that one's; (b)
     the 512^2 n19 Schur solve; (c) 512^2 with NRHS right-hand sides in one
     batched solve beside their sequential mesh solves; (d) 512^2
-    ``--deflate 8`` with K7. Returns K7's launches over (a)."""
+    ``--deflate 8`` with K7. Returns K7's launches over (a) and over one
+    of (c)'s batched solves."""
     from qmg_tpu_torch.parallel import Mesh
     from qmg_tpu_torch.kcycle import (build_problem, run_solver,
                                       run_batched, print_report,
@@ -1276,14 +1345,23 @@ def mesh_phase(torch, dev, direct_big):
           f"{JAX_ITERS_512_SCHUR}")
     check(not any(c_b.values()), f"{label}: no kernel applies a Schur "
           f"operator, yet {c_b}")
-    # (c) NRHS right-hand sides in one batched solve on the mesh
+    # (c) NRHS right-hand sides in one batched solve on the mesh, K7's rhs
+    # entry on level 0
     label = f"(c) {MESH_SIZE}^2 nrhs {NRHS} batched on {shape} blocks"
     part = build_problem(MESH_SIZE, dev, mesh=mesh)
-    r_c = run_batched(part, eight_rhs(torch, part, dev), None, "plain")
+    r_c = run_batched(part, eight_rhs(torch, part, dev), "wilson-r1",
+                      "plain")
     torch.cuda.synchronize()
+    # One batched solve's launches: the sequential solves beside it launch
+    # one-field K7 on the same counter.
+    c_c = r_c["launches"]
     print(f"--- {label}; setup {part['setup_s']:.3f} s", flush=True)
     print_batched_report(r_c)
     check_batched(r_c, label)
+    check(c_c["wilson_r1_halo"] > 0 and c_c["wilson_r1"] == 0
+          and c_c["wilson_r1_rhs"] == 0,
+          f"{label}: K7 must run alone on level 0 of the batched solve: "
+          f"{c_c}")
     same = sum(a == b for a, b in zip(r_c["iters"], r_c["sequential_iters"]))
     print(f"{label}: {same} of {NRHS} lanes at their sequential mesh "
           "solve's count, the others within one", flush=True)
@@ -1302,7 +1380,7 @@ def mesh_phase(torch, dev, direct_big):
           flush=True)
     check(elapsed <= MESH_BUDGET_S,
           f"phase 23 took {elapsed:.1f} s, over its {MESH_BUDGET_S} s")
-    return c_a["wilson_r1_halo"]
+    return c_a["wilson_r1_halo"], c_c["wilson_r1_halo"]
 
 
 def rhs_counts():
@@ -2411,6 +2489,7 @@ def main():
     # --- 14.-16. the rhs-axis kernels, the batched solve, the stream ---
     phase("14.-16. the rhs axis, the batched solve, the stream")
     rhs_worst, rhs_times = rhs_kernel_phase(torch, wk, dk, dev)
+    rhs_worst["K7rhs"], rhs_times["K7rhs"] = halo_rhs_phase(torch, wk, dev)
     rhs_launches = batched_phase(torch, dev)
     for name, n in stream_phase(torch, dev).items():
         rhs_launches[name] += n
@@ -2444,7 +2523,7 @@ def main():
 
     # --- 23. the mesh: sharded setup and every formulation ---
     phase("23. the mesh: sharded setup and every formulation")
-    mesh_launches = mesh_phase(torch, dev, direct_big)
+    mesh_launches, mesh_rhs_launches = mesh_phase(torch, dev, direct_big)
 
     # --- 24. bench.py's modes and the attribution probe ---
     phase("24. bench and attrib")
@@ -2515,6 +2594,17 @@ def main():
             "device_ms": k_dev,
             "batched_deflate_launches": lanes_launches[name],
             "bench_launches": bench_launches[name]})
+    # K7's rhs entry on one rank's slab of the 4096^2 cell; launches of
+    # one of phase 23(c)'s batched mesh solves.
+    k_ms, k_plain, k_bound, k_by, k_apply, k_dev = rhs_times["K7rhs"]
+    kernels.append({
+        "name": "wilson_r1_halo_rhs", "route": "cuda",
+        "source": "qmg_tpu_torch/csrc/wilson.cu",
+        "replaces": "qmg_tpu/shard_dslash.py:135",
+        "launches": mesh_rhs_launches, "max_abs_err": rhs_worst["K7rhs"],
+        "ms": k_ms, "plain_ms": k_plain, "bound_ms": k_bound,
+        "bound_by": k_by, "library_ms": None, "bound_apply_ms": k_apply,
+        "device_ms": k_dev})
     # K4 at nc = 1: the goldstone entry's staggered apply (phase 20), timed
     # at 512^2.
     k_ms, k_plain, k_bound, k_by, k_apply, k_dev = nc1_times

@@ -10,10 +10,11 @@
 //   wilson_phase_kernel      apply at any Wilson coefficient w, interleaved
 //                            layout; replaces ::_wilson_kernel
 //   wilson_r1_halo_kernel    the rank-1 apply on a y-slab of a lattice cut
-//                            into slabs: the row below the slab and the row
-//                            above it come in as halo rows, nothing wraps in
-//                            y; replaces ::_wilson_rank1_kernel in its
-//                            halo_frame form, which
+//                            into slabs, on one field or on nrhs fields with
+//                            one set of phases: the row below the slab and
+//                            the row above it come in as halo rows, nothing
+//                            wraps in y; replaces ::_wilson_rank1_kernel in
+//                            its halo_frame form, which
 //                            qmg_tpu/shard_dslash.py::
 //                            make_sharded_pallas_wilson runs on each shard
 //
@@ -78,6 +79,14 @@
 // field as well as a block of its own; the phases' direction stride is
 // twice their parity stride in both cases. One slab moves 64 B/site plus
 // 2 halo rows x 2 parities x Xh x 16 B.
+//
+// The slab kernel on nrhs fields (the batched solve's level 0 on a mesh)
+// is K1 rhs's loop on K7's body: x, out and the halos each hold nrhs
+// fields at a field stride of their own (in sites), the thread reads its
+// four phases once and applies them to each field in turn, with K7's
+// loads and arithmetic, so field b of the output is bit for bit the slab
+// kernel on field b alone (nrhs = 1). A launch moves 32 + 32 nrhs B/site
+// plus nrhs x 2 halo rows.
 
 #include <cuda_runtime.h>
 
@@ -187,15 +196,17 @@ wilson_r1_kernel(const float2* __restrict__ phase,
   }
 }
 
-// One thread per site of the slab (2 parity, y_len rows, xh_len). The
-// strides *_ps are the distances between the two parity halves, in sites.
+// One thread per site of the slab (2 parity, y_len rows, xh_len), over
+// nrhs fields. The strides *_ps are the distances between the two parity
+// halves and *_fs those between two fields, in sites.
 __global__ void __launch_bounds__(kThreads)
 wilson_r1_halo_kernel(const float2* __restrict__ phase,
                       const float4* __restrict__ x,
                       const float4* __restrict__ top,
                       const float4* __restrict__ bot,
-                      float4* __restrict__ out, int y_len, int xh_len,
-                      int phase_ps, int x_ps, int halo_ps, int out_ps,
+                      float4* __restrict__ out, int nrhs, int y_len,
+                      int xh_len, int phase_ps, int x_ps, int halo_ps,
+                      int out_ps, int x_fs, int halo_fs, int out_fs,
                       float alpha) {
   const int half = y_len * xh_len;
   const int tid = blockIdx.x * blockDim.x + threadIdx.x;
@@ -208,23 +219,28 @@ wilson_r1_halo_kernel(const float2* __restrict__ phase,
   const bool direct = (y & 1) == q;
   const int col_xp = direct ? xh : (xh + 1 == xh_len ? 0 : xh + 1);
   const int col_xm = direct ? (xh == 0 ? xh_len - 1 : xh - 1) : xh;
-  const float4* src = x + (1 - q) * x_ps;        // neighbours: other parity
-  const float4* halo_top = top + (1 - q) * halo_ps;
-  const float4* halo_bot = bot + (1 - q) * halo_ps;
-
-  const float4 vxp = src[y * xh_len + col_xp];
-  const float4 vxm = src[y * xh_len + col_xm];
-  const float4 vyp = y + 1 == y_len ? halo_bot[xh] : src[rem + xh_len];
-  const float4 vym = y == 0 ? halo_top[xh] : src[rem - xh_len];
-  const float4 s = x[q * x_ps + rem];
 
   const float2 p_xp = phase[(0 * 2 + q) * phase_ps + rem];
   const float2 p_yp = phase[(1 * 2 + q) * phase_ps + rem];
   const float2 p_xm = phase[(2 * 2 + q) * phase_ps + rem];
   const float2 p_ym = phase[(3 * 2 + q) * phase_ps + rem];
 
-  out[q * out_ps + rem] = rank1_site(vxp, vxm, vyp, vym, s, p_xp, p_yp, p_xm,
-                                     p_ym, alpha);
+  for (int b = 0; b < nrhs; ++b) {
+    const float4* xb = x + b * static_cast<size_t>(x_fs);
+    const size_t halo_b = b * static_cast<size_t>(halo_fs);
+    const float4* src = xb + (1 - q) * x_ps;     // neighbours: other parity
+    const float4* halo_top = top + halo_b + (1 - q) * halo_ps;
+    const float4* halo_bot = bot + halo_b + (1 - q) * halo_ps;
+
+    const float4 vxp = src[y * xh_len + col_xp];
+    const float4 vxm = src[y * xh_len + col_xm];
+    const float4 vyp = y + 1 == y_len ? halo_bot[xh] : src[rem + xh_len];
+    const float4 vym = y == 0 ? halo_top[xh] : src[rem - xh_len];
+    const float4 s = xb[q * x_ps + rem];
+
+    out[b * static_cast<size_t>(out_fs) + q * out_ps + rem] = rank1_site(
+        vxp, vxm, vyp, vym, s, p_xp, p_yp, p_xm, p_ym, alpha);
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -332,20 +348,22 @@ extern "C" int wilson_phase_launch(const void* phase, const void* x,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The rank-1 apply on a slab of y_len (even) rows: x, out (2, y_len, Xh, 2)
-// and phase (4, 2, y_len, Xh) with parity strides x_ps, out_ps, phase_ps
-// (the phases' direction stride is 2 * phase_ps); top, bot (2, Xh, 2) with
-// parity stride halo_ps; all strides in sites.
-extern "C" int wilson_r1_halo_launch(const void* phase, const void* x,
-                                     const void* top, const void* bot,
-                                     void* out, int y_len, int xh_len,
-                                     int phase_ps, int x_ps, int halo_ps,
-                                     int out_ps, float alpha, void* stream) {
+// The rank-1 apply on a slab of y_len (even) rows of nrhs fields: x, out
+// (nrhs, 2, y_len, Xh, 2) and phase (4, 2, y_len, Xh) with parity strides
+// x_ps, out_ps, phase_ps (the phases' direction stride is 2 * phase_ps)
+// and field strides x_fs, out_fs; top, bot (nrhs, 2, Xh, 2) with parity
+// stride halo_ps and field stride halo_fs; all strides in sites.
+extern "C" int wilson_r1_halo_rhs_launch(
+    const void* phase, const void* x, const void* top, const void* bot,
+    void* out, int nrhs, int y_len, int xh_len, int phase_ps, int x_ps,
+    int halo_ps, int out_ps, int x_fs, int halo_fs, int out_fs, float alpha,
+    void* stream) {
+  if (nrhs < 1) return static_cast<int>(cudaErrorInvalidValue);
   wilson_r1_halo_kernel<<<blocks_for(y_len, xh_len), kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float2*>(phase), static_cast<const float4*>(x),
       static_cast<const float4*>(top), static_cast<const float4*>(bot),
-      static_cast<float4*>(out), y_len, xh_len, phase_ps, x_ps, halo_ps,
-      out_ps, alpha);
+      static_cast<float4*>(out), nrhs, y_len, xh_len, phase_ps, x_ps,
+      halo_ps, out_ps, x_fs, halo_fs, out_fs, alpha);
   return static_cast<int>(cudaGetLastError());
 }

@@ -45,11 +45,12 @@ The report adds the coarsest level's Krylov iterations per visit.
 ``--nrhs N`` (bench.py's ``--nrhs`` mode) solves N right-hand sides in
 one batched solve (``make_batched_solver``): the gaussians bench.py draws
 after the setup, in one outer FGCR whose lanes each follow their own
-sequential trajectory, the rhs axis through K1's and K6's rhs entries
-(``--fine-kernel wilson-r1`` or ``none``, ``--coarse-apply plain`` or
-``small``). ``--fixed-schedule OUTER`` runs exactly OUTER outer trips on
-every lane with the adaptive inner loops, ``OUTER,INNER`` also fixes every
-intermediate level at INNER trips (it needs the dense coarsest);
+sequential trajectory, the rhs axis through K1's (K7's on a mesh) and
+K6's rhs entries (``--fine-kernel wilson-r1`` or ``none``,
+``--coarse-apply plain`` or ``small``). ``--fixed-schedule OUTER`` runs
+exactly OUTER outer trips on every lane with the adaptive inner loops,
+``OUTER,INNER`` also fixes every intermediate level at INNER trips (it
+needs the dense coarsest);
 ``--calibrated`` takes the outer count of one adaptive solve of a probe
 right-hand side (drawn first) plus one, and holds every lane to bench.py's
 contract: rel res_sq = res_sq / (tol^2 ||b||^2) at most 1, and the largest
@@ -82,7 +83,7 @@ and POSTSMOOTH over the run's solves) and ``[QMG-ITER-STATS]``
 Level 0 can be cut into y-slabs (``parallel.Mesh``; fine kernel
 ``wilson-r1``, the slab kernel, or ``none``), for the setup and the
 solve, in every formulation (``--outer schur``, ``--deflate``, ``--nrhs``,
-whose batched solve takes ``--fine-kernel none``, its default there):
+whose batched solve takes the slab kernel's rhs entry):
 
     python -m qmg_tpu_torch.kcycle --size 2048 --shards 4
     torchrun --nproc-per-node N -m qmg_tpu_torch.kcycle --distributed
@@ -791,10 +792,8 @@ def main(argv=None):
         raise SystemExit("--n-setup takes a number of passes >= 0")
     sharded = args.distributed or args.shards is not None
     if args.fine_kernel is None:
-        # No kernel applies a Schur operator, and K7 takes no rhs axis.
-        args.fine_kernel = ("none" if args.outer == "schur"
-                            or (sharded and schedule is not False)
-                            else "wilson-r1")
+        # No kernel applies a Schur operator.
+        args.fine_kernel = "none" if args.outer == "schur" else "wilson-r1"
     if args.coarse_apply is None:
         args.coarse_apply = "plain"
     is_cuda = torch.device(args.device).type == "cuda"

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from .lattice import Lattice2D
+from .spans import span
 from .stencil import StencilCoeffs
 
 __all__ = ["Mesh", "make_mesh", "shard_field", "unshard_field",
@@ -54,7 +55,9 @@ class Mesh:
 
     ``sent`` counts the bytes this process handed to each collective
     ("halo", "sum", "gather", and "digest" for ``check_replicated``); an
-    in-process mesh sends nothing.
+    in-process mesh sends nothing. Under a profiler each collective is a
+    span ``qmg.mesh.<kind>`` (``spans``); on an in-process mesh each halo
+    exchange that a distributed one would launch is one too.
     """
 
     def __init__(self, ny: int, nx: int = 1, group=None):
@@ -100,23 +103,25 @@ class Mesh:
                     else (iy, (ix + step) % n))
 
         if not self.distributed:
-            return [edges[iy * self.nx + ix] for iy, ix in
-                    (neighbour(*blk, offset) for blk in self.blocks)]
+            with span("qmg.mesh.halo"):
+                return [edges[iy * self.nx + ix] for iy, ix in
+                        (neighbour(*blk, offset) for blk in self.blocks)]
         import torch.distributed as dist
         (edge,), (blk,) = edges, self.blocks
-        send = edge.contiguous()
-        recv = torch.empty_like(send)
 
         def peer(step):
             iy, ix = neighbour(*blk, step)
             return dist.get_global_rank(self.group, iy * self.nx + ix)
 
-        ops = [dist.P2POp(dist.isend, _as_real(send), peer(-offset),
-                          self.group),
-               dist.P2POp(dist.irecv, _as_real(recv), peer(offset),
-                          self.group)]
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
+        with span("qmg.mesh.halo"):
+            send = edge.contiguous()
+            recv = torch.empty_like(send)
+            ops = [dist.P2POp(dist.isend, _as_real(send), peer(-offset),
+                              self.group),
+                   dist.P2POp(dist.irecv, _as_real(recv), peer(offset),
+                              self.group)]
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
         self.sent["halo"] += send.numel() * send.element_size()
         return [recv]
 
@@ -126,7 +131,8 @@ class Mesh:
         if not self.distributed:
             return t
         import torch.distributed as dist
-        dist.all_reduce(_as_real(t), group=self.group)
+        with span("qmg.mesh.sum"):
+            dist.all_reduce(_as_real(t), group=self.group)
         self.sent["sum"] += t.numel() * t.element_size()
         return t
 
@@ -137,12 +143,14 @@ class Mesh:
             raise ValueError("an in-process mesh holds whole fields: "
                              "nothing to gather")
         import torch.distributed as dist
-        slab = slab.contiguous()
-        parts = [torch.empty_like(slab) for _ in range(self.ny * self.nx)]
-        dist.all_gather([_as_real(p) for p in parts], _as_real(slab),
-                        group=self.group)
-        self.sent["gather"] += slab.numel() * slab.element_size()
-        return _join(parts, self.shape, y_dim)
+        with span("qmg.mesh.gather"):
+            slab = slab.contiguous()
+            parts = [torch.empty_like(slab)
+                     for _ in range(self.ny * self.nx)]
+            dist.all_gather([_as_real(p) for p in parts], _as_real(slab),
+                            group=self.group)
+            self.sent["gather"] += slab.numel() * slab.element_size()
+            return _join(parts, self.shape, y_dim)
 
 
 def _as_real(t):
@@ -292,9 +300,10 @@ def check_replicated(mesh: Mesh, arrays: dict) -> int:
         return 0
     import torch.distributed as dist
     names = sorted(arrays)
-    mine = torch.stack([_digest(arrays[n]) for n in names])
-    parts = [torch.empty_like(mine) for _ in range(mesh.ny * mesh.nx)]
-    dist.all_gather(parts, mine, group=mesh.group)
+    with span("qmg.mesh.digest"):
+        mine = torch.stack([_digest(arrays[n]) for n in names])
+        parts = [torch.empty_like(mine) for _ in range(mesh.ny * mesh.nx)]
+        dist.all_gather(parts, mine, group=mesh.group)
     mesh.sent["digest"] += mine.numel() * mine.element_size()
     for i, name in enumerate(names):
         rows = torch.stack([p[i] for p in parts])

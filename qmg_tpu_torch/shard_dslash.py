@@ -13,7 +13,8 @@ own on a distributed one, where the edges travel through
   * ``make_sharded_wilson(coeffs, mesh, mass)``: the rank-1 Wilson kernel
     on the y-slabs of a (ny, 1) mesh, one launch of
     ``wilson_kernel.wilson_r1_halo_apply`` per slab with the neighbouring
-    slabs' edge rows as its halos.
+    slabs' edge rows as its halos; with ``nrhs``, on a leading rhs axis,
+    one launch per slab for all fields.
 
 Both take the whole lattice's coefficients and fields on an in-process
 mesh, and the rank's block of each (``parallel.shard_coeffs``,
@@ -218,19 +219,21 @@ def make_sharded_dslash(coeffs: StencilCoeffs, mesh: Mesh):
 
 
 def make_sharded_wilson(coeffs: StencilCoeffs, mesh: Mesh, mass: float,
-                        w: float = 1.0):
+                        w: float = 1.0, nrhs: int | None = None):
     """The rank-1 Wilson kernel on y-slabs (the counterpart of qmg_tpu's
     ``make_sharded_pallas_wilson``): returns x -> M x for complex64 x,
-    one ``wilson_r1_halo_apply`` per held slab. A slab's halos are the
-    last row of the slab below and the first row of the slab above, both
-    parities: rows of the whole field in place on an in-process mesh
-    (``wilson_kernel.bind_halo_slabs``: nothing is copied, each slab
-    writes its rows of one output field, and the wrapper's checks are
-    made once, not per launch), the receive buffers of two ring
-    exchanges on a distributed one (``wilson_kernel.bind_halo``: the
-    checks of the rank's phases and shapes made once, those of x and the
-    two buffers per call). With one slab they are the slab's own last and
-    first rows.
+    one ``wilson_r1_halo_apply`` per held slab. With ``nrhs`` x carries a
+    leading rhs axis (nrhs, 2, Y, Xh, 2) and each launch applies every
+    field, whose edge rows travel together: one exchange a side. A
+    slab's halos are the last row of the slab below and the first row of
+    the slab above, both parities: rows of the whole field in place on an
+    in-process mesh (``wilson_kernel.bind_halo_slabs``: nothing is
+    copied, each slab writes its rows of one output field, and the
+    wrapper's checks are made once, not per launch), the receive buffers
+    of two ring exchanges on a distributed one
+    (``wilson_kernel.bind_halo``: the checks of the rank's phases and
+    shapes made once, those of x and the two buffers per call). With one
+    slab they are the slab's own last and first rows.
 
     Requires an x-unsharded (ny, 1) mesh, as qmg_tpu does: the kernel
     wraps +-x inside the slab. qmg_tpu also asks for a local row count
@@ -261,12 +264,12 @@ def make_sharded_wilson(coeffs: StencilCoeffs, mesh: Mesh, mass: float,
 
     if mesh.distributed:
         # One rank is its own neighbour: ring_recv hands its edges back.
-        kernel = bind_halo(phase, alpha, own_halos=mesh.ny == 1)
+        kernel = bind_halo(phase, alpha, own_halos=mesh.ny == 1, nrhs=nrhs)
 
         def apply_fn(x):
-            (top,) = mesh.ring_recv([x[:, -1]], "y", -1)
-            (bot,) = mesh.ring_recv([x[:, 0]], "y", +1)
+            (top,) = mesh.ring_recv([x.select(-3, -1)], "y", -1)
+            (bot,) = mesh.ring_recv([x.select(-3, 0)], "y", +1)
             return kernel(x, top, bot)
         return apply_fn
 
-    return bind_halo_slabs(phase, mesh.ny, alpha)
+    return bind_halo_slabs(phase, mesh.ny, alpha, nrhs)

@@ -101,12 +101,12 @@ def _wilson_apply(fine: Stencil2D, kind: str, mesh: Mesh | None = None,
     (``wilson_kernel.bind_wilson``). The kernels ignore the clover array
     and assume 2w I, so anything but a Wilson operator is refused. With
     ``nrhs`` the apply takes (nrhs, *cv_shape) fields through the rank-1
-    kernel's rhs entry."""
+    kernel's rhs entry (on a mesh, the slab kernel's)."""
     _check_wilson(fine, kind)
     w = fine.wilson_coeff
     mass = float(np.real(fine.coeffs.shift))
     if mesh is not None:
-        kernel = make_sharded_wilson(fine.coeffs, mesh, mass, w)
+        kernel = make_sharded_wilson(fine.coeffs, mesh, mass, w, nrhs)
         return lambda v: kernel(v.to(torch.complex64).contiguous()).to(
             v.dtype)
     phase = wilson_phases(fine.coeffs.hopping, w)
@@ -193,8 +193,8 @@ def _overrides(stencils, nrhs, fine_kernel, coarse_apply, coeff_dtype,
     """(the levels' apply overrides, their names) for one field (``nrhs``
     None) or a batch (nrhs, *cv_shape): a single-field kernel (or the
     gather apply, or the sharded apply on a mesh), at nrhs = 1 handed lane
-    0's view; above it the rhs entries of K1 and K6, one launch for all
-    lanes (the callers refuse the kinds that have none)."""
+    0's view; above it the rhs entries of K1 (K7 on a mesh) and K6, one
+    launch for all lanes (the callers refuse the kinds that have none)."""
     fine = stencils[0]
     rhs = nrhs if nrhs and nrhs > 1 else None
     fns, names = [None], [fine_kernel or "plain"]
@@ -490,7 +490,9 @@ def make_batched_solver(mg: StatefulMultigridMG, tol: float = 1e-8,
 
     The rhs axis goes through the kernels: ``fine_kernel="wilson-r1"``
     applies level 0 inside the K-cycle with the rank-1 kernel's rhs entry
-    (``wilson_r1_rhs_apply``, one launch for all lanes), and
+    (``wilson_r1_rhs_apply``, one launch for all lanes; on a mesh the
+    slab kernel's, one launch a slab and one halo exchange a side for all
+    lanes), and
     ``coarse_apply="small"`` the coarse levels that fit it with K6's
     (``dslash_small_rhs_apply``), each bound once per solver and nrhs; at
     nrhs = 1 they take their single-field entries. ``None`` and "plain"
@@ -498,9 +500,9 @@ def make_batched_solver(mg: StatefulMultigridMG, tol: float = 1e-8,
     matvec is always the exact plain apply. The other kernels and the
     gather apply are refused: they have no rhs axis, as qmg_tpu refuses
     its Pallas kernels in a batched solve. ``mesh`` cuts level 0 as in
-    ``make_solver``, with the plain sharded apply (``fine_kernel=None``:
-    K7 has no rhs axis either); B is then whole on an in-process mesh and
-    the rank's blocks on a distributed one. ``fixed_outer_iters``
+    ``make_solver``, with the slab kernel (``fine_kernel="wilson-r1"``)
+    or the plain sharded apply (None); B is then whole on an in-process
+    mesh and the rank's blocks on a distributed one. ``fixed_outer_iters``
     runs exactly that many outer trips on every lane with no stopping test
     (``make_fixed_batched_solver``). ``trace`` goes to the outer solve
     (``solvers.gcr_var_precond_restart_batched``): called at each restart
@@ -509,17 +511,12 @@ def make_batched_solver(mg: StatefulMultigridMG, tol: float = 1e-8,
         raise ValueError(
             f"batched solves take fine_kernel in {BATCHED_FINE_KERNELS}, got "
             f"{fine_kernel!r}: the other fine kernels have no rhs axis yet "
-            "(ROADMAP Queue 2 item 5: an rhs axis for K2, K4, K5 and K7)")
+            "(ROADMAP Queue 2 item 5: an rhs axis for K2, K4 and K5)")
     coarse_apply = "plain" if coarse_apply == "jnp" else coarse_apply
     if coarse_apply not in BATCHED_COARSE_APPLIES:
         raise ValueError(
             f"batched solves take coarse_apply in {BATCHED_COARSE_APPLIES}, "
             f"got {coarse_apply!r}: the gather apply has no rhs axis")
-    if mesh is not None and fine_kernel is not None:
-        raise ValueError(
-            f"batched solves on a mesh take fine_kernel=None, got "
-            f"{fine_kernel!r}: the slab kernel K7 has no rhs axis yet "
-            "(ROADMAP Queue 2 item 5: an rhs axis for K2, K4, K5 and K7)")
     lanes = _lane_solver(mg, tol, max_iter, restart_freq, fine_kernel,
                          coarse_apply, None, mesh, outer_type, False,
                          fixed_outer_iters, trace)

@@ -29,6 +29,12 @@ levels indexed from 0, the finest:
                                 level l - 1: all of levels >= l
   qmg.readback                  a host read-back (``solvers.READBACKS``)
   qmg.setup.{stage}             a stage of the setup
+  qmg.mesh.halo, qmg.mesh.sum, qmg.mesh.gather, qmg.mesh.digest
+                                a collective of ``parallel.Mesh``: a ring
+                                halo exchange, the ``all_reduce`` of an
+                                inner product, the ``all_gather`` of a
+                                coarse slab, the digest check of the
+                                replicated levels
 """
 
 from __future__ import annotations

@@ -24,7 +24,10 @@ operator (``wilson_phases``), complex64:
     qmg_tpu/shard_dslash.py runs on each shard): ``top`` is the row below
     the slab and ``bot`` the row above it, each (2 parity, Xh, 2 spin);
     nothing wraps in y. The slab, its phases and the halos may be views of
-    a whole field (rows y0 .. y0 + Y_loc of every parity).
+    a whole field (rows y0 .. y0 + Y_loc of every parity). x, the halos
+    and ``out`` may carry a leading rhs axis (nrhs, 2, Y_loc, Xh, 2) with
+    one set of phases (the batched solve's level 0 on a mesh): one launch
+    for all fields, field b bit for bit the slab kernel on field b.
 
 On a CUDA tensor each wrapper launches its kernel, or raises; on a CPU
 tensor it runs its ``*_plain`` twin, which repeats the kernel's
@@ -34,9 +37,10 @@ A wrapper checks everything on every call. Callers that apply one
 operator many times (the solve, the benchmark chains) bind it instead:
 ``bind_wilson`` (the three whole-lattice kernels), ``bind_halo_slabs``
 (the slab kernel on the slabs of a whole field in one process) and
-``bind_halo`` (the slab kernel on one rank's slab) make the checks of the
-fixed arguments once and return an apply that checks x in one expression
-and launches; the launches count on the wrapper as its own do.
+``bind_halo`` (the slab kernel on one rank's slab), the last two on one
+field or with ``nrhs`` on an rhs axis, make the checks of the fixed
+arguments once and return an apply that checks x in one expression and
+launches; the launches count on the wrapper as its own do.
 """
 
 from __future__ import annotations
@@ -79,10 +83,10 @@ def build_wilson() -> float:
     fn.argtypes = [ptr, ptr, ptr, c_int, c_int, c_int, c_float, ptr]
     fn.restype = c_int
     _LIB["wilson_r1_rhs_launch"] = fn
-    fn = lib.wilson_r1_halo_launch
-    fn.argtypes = [ptr] * 5 + [c_int] * 6 + [c_float, ptr]
+    fn = lib.wilson_r1_halo_rhs_launch
+    fn.argtypes = [ptr] * 5 + [c_int] * 10 + [c_float, ptr]
     fn.restype = c_int
-    _LIB["wilson_r1_halo_launch"] = fn
+    _LIB["wilson_r1_halo_rhs_launch"] = fn
     _LIB["lib"] = lib
     return seconds
 
@@ -140,12 +144,18 @@ def wilson_r1_halo_apply_plain(phase_loc, x_loc, top, bot, alpha: float):
     slab's pulls, +-x inside the slab (its rows have the lattice's row
     parity, the slab holding an even number of rows) and +-y from the
     other parity's rows, the slab's edge rows reading ``bot`` (+y of the
-    last row) and ``top`` (-y of the first)."""
-    other = x_loc.flip(0)
-    vyp = torch.cat([other[:, 1:], bot.flip(0)[:, None]], dim=1)
-    vym = torch.cat([top.flip(0)[:, None], other[:, :-1]], dim=1)
-    pulls = [cshift_pull(x_loc, DIR_XP1), vyp, cshift_pull(x_loc, DIR_XM1),
-             vym]
+    last row) and ``top`` (-y of the first). x (*batch, 2, Y_loc, Xh, 2)
+    and the halos (*batch, 2, Xh, 2) may carry the same leading batch
+    axes, the phases broadcast over them."""
+    nb = x_loc.ndim - 4
+    other = x_loc.flip(nb)
+    vyp = torch.cat([other.narrow(nb + 1, 1, x_loc.shape[nb + 1] - 1),
+                     bot.flip(nb).unsqueeze(nb + 1)], dim=nb + 1)
+    vym = torch.cat([top.flip(nb).unsqueeze(nb + 1),
+                     other.narrow(nb + 1, 0, x_loc.shape[nb + 1] - 1)],
+                    dim=nb + 1)
+    pulls = [cshift_pull(x_loc, DIR_XP1, nb), vyp,
+             cshift_pull(x_loc, DIR_XM1, nb), vym]
     return _rank1(phase_loc, x_loc, pulls, alpha)
 
 
@@ -364,10 +374,26 @@ def _parity_stride(name: str, what: str, t, p_ax: int, unit: int) -> int:
     return t.stride(p_ax) // unit
 
 
+def _field_stride(name: str, what: str, t, ps: int, unit: int) -> int:
+    """The distance between two fields of ``t`` (rhs axis 0), in sites of
+    ``unit`` elements: at least two parity strides ``ps``, so that no two
+    fields overlap; 0 for one field."""
+    if t.shape[0] == 1:
+        return 0
+    fs, rem = divmod(t.stride(0), unit)
+    if rem or fs < 2 * ps:
+        raise ValueError(f"{name}: the fields of {what} overlap or are not "
+                         f"whole sites apart, got shape {tuple(t.shape)} "
+                         f"strides {t.stride()}")
+    return fs
+
+
 def _halo_args(name: str, phase_loc, x_loc, top, bot, out=None):
     """The slab kernel's input checks; returns the launch function's
-    integers (Y_loc, Xh, and the parity strides of phase, x, the halos
-    and out, in sites). ``out=None`` stands for a new dense tensor."""
+    integers: nrhs, Y_loc, Xh, the parity strides of phase, x, the halos
+    and out, and the field strides of x, the halos and out, in sites. One
+    field without a leading rhs axis is nrhs 1 at field strides 0.
+    ``out=None`` stands for a new dense tensor."""
     tensors = {"phase": phase_loc, "x": x_loc, "top": top, "bot": bot}
     if out is not None:
         tensors["out"] = out
@@ -381,16 +407,19 @@ def _halo_args(name: str, phase_loc, x_loc, top, bot, out=None):
         if t.is_conj():
             raise ValueError(f"{name} needs resolved (non-lazy-conj) "
                              f"tensors")
-    if x_loc.ndim != 4 or x_loc.shape[0] != 2 or x_loc.shape[-1] != 2:
-        raise ValueError(f"{name}: x must be (2, Y_loc, Xh, 2), got "
-                         f"{tuple(x_loc.shape)}")
-    y_loc, xh_len = x_loc.shape[1], x_loc.shape[2]
+    rhs = x_loc.ndim == 5
+    if (x_loc.ndim not in (4, 5) or x_loc.shape[-4] != 2
+            or x_loc.shape[-1] != 2 or (rhs and x_loc.shape[0] < 1)):
+        raise ValueError(f"{name}: x must be (2, Y_loc, Xh, 2) or (nrhs, 2, "
+                         f"Y_loc, Xh, 2), got {tuple(x_loc.shape)}")
+    lead = tuple(x_loc.shape[:1]) if rhs else ()
+    y_loc, xh_len = x_loc.shape[-3], x_loc.shape[-2]
     if y_loc % 2:
         raise ValueError(f"{name}: the slab's row count {y_loc} must be "
                          f"even, so that a slab row's parity is the "
                          f"lattice row's")
-    expect = {"phase": (4, 2, y_loc, xh_len), "top": (2, xh_len, 2),
-              "bot": (2, xh_len, 2), "out": tuple(x_loc.shape)}
+    expect = {"phase": (4, 2, y_loc, xh_len), "top": lead + (2, xh_len, 2),
+              "bot": lead + (2, xh_len, 2), "out": tuple(x_loc.shape)}
     for what, t in tensors.items():
         if what in expect and tuple(t.shape) != expect[what]:
             raise ValueError(f"{name}: {what} must be {expect[what]}, got "
@@ -400,29 +429,48 @@ def _halo_args(name: str, phase_loc, x_loc, top, bot, out=None):
         raise ValueError(f"{name}: the phases' direction stride must be "
                          f"twice their parity stride, got strides "
                          f"{phase_loc.stride()}")
-    x_ps, halo_ps, bot_ps = (_parity_stride(name, what, tensors[what], 0, 2)
+    p_ax = len(lead)
+    x_ps, halo_ps, bot_ps = (_parity_stride(name, what, tensors[what], p_ax,
+                                            2)
                              for what in ("x", "top", "bot"))
     if bot_ps != halo_ps:
         raise ValueError(f"{name}: top and bot must share one parity "
                          f"stride")
     out_ps = (y_loc * xh_len if out is None
-              else _parity_stride(name, "out", out, 0, 2))
-    # The kernel's largest index is (3 * 2 + 1) * phase_ps + Y_loc * Xh
-    # < 8 * phase_ps, in 32-bit ints.
-    largest = max(phase_ps, x_ps, halo_ps, out_ps)
-    if 8 * largest > 2 ** 31:
+              else _parity_stride(name, "out", out, p_ax, 2))
+    strides = [phase_ps, x_ps, halo_ps, out_ps]
+    field_strides = (0, 0, 0)
+    if rhs:
+        x_fs, halo_fs, bot_fs = (_field_stride(name, what, tensors[what], ps,
+                                               2)
+                                 for what, ps in (("x", x_ps),
+                                                  ("top", halo_ps),
+                                                  ("bot", halo_ps)))
+        if bot_fs != halo_fs:
+            raise ValueError(f"{name}: top and bot must share one field "
+                             f"stride")
+        out_fs = (_field_stride(name, "out", out, out_ps, 2)
+                  if out is not None else 0 if lead[0] == 1
+                  else 2 * y_loc * xh_len)
+        field_strides = (x_fs, halo_fs, out_fs)
+    # The kernel's largest index within a field is (3 * 2 + 1) * phase_ps
+    # + Y_loc * Xh < 8 * phase_ps, in 32-bit ints; fields are offset in 64
+    # bits from field strides passed as 32-bit ints.
+    largest = max(strides)
+    if 8 * largest > 2 ** 31 or max(field_strides) >= 2 ** 31:
         raise ValueError(f"{name}: slab {tuple(x_loc.shape)} with parity "
                          f"strides up to {largest} sites is too large for "
                          f"the kernel's 32-bit indices")
     if x_loc.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {x_loc.device}")
-    return y_loc, xh_len, phase_ps, x_ps, halo_ps, out_ps
+    return (lead[0] if rhs else 1, y_loc, xh_len, *strides, *field_strides)
 
 
 def _halo_launch(name: str, ptrs, ints, alpha: float, stream: int):
     """Launch the slab kernel on raw addresses (phase, x, top, bot, out),
-    each checked by ``_halo_args`` and for alignment by the caller."""
-    err = _LIB["wilson_r1_halo_launch"](*ptrs, *ints, alpha, stream)
+    each checked by ``_halo_args`` (whose integers ``ints`` are) and for
+    alignment by the caller."""
+    err = _LIB["wilson_r1_halo_rhs_launch"](*ptrs, *ints, alpha, stream)
     if err != 0:
         raise RuntimeError(f"{name}'s launch failed: CUDA error {err}")
     wilson_r1_halo_apply.launches += 1
@@ -432,10 +480,12 @@ def wilson_r1_halo_apply(phase_loc, x_loc, top, bot, alpha: float,
                          out=None):
     """Rank-1 Wilson apply (w = 1) on a y-slab: x_loc (2, Y_loc, Xh, 2)
     with Y_loc even, phase_loc (4, 2, Y_loc, Xh), halo rows top and bot
-    (2, Xh, 2); the CUDA kernel for CUDA tensors, the plain twin for CPU
-    tensors. Each argument may be a view of whole rows of a larger field.
-    ``out`` names where the result goes (such a view too); by default a
-    new tensor."""
+    (2, Xh, 2); or nrhs fields, x_loc (nrhs, 2, Y_loc, Xh, 2) and halos
+    (nrhs, 2, Xh, 2), with one set of phases, in one launch, field b bit
+    for bit the apply to field b alone. The CUDA kernel for CUDA tensors,
+    the plain twin for CPU tensors. Each argument may be a view of whole
+    rows of a larger field. ``out`` names where the result goes (such a
+    view too); by default a new tensor."""
     name = "wilson_r1_halo_apply"
     ints = _halo_args(name, phase_loc, x_loc, top, bot, out)
     if x_loc.device.type == "cpu":
@@ -455,13 +505,15 @@ def wilson_r1_halo_apply(phase_loc, x_loc, top, bot, alpha: float,
     return out
 
 
-def bind_halo(phase_loc, alpha: float, own_halos: bool):
+def bind_halo(phase_loc, alpha: float, own_halos: bool,
+              nrhs: int | None = None):
     """``wilson_r1_halo_apply`` for one slab with fixed contiguous phases
     (4, 2, Y_loc, Xh), with the wrapper's checks made here, once: returns
-    apply(x, top, bot) for a contiguous complex64 x (2, Y_loc, Xh, 2) and
-    halo rows (2, Xh, 2) that are either the slab's own last and first
-    rows, ``x[:, -1]`` and ``x[:, 0]`` (``own_halos``: a mesh of one
-    slab), or dense buffers (what a halo exchange receives). Each call
+    apply(x, top, bot) for a contiguous complex64 x (2, Y_loc, Xh, 2), or
+    with ``nrhs`` (nrhs, 2, Y_loc, Xh, 2), and halo rows (2, Xh, 2), or
+    (nrhs, 2, Xh, 2), that are either the slab's own last and first rows,
+    ``x[..., -1, :, :]`` and ``x[..., 0, :, :]`` (``own_halos``: a mesh of
+    one slab), or dense buffers (what a halo exchange receives). Each call
     checks shapes, strides, types, devices and alignment in one expression
     per tensor and launches (counted in ``wilson_r1_halo_apply.launches``);
     for CPU phases it runs the twin."""
@@ -473,13 +525,15 @@ def bind_halo(phase_loc, alpha: float, own_halos: bool):
                          f"{tuple(phase_loc.shape)}")
     _, _, y_loc, xh_len = phase_loc.shape
     device, alpha = phase_loc.device, float(alpha)
-    x_shape = torch.Size((2, y_loc, xh_len, 2))
+    lead = () if nrhs is None else (int(nrhs),)
+    x_shape = torch.Size(lead + (2, y_loc, xh_len, 2))
     probe = torch.empty(x_shape, dtype=torch.complex64, device=device)
     if own_halos:
-        halos = (probe[:, -1], probe[:, 0])
+        halos = (probe.select(-3, -1), probe.select(-3, 0))
     else:
-        halos = tuple(torch.empty((2, xh_len, 2), dtype=torch.complex64,
-                                  device=device) for _ in range(2))
+        halos = tuple(torch.empty(lead + (2, xh_len, 2),
+                                  dtype=torch.complex64, device=device)
+                      for _ in range(2))
     ints = _halo_args(name, phase_loc, probe, *halos)
     halo_shape, halo_stride = halos[0].shape, halos[0].stride()
 
@@ -525,26 +579,29 @@ def bind_halo(phase_loc, alpha: float, own_halos: bool):
     return apply
 
 
-def bind_halo_slabs(phase, ny: int, alpha: float):
+def bind_halo_slabs(phase, ny: int, alpha: float, nrhs: int | None = None):
     """The rank-1 apply on a whole field cut into ``ny`` y-slabs, with
     ``wilson_r1_halo_apply``'s checks made here, once: returns apply(x)
-    for a contiguous complex64 x (2, Y, Xh, 2) on ``phase``'s device.
-    Each slab is one launch (counted in ``wilson_r1_halo_apply.launches``)
-    on rows of x in place, its halos the neighbouring slabs' edge rows
-    (its own at ny = 1), its result written into its rows of one output
-    field: nothing is copied. For CPU tensors the twin per slab."""
+    for a contiguous complex64 x (2, Y, Xh, 2), or with ``nrhs`` (nrhs,
+    2, Y, Xh, 2), on ``phase``'s device. Each slab is one launch (counted
+    in ``wilson_r1_halo_apply.launches``) on rows of x in place, all
+    fields at once, its halos the neighbouring slabs' edge rows (its own
+    at ny = 1), its result written into its rows of one output field:
+    nothing is copied. For CPU tensors the twin per slab."""
     name = "wilson_r1_halo_apply"
     phase = phase.contiguous()
     _, _, y_len, xh_len = phase.shape
     if y_len % ny:
         raise ValueError(f"{name}: Y={y_len} does not tile {ny} slabs")
     y_loc = y_len // ny
-    x_shape, device = (2, y_len, xh_len, 2), phase.device
+    lead = () if nrhs is None else (int(nrhs),)
+    x_shape, device = lead + (2, y_len, xh_len, 2), phase.device
     alpha = float(alpha)
 
     def slab(x, out, y0):
-        return (phase[:, :, y0:y0 + y_loc], x[:, y0:y0 + y_loc], x[:, y0 - 1],
-                x[:, (y0 + y_loc) % y_len], out[:, y0:y0 + y_loc])
+        return (phase[:, :, y0:y0 + y_loc], x.narrow(-3, y0, y_loc),
+                x.select(-3, y0 - 1), x.select(-3, (y0 + y_loc) % y_len),
+                out.narrow(-3, y0, y_loc))
 
     probe = torch.empty(x_shape, dtype=torch.complex64, device=device)
     launches = []   # per slab: its integers, its tensors' byte offsets

@@ -229,8 +229,8 @@ def test_refusals(problem):
     with pytest.raises(ValueError, match="gather"):
         make_batched_solver(mg, coarse_apply="gather")
     from qmg_tpu_torch.parallel import Mesh
-    with pytest.raises(ValueError, match="K7 has no rhs axis"):
-        make_batched_solver(mg, mesh=Mesh(2, 1))
+    with pytest.raises(ValueError, match="x-unsharded"):
+        make_batched_solver(mg, mesh=Mesh(2, 2))
     mg.get_stencil(0).wilson_coeff = 1.3     # the rank-1 kernel's w = 1
     with pytest.raises(ValueError, match="wilson_coeff=1"):
         make_batched_solver(mg, fine_kernel="wilson-r1")

@@ -62,8 +62,8 @@ def test_schur_deflate(capsys):
     (["--nrhs", "3", "--calibrated", "--fixed-schedule", "12"],
      "drop --fixed-schedule"),
     (["--nrhs", "3", "--fixed-schedule", "a,b"], "OUTER,INNER"),
-    (["--nrhs", "3", "--shards", "2", "--fine-kernel", "wilson-r1"],
-     "K7 has no rhs axis"),
+    (["--nrhs", "3", "--shards", "2", "--fine-kernel", "wilson-phase"],
+     "single-device"),
     (["--nrhs", "3", "--fine-kernel", "matrix"], "rhs axis"),
     (["--nrhs", "3", "--fixed-schedule", "4,2", "--no-direct"],
      "direct coarsest")])

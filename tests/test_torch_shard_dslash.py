@@ -413,14 +413,13 @@ def test_make_solver_mesh_refusals(small_mg, kw, message):
 
 
 @pytest.mark.parametrize("kw, message", [
-    (dict(fine_kernel="wilson-r1", mesh=Mesh(2, 1)), "K7 has no rhs axis"),
+    (dict(fine_kernel="wilson-r1", mesh=Mesh(2, 2)), "x-unsharded"),
     (dict(fine_kernel=None, mesh=Mesh(8, 1)), "does not align"),
     (dict(fine_kernel=None, mesh=Mesh(3, 1)), "does not tile"),
 ], ids=["r1", "align", "tile"])
 def test_make_batched_solver_mesh_refusals(small_mg, kw, message):
-    """The batched solve on a mesh takes the plain sharded apply (the slab
-    kernel has no rhs axis) and the single solve's tiling and alignment
-    refusals."""
+    """The batched solve on a mesh takes the single solve's refusals: the
+    slab kernel's x-unsharded mesh, tiling and alignment."""
     from qmg_tpu_torch.solve import make_batched_solver
     mg, _ = small_mg
     with pytest.raises(ValueError, match=message):
